@@ -1,0 +1,177 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), loaded through ``ctypes``. Builds happen at first use, never
+at import, into ``_build/<content hash>/`` next to this file: the hash
+covers every source under ``csrc/`` and the compiler flags, so an edit
+rebuilds and an unchanged tree reuses what is there. ``build_all``
+starts one ``nvcc`` per missing library, all at once, and waits for
+them together.
+
+Every C launcher takes its pointers and the CUDA stream as
+``c_void_p`` (ctypes would otherwise pass them as 32-bit ints), returns
+``cudaGetLastError()`` after the launch, and allocates nothing; the
+Python wrappers allocate outputs with ``torch.empty`` and raise when the
+returned code is not 0. ``LaunchCounter``s count the launches that
+succeeded, one per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+SOURCES = ("gram", "ensemble_score", "sdca")  # csrc/<name>.cu -> lib<name>.so
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "gram": {
+        # x1, x2, gammas, out, g, m, n, d, stream
+        "batched_rbf_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x1, x2, gamma, out, m, n, d, stream
+        "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _P],
+    },
+    "ensemble_score": {
+        # x, sup, coef, gammas, out, b, k, n_max, d, stream
+        "ensemble_score_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ensemble_score_smem_bytes": [_I],
+    },
+    "sdca": {
+        # K, y, n_real, alpha, g, b, lam, epochs, stream
+        "sdca_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "sdca_smem_bytes": [_I],
+    },
+}
+
+# shared memory a block may take on sm_90 (227 KB of the SM's 256 KB)
+MAX_SMEM_BYTES = 232448
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+class LaunchCounter:
+    """Launches of one kernel wrapper since the last ``reset``."""
+
+    __slots__ = ("name", "count")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    toolkit = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if toolkit.exists():
+        return str(toolkit)
+    raise RuntimeError("nvcc not found: the CUDA kernels build with the CUDA "
+                       "toolkit's nvcc, on PATH or under $CUDA_HOME/bin")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named library that is not built yet, one ``nvcc``
+    per source, all started together. Returns name -> compiler output
+    (``-Xptxas -v``: registers, shared memory, spills) for those built;
+    raises with the compiler's output if any build fails."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>.so``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_dir() / f"lib{name}.so"
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on ``device``
+    of the dtype the kernel takes (int32 for ``n_real``, else float32)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {device}")
+    for arg, t in tensors.items():
+        want = torch.int32 if arg == "n_real" else torch.float32
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(counter: LaunchCounter, device: torch.device, fn, *args) -> None:
+    """Run one C launcher on ``device``; raise on a CUDA error code,
+    count the launch otherwise."""
+    with torch.cuda.device(device):
+        rc = fn(*args, stream_handle(device))
+    if rc != 0:
+        raise RuntimeError(f"{counter.name}: kernel launch failed with CUDA error {rc}")
+    counter.count += 1
