@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs five phases, each printing one JSON line on stdout:
+``repro``, and runs six phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together;
@@ -15,21 +15,32 @@ It imports the port and nothing of JAX or of the reference package
            tolerance;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
-           the loop tier on cuda): equal ledgers, selected ids and best k,
-           AUCs within 1e-4;
+           the loop tier on cuda), then the int8 round with CG
+           distillation on cuda and on cpu: equal ledgers (the student's
+           download included), selected ids and best k, AUCs (the
+           distilled one included) within 1e-4;
   main     ``run_protocol`` on the full-scale emnist federation on cuda
            (``benchmarks/fig1_mean_auc.py``'s setting): the seconds of each
            ``round.*`` span, the AUCs, and each kernel's launches in that
-           run, all of which must be > 0; then the same round once more
-           under ``torch.profiler`` for the device's busy share;
+           run, all four of the fp32 round's kernels > 0; then the same
+           round once more under ``torch.profiler`` for the device's busy
+           share;
+  main_q8  the same federation with the int8 codec and CG distillation on
+           4,096 validation-pool proxy rows: spans (``distill.round``
+           included), AUCs (the distilled student's included), the
+           student's support count and codec, and each kernel's launches,
+           all seven > 0, ``gram_matvec``'s equal to the CG iterations;
+           then once more under the profiler;
   timing   each kernel and its plain version, in turns (plain, kernel,
            kernel, plain) with CUDA events, at main-path shapes, beside the
            analytic bound: the larger of fp32 operations over 67 TFLOP/s
            and bytes (each input read once, each output written once) over
            3.35 TB/s, the H100 SXM's published peaks.
 
-The last three lines are the per-kernel summary ``{"kernels": [...]}``,
-the card's name and power limit as ``nvidia-smi`` gives them, and
+The last three lines are the per-kernel summary ``{"kernels": [...]}``
+(each kernel's launches read from the round it was ported for: ``main``
+for the four fp32 kernels, ``main_q8`` for the three int8/CG ones, named
+in ``launches_path``), the card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
 directory without the port's sources. ``--phases`` runs a subset (for a
@@ -46,12 +57,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "timing")
+PHASES = ("build", "kernels", "parity", "main", "main_q8", "timing")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 PARITY_KS = (1, 10, 38)
+FP32_KERNELS = ("batched_rbf_gram", "rbf_gram", "ensemble_score", "sdca")
 
 
 def emit(obj) -> None:
@@ -83,8 +95,14 @@ def kernel_cases(rng, ops):
     registry's ragged shape. Shapes follow the full emnist round (d = 32;
     SDCA buckets 64..256 in groups of up to 256 devices; val/test queries
     padded to 8 rows; 8192-row scoring chunks; 2,821 eligible members of
-    up to 230 supports; the 2,000-row pooled ideal, SDCA bucket 2048)."""
+    up to 230 supports; the 2,000-row pooled ideal, SDCA bucket 2048) and
+    its int8 + distillation leg (CG on 4,096 proxy rows; the 4,096-support
+    int8 student scored in 8192-row chunks). int8 supports are quantised
+    from normal data by the port's own codec, so scale and zero are what
+    the wire gives."""
     import numpy as np
+
+    from repro_torch.comm.wire import _quantize_columns
 
     def gram1(m, n, d):
         x1, x2, _ = _gram_inputs(rng, 1, m, n, d)
@@ -98,6 +116,25 @@ def kernel_cases(rng, ops):
         coef = (rng.random((k, n_max)) * sign / (0.01 * n_max)).astype(np.float32)
         gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=k))).astype(np.float32)
         return x, sup, coef, gam
+
+    def ens_q8(b, k, n_max, d):
+        x, sup, coef, gam = ens(b, k, n_max, d)
+        q = np.empty((k, n_max, d), np.int8)
+        scale = np.empty((k, d), np.float32)
+        zero = np.empty((k, d), np.float32)
+        for t in range(k):
+            q[t], scale[t], zero[t] = _quantize_columns(sup[t])
+        return x, q, scale, zero, coef, gam
+
+    def matvec(l, d):
+        xp = rng.normal(size=(l, d)).astype(np.float32)
+        v = rng.normal(size=l).astype(np.float32)
+        return xp, xp, v, float(1.0 / (d * xp.var()))
+
+    def gram_q8(m, n, d):
+        x = rng.normal(size=(m, d)).astype(np.float32)
+        q, scale, zero = _quantize_columns(rng.normal(size=(n, d)).astype(np.float32))
+        return x, q, scale, zero, float(1.0 / d)
 
     def sdca(g, b, lo, hi):
         n_real = rng.integers(lo, hi + 1, size=g)
@@ -123,6 +160,16 @@ def kernel_cases(rng, ops):
             ("group g128 b256", sdca(128, 256, 193, 256)),
             ("ideal g1 b2048 n2000", sdca(1, 2048, 2000, 2000)),
         ],
+        "gram_matvec": [
+            ("cg l4096 d32", matvec(4096, 32)),
+        ],
+        "rbf_gram_q8": [
+            ("student predict b8192 n4096 d32", gram_q8(8192, 4096, 32)),
+        ],
+        "ensemble_score_q8": [
+            ("full b8192 k2821 n230", ens_q8(8192, 2821, 230, 32)),
+            ("k100 b8192 n230", ens_q8(8192, 100, 230, 32)),
+        ],
     }
     for name, spec in ops.KERNEL_REGISTRY.items():
         cases[name].append(("ragged", spec.make_ragged(rng)))
@@ -143,8 +190,9 @@ def to_device(args, device):
 
 def work_of(name, args):
     """Operations and bytes the function needs for these inputs (each
-    input read once, each output written once; SDCA counts the steps its
-    n_real coordinates take)."""
+    input read once, each output written once, int8 supports at one byte
+    an element and two operations an element to dequantise; SDCA counts
+    the steps its n_real coordinates take)."""
     if name in ("batched_rbf_gram", "rbf_gram"):
         x1, x2 = args[0], args[1]
         g = x1.shape[0] if x1.ndim == 3 else 1
@@ -161,6 +209,29 @@ def work_of(name, args):
         # per pair: 2d cross, 3 combine, clamp, scale, exp, 2 for coef*K + sum
         ops = b * k * n_max * (2 * d + 8) + 2 * d * (b + k * n_max) + b
         nbytes = 4 * (b * d + k * n_max * d + k * n_max + k + b)
+        return ops, nbytes
+    if name == "gram_matvec":
+        x1, x2 = args[0], args[1]
+        m, d = x1.shape
+        n = x2.shape[0]
+        # per pair: 2d cross, 3 combine, clamp, scale, exp, 2 for v*K + sum
+        ops = m * n * (2 * d + 8) + 2 * d * (m + n)
+        nbytes = 4 * (m * d + n * d + n + m)
+        return ops, nbytes
+    if name == "rbf_gram_q8":
+        x, q = args[0], args[1]
+        m, d = x.shape
+        n = q.shape[0]
+        ops = m * n * (2 * d + 6) + 2 * d * (m + n) + 2 * n * d
+        nbytes = 4 * m * d + n * d + 4 * 2 * d + 4 * m * n
+        return ops, nbytes
+    if name == "ensemble_score_q8":
+        x, q = args[0], args[1]
+        b, d = x.shape
+        k, n_max, _ = q.shape
+        ops = (b * k * n_max * (2 * d + 8) + 2 * d * (b + k * n_max) + b
+               + 2 * k * n_max * d)
+        nbytes = 4 * b * d + k * n_max * d + 4 * (2 * k * d + k * n_max + k + b)
         return ops, nbytes
     if name == "sdca":
         K, n_real, epochs = args[0], args[2], args[4]
@@ -193,10 +264,11 @@ def phase_build(native):
 
 
 def phase_kernels(ops, device, rng):
-    import numpy as np
+    """Every case of every kernel against its plain version; all cases run,
+    and the phase fails at the end if any disagreed."""
     import torch
 
-    results, errs = [], {}
+    results, errs, failed = [], {}, []
     for name, cases in kernel_cases(rng, ops).items():
         spec = ops.KERNEL_REGISTRY[name]
         for label, args in cases:
@@ -215,10 +287,12 @@ def phase_kernels(ops, device, rng):
                             "max_abs_err": err, "tol": spec.tol, "ok": ok})
             errs[name] = max(errs.get(name, 0.0), err)
             if not ok:
-                raise AssertionError(f"{name} [{label}]: max |kernel - plain| = "
-                                     f"{err} (tol {spec.tol}), finite={finite}")
+                failed.append(f"{name} [{label}]: max |kernel - plain| = {err} "
+                              f"(tol {spec.tol}), finite={finite}")
             del got, want, targs
     torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
     return {"cases": results}, errs
 
 
@@ -240,34 +314,45 @@ def auc_values(res):
     return np.asarray(vals, np.float64)
 
 
-def phase_parity(make_dataset, run_protocol):
+def phase_parity(make_dataset, run_protocol, DistillConfig):
     import numpy as np
 
     ds = make_dataset("gleam", seed=0, scale=1.0)
-    runs = {}
+    q8 = {"codec": "int8", "distill": DistillConfig(proxy_size=4096, solver="cg")}
+    runs, seconds = {}, {}
     for label, kw in (("cuda", {"device": "cuda"}),
                       ("cpu", {"device": "cpu"}),
-                      ("loop_cuda", {"device": "cuda", "engine": "loop"})):
+                      ("loop_cuda", {"device": "cuda", "engine": "loop"}),
+                      ("int8_cg_cuda", {"device": "cuda", **q8}),
+                      ("int8_cg_cpu", {"device": "cpu", **q8})):
         t0 = time.perf_counter()
         runs[label] = run_protocol(ds, ks=PARITY_KS, random_trials=3, **kw)
-        runs[label + "_seconds"] = time.perf_counter() - t0
-    base = runs["cuda"]
-    out = {"devices": ds.n_devices, "best": base.best,
-           "seconds": {k[:-8]: v for k, v in runs.items() if k.endswith("_seconds")}}
-    for other in ("cpu", "loop_cuda"):
+        seconds[label] = time.perf_counter() - t0
+    q8_res = runs["int8_cg_cuda"]
+    out = {"devices": ds.n_devices, "best": runs["cuda"].best, "seconds": seconds,
+           "int8_cg": {"best": q8_res.best, "distilled": q8_res.ensemble_auc["distilled"],
+                       "student_supports": len(q8_res.student.coef),
+                       "download_distilled": q8_res.ledger.total(tag="download_distilled")}}
+    for base, other in (("cuda", "cpu"), ("cuda", "loop_cuda"),
+                        ("int8_cg_cuda", "int8_cg_cpu")):
         res = runs[other]
-        same = round_signature(res) == round_signature(base)
-        diff = float(np.abs(auc_values(res) - auc_values(base)).max())
-        out[f"vs_{other}"] = {"ledger_ids_best_k_equal": same, "max_auc_diff": diff}
+        same = round_signature(res) == round_signature(runs[base])
+        diff = float(np.abs(auc_values(res) - auc_values(runs[base])).max())
+        out[f"{base}_vs_{other}"] = {"ledger_ids_best_k_equal": same, "max_auc_diff": diff}
         if not same:
             raise AssertionError(f"parity: {other} run's ledger, ids or best k differ "
-                                 "from the cuda run")
+                                 f"from the {base} run")
         if not diff <= AUC_TOL:
             raise AssertionError(f"parity: {other} AUCs differ by {diff} > {AUC_TOL}")
+    if "download_distilled" not in q8_res.ledger.as_dict():
+        raise AssertionError("parity: the int8 round recorded no student download")
     return out
 
 
-def phase_main(make_dataset, run_protocol, ops, trace):
+def phase_main(make_dataset, run_protocol, ops, trace, must_launch, **kw):
+    """One full-scale emnist round on cuda with ``kw`` (codec, distill),
+    then the same round under the profiler. ``must_launch`` names the
+    kernels that must have launched at least once in the measured round."""
     import numpy as np
     import torch
 
@@ -278,7 +363,7 @@ def phase_main(make_dataset, run_protocol, ops, trace):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with trace.use_tracer(tracer):
-        res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda")
+        res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -287,13 +372,14 @@ def phase_main(make_dataset, run_protocol, ops, trace):
     out = {
         "dataset": "emnist", "scale": 1.0, "devices": ds.n_devices,
         "samples": int(sum(d.n for d in ds.devices)), "generate_seconds": gen_s,
-        "round_seconds": wall,
+        "codec": res.codec, "round_seconds": wall,
         "spans": {k: v for k, v in sorted(spans.items())},
         "local_mean_auc": res.local_mean_auc, "ideal_mean_auc": res.ideal_mean_auc,
         "full_ensemble_auc": res.full_ensemble_auc, "best": res.best,
         "ensemble_auc": {s: {str(k): v for k, v in d.items()}
                          for s, d in res.ensemble_auc.items()},
         "comm_total_up": res.ledger.total(direction="up"),
+        "comm_total_down": res.ledger.total(direction="down"),
         "kernels": counts,
     }
     if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
@@ -302,14 +388,25 @@ def phase_main(make_dataset, run_protocol, ops, trace):
         if len(per) != ds.n_devices:
             raise AssertionError(f"main: per_device[{key}] has {len(per)} entries, "
                                  f"want {ds.n_devices}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in must_launch if counts[k] <= 0]
     if missing:
         raise AssertionError(f"main: kernels never launched on the main path: {missing}")
-    out["profile"] = profile_round(run_protocol, ds)
+    if res.student is not None:
+        cg = [ev["args"]["iterations"] for ev in tracer.events if ev["name"] == "distill.cg"]
+        out["student"] = {"codec": res.student_codec, "supports": len(res.student.coef),
+                          "type": type(res.student).__name__, "cg_iterations": cg,
+                          "download_bytes": res.ledger.total(tag="download_distilled"),
+                          "ensemble_download_bytes": res.ledger.total(tag="download_ensemble")}
+        if "distilled" not in res.per_device:
+            raise AssertionError("main: the distilled student was not evaluated")
+        if cg and sum(cg) != counts["gram_matvec"]:
+            raise AssertionError(f"main: gram_matvec launched {counts['gram_matvec']} "
+                                 f"times for {sum(cg)} CG iterations")
+    out["profile"] = profile_round(run_protocol, ds, **kw)
     return out
 
 
-def profile_round(run_protocol, ds):
+def profile_round(run_protocol, ds, **kw):
     """The same round once more, under ``torch.profiler``: the device's
     busy seconds (the sum of every kernel and copy on the card; one stream,
     so they do not overlap) against the round's wall seconds, and the
@@ -322,12 +419,12 @@ def profile_round(run_protocol, ds):
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda")
+        run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda", **kw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_card) / 1e6
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
     return {
         "wall_seconds": wall, "device_seconds": busy,
         "device_busy_share": busy / wall if busy > 0 else None,
@@ -369,6 +466,9 @@ TIMING_CASES = {
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
                        "ideal predict b8192 k1 n2000"),
     "sdca": ("ideal g1 b2048 n2000", "group g256 b64", "group g128 b256"),
+    "gram_matvec": ("cg l4096 d32",),
+    "rbf_gram_q8": ("student predict b8192 n4096 d32",),
+    "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
 }
 
 
@@ -425,6 +525,7 @@ def main(argv=None) -> int:
 
     from repro_torch.core.protocol import run_protocol
     from repro_torch.data import make_dataset
+    from repro_torch.distill import DistillConfig
     from repro_torch.kernels import native, ops
     from repro_torch.obs import trace
     from repro_torch.utils.device import resolve_device
@@ -436,7 +537,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count()})
 
     detail = {"nvidia_smi": card}
-    errs, counts, timing = {}, {}, {}
+    errs, counts, timing = {}, {}, {}   # counts: phase -> kernel -> launches
     for phase in PHASES:
         if phase not in phases:
             continue
@@ -448,10 +549,15 @@ def main(argv=None) -> int:
             elif phase == "kernels":
                 out, errs = phase_kernels(ops, device, np.random.default_rng(0))
             elif phase == "parity":
-                out = phase_parity(make_dataset, run_protocol)
+                out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
-                out = phase_main(make_dataset, run_protocol, ops, trace)
-                counts = out["kernels"]
+                out = phase_main(make_dataset, run_protocol, ops, trace, FP32_KERNELS)
+                counts[phase] = out["kernels"]
+            elif phase == "main_q8":
+                out = phase_main(make_dataset, run_protocol, ops, trace,
+                                 tuple(ops.KERNEL_REGISTRY), codec="int8",
+                                 distill=DistillConfig(proxy_size=4096, solver="cg"))
+                counts[phase] = out["kernels"]
             else:
                 out = phase_timing(ops, device, np.random.default_rng(0))
                 timing = {r["kernel"]: r for r in reversed(out["rows"])}
@@ -466,12 +572,17 @@ def main(argv=None) -> int:
                                    for r in out["rows"]]}
         emit(out)
 
+    # each kernel's launches come from the round it was ported for: the fp32
+    # round's four from ``main``, the int8 + distillation round's three from
+    # ``main_q8`` (both phase lines carry every kernel's count)
     summary = []
     for name, spec in ops.KERNEL_REGISTRY.items():
         row = timing.get(name, {})
+        path = "main" if name in FP32_KERNELS else "main_q8"
         summary.append({
             "name": name, "route": "cuda", "source": spec.source,
-            "replaces": spec.replaces, "launches": counts.get(name),
+            "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
+            "launches_path": path,
             "max_abs_err": errs.get(name), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": None,

@@ -1,8 +1,8 @@
-"""Versioned wire format for the one-shot upload path (fp32 codec).
+"""Versioned wire format for the one-shot upload (and download) path.
 
-Port of ``repro.comm.wire``'s fp32 paths, byte for byte: the same
-header, structs and body layouts, so a blob from either package decodes
-in the other and identical models encode to identical bytes.
+Port of ``repro.comm.wire``, byte for byte: the same header, structs and
+body layouts, so a blob from either package decodes in the other and
+identical models encode to identical bytes.
 
     +-------+---------+------+----------+------------------------+
     | magic | version | kind | codec id | kind-specific body     |
@@ -12,21 +12,34 @@ in the other and identical models encode to identical bytes.
 ``len(encode(obj, codec))`` IS the communication cost. Payload kinds:
 ``SVMModel``, ``ConstantModel``, ``Ensemble`` (length-prefixed member
 messages) and ``DeviceReport`` (18 bytes). All multi-byte fields are
-little-endian. The other codecs (fp16, int8, topk) and the linear and
-aggregator-extra kinds are not ported yet: encoding or decoding them
-raises ``NotImplementedError``.
+little-endian. Codecs (headers and gamma are codec-independent):
+
+    fp32       lossless float32 round-trip
+    fp16       supports + coefs as float16
+    int8       per-column affine int8 supports (scale/zero per feature
+               column), fp32 coefs; decodes to a ``QuantizedSVM`` scored
+               through the ``rbf_gram_q8`` kernel (no fp32 supports)
+    topk       keep ceil(ratio * n) supports by |dual coefficient|, fp32;
+               ``"topk:0.5"`` selects the ratio, default 0.25
+
+The linear-model and aggregator-extra kinds are not ported yet:
+decoding them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import struct
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
-from repro_torch.core.ensemble import Ensemble
+from repro_torch.core.ensemble import Ensemble, chunked_bucket_predict
 from repro_torch.core.selection import DeviceReport
 from repro_torch.core.svm import ConstantModel, SVMModel
+from repro_torch.kernels import ops as kops
+from repro_torch.utils.device import resolve_device
 
 WIRE_MAGIC = b"OS"
 WIRE_VERSION = 1
@@ -45,44 +58,175 @@ _CONST_BODY = struct.Struct("<d")       # value
 _COUNT = struct.Struct("<I")
 _REPORT_BODY = struct.Struct("<IIfB")   # device_id, n_train, val_auc, eligible
 
-# the reference's codec ids; only fp32 is ported
-_UNPORTED_CODECS = {"fp16": 1, "int8": 2, "topk": 3}
 _UNPORTED_KINDS = {KIND_LINEAR: "LinearSVM (ROADMAP queue 1 item 10)",
                    KIND_AGG_EXTRA: "AggExtra (ROADMAP queue 1 item 10)"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Codec:
-    """One entry of the codec registry."""
+    """One entry of the codec registry; ``param`` is the topk keep ratio
+    (unused by the other codecs)."""
 
     name: str
     codec_id: int
+    param: float = 0.0
 
     @property
     def spec(self) -> str:
+        """Round-trippable name (``get_codec(c.spec) == c``)."""
+        if self.name == "topk":
+            return f"topk:{self.param:g}"
         return self.name
 
 
-CODECS: Dict[str, Codec] = {"fp32": Codec("fp32", 0)}
+CODECS: Dict[str, Codec] = {
+    "fp32": Codec("fp32", 0),
+    "fp16": Codec("fp16", 1),
+    "int8": Codec("int8", 2),
+    "topk": Codec("topk", 3, param=0.25),
+}
 _CODEC_BY_ID = {c.codec_id: c for c in CODECS.values()}
 
 
-def _unported_codec(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"codec {what} is not ported yet (ROADMAP queue 1 item 8); "
-        "the port speaks fp32")
-
-
 def get_codec(spec) -> Codec:
-    """Resolve ``"fp32"`` / a Codec instance."""
+    """Resolve ``"fp16"`` / ``"topk:0.5"`` / a Codec instance."""
     if isinstance(spec, Codec):
         return spec
-    name = str(spec).partition(":")[0]
-    if name in _UNPORTED_CODECS:
-        raise _unported_codec(repr(spec))
-    if name not in CODECS or str(spec) != name:
+    name, _, param = str(spec).partition(":")
+    if name not in CODECS:
         raise KeyError(f"unknown codec {spec!r}; options {sorted(CODECS)}")
-    return CODECS[name]
+    base = CODECS[name]
+    if param:
+        if name != "topk":
+            raise ValueError(f"codec {name!r} takes no parameter, got {spec!r}")
+        ratio = float(param)
+        if not 0.0 < ratio <= 1.0:
+            raise ValueError(f"topk ratio must be in (0, 1], got {ratio}")
+        return dataclasses.replace(base, param=ratio)
+    return base
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclasses.dataclass
+class QuantizedSVM:
+    """An int8-codec SVM payload kept in its wire representation.
+
+    Scores through ``kernels.ops.rbf_gram_q8`` on ``device`` (the int8
+    supports dequantised inside the kernel's tiles), then ``K @ coef``;
+    ``dequantize()`` gives an explicit fp32 ``SVMModel``.
+    """
+
+    q: np.ndarray       # (n, d) int8 supports
+    scale: np.ndarray   # (d,) fp32 per-column affine scale
+    zero: np.ndarray    # (d,) fp32 per-column affine zero point
+    coef: np.ndarray    # (n,) fp32 dual coefficients
+    gamma: float
+    device: str = dataclasses.field(default="cuda", compare=False)
+
+    def predict(self, x: np.ndarray, chunk: int = 8192) -> np.ndarray:
+        x = np.asarray(x, np.float32)
+        if len(x) == 0:
+            return np.zeros(0, np.float32)
+        dev = resolve_device(self.device)
+        q, scale, zero, coef = (_tensor(a, dev) for a in (self.q, self.scale, self.zero,
+                                                          self.coef))
+        outs = []
+        for start in range(0, len(x), chunk):
+            K = kops.rbf_gram_q8(_tensor(x[start : start + chunk], dev), q, scale, zero,
+                                 self.gamma)
+            outs.append((K @ coef).cpu().numpy())
+        return np.concatenate(outs)
+
+    def dequantize(self) -> SVMModel:
+        sup = self.q.astype(np.float32) * self.scale[None, :] + self.zero[None, :]
+        return SVMModel(support_x=sup, coef=self.coef.copy(), gamma=self.gamma,
+                        device=self.device)
+
+    @property
+    def nbytes(self) -> int:
+        # repro: allow[wire-cost-honesty] reason=in-memory model footprint property, not a wire price
+        return self.q.nbytes + self.scale.nbytes + self.zero.nbytes + self.coef.nbytes + 8
+
+
+class QuantizedStackedEnsemble(nn.Module):
+    """Packed homogeneous int8 ensemble, the quantized mirror of
+    ``core.ensemble.StackedEnsemble``: registered buffers ``q``
+    (k, n_max, d) int8 zero-padded supports, ``scale`` and ``zero``
+    (k, d), ``coef`` (k, n_max) zero on padding, ``gammas`` (k,), all on
+    the scoring device. Scores through ``kernels.ops.ensemble_score_q8``."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                 coef: torch.Tensor, gammas: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+        self.register_buffer("zero", zero)
+        self.register_buffer("coef", coef)
+        self.register_buffer("gammas", gammas)
+
+    @property
+    def k(self) -> int:
+        return self.q.shape[0]
+
+    @property
+    def n_max(self) -> int:
+        return self.q.shape[1]
+
+    @property
+    def d(self) -> int:
+        return self.q.shape[2]
+
+    @classmethod
+    def from_members(cls, members: Sequence[QuantizedSVM],
+                     device=None) -> "QuantizedStackedEnsemble":
+        """Pack on the host (as the reference does), then move to
+        ``device`` (default: the first member's)."""
+        if not members:
+            raise ValueError("empty ensemble")
+        dev = resolve_device(members[0].device if device is None else device)
+        n_max = max(len(m.coef) for m in members)
+        k, d = len(members), members[0].q.shape[1]
+        q = np.zeros((k, n_max, d), np.int8)
+        scale = np.ones((k, d), np.float32)
+        zero = np.zeros((k, d), np.float32)
+        coef = np.zeros((k, n_max), np.float32)
+        gammas = np.zeros((k,), np.float32)
+        for i, m in enumerate(members):
+            n = len(m.coef)
+            q[i, :n] = m.q
+            scale[i] = m.scale
+            zero[i] = m.zero
+            coef[i, :n] = m.coef
+            gammas[i] = m.gamma
+        return cls(*(_tensor(a, dev) for a in (q, scale, zero, coef, gammas)))
+
+    def forward(self, x) -> torch.Tensor:
+        """Fused mean member score for one query block. x: (b, d) -> (b,)."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        return kops.ensemble_score_q8(x.to(self.q.device), self.q, self.scale, self.zero,
+                                      self.coef, self.gammas)
+
+    def score(self, x) -> torch.Tensor:
+        return self(x)
+
+    def predict(self, x: np.ndarray, chunk: int = 4096) -> np.ndarray:
+        """Chunked scoring with power-of-two bucket padding."""
+        return chunked_bucket_predict(self.score, x, chunk)
+
+
+def _quantize_columns(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-column affine int8: q = round((x - zero) / scale) in [-127, 127]."""
+    lo = x.min(axis=0)
+    hi = x.max(axis=0)
+    scale = ((hi - lo) / 254.0).astype(np.float32)
+    scale = np.where(scale > 0, scale, np.float32(1.0))
+    zero = ((hi + lo) / 2.0).astype(np.float32)
+    q = np.clip(np.round((x - zero) / scale), -127, 127).astype(np.int8)
+    return q, scale, zero
 
 
 def _arr(a: np.ndarray, dtype: str) -> bytes:
@@ -100,8 +244,6 @@ class WireReader:
             raise ValueError(f"bad wire magic {magic!r}")
         if version != WIRE_VERSION:
             raise ValueError(f"unsupported wire version {version}")
-        if codec_id in _UNPORTED_CODECS.values():
-            raise _unported_codec(f"id {codec_id}")
         if codec_id not in _CODEC_BY_ID:
             raise ValueError(f"unknown codec id {codec_id}")
         self.kind = kind
@@ -132,15 +274,49 @@ def _encode_svm(model: SVMModel, codec: Codec) -> bytes:
     sup = np.asarray(model.support_x, np.float32)
     coef = np.asarray(model.coef, np.float32)
     n, d = sup.shape
-    return b"".join([_header(KIND_SVM, codec), _SVM_PREFIX.pack(n, d, float(model.gamma)),
-                     _arr(sup, "<f4"), _arr(coef, "<f4")])
+    if codec.name == "topk":
+        m = max(1, int(np.ceil(codec.param * n)))
+        keep = np.sort(np.argsort(-np.abs(coef), kind="stable")[:m])
+        sup, coef, n = sup[keep], coef[keep], m
+    parts = [_header(KIND_SVM, codec), _SVM_PREFIX.pack(n, d, float(model.gamma))]
+    if codec.name in ("fp32", "topk"):
+        parts += [_arr(sup, "<f4"), _arr(coef, "<f4")]
+    elif codec.name == "fp16":
+        parts += [_arr(sup, "<f2"), _arr(coef, "<f2")]
+    else:  # int8
+        q, scale, zero = _quantize_columns(sup)
+        parts += [_arr(scale, "<f4"), _arr(zero, "<f4"), q.tobytes(), _arr(coef, "<f4")]
+    return b"".join(parts)
 
 
-def _decode_svm(r: WireReader, device) -> SVMModel:
+def _encode_quantized(model: QuantizedSVM) -> bytes:
+    """Re-emit an int8 payload from its kept wire representation
+    (bit-exact: no re-quantization)."""
+    n, d = model.q.shape
+    return b"".join([
+        _header(KIND_SVM, CODECS["int8"]),
+        _SVM_PREFIX.pack(n, d, float(model.gamma)),
+        _arr(model.scale, "<f4"), _arr(model.zero, "<f4"),
+        model.q.astype(np.int8).tobytes(), _arr(model.coef, "<f4"),
+    ])
+
+
+def _decode_svm(r: WireReader, device):
     n, d, gamma = r.unpack(_SVM_PREFIX)
-    sup = r.array(n * d, "<f4", (n, d))
+    if r.codec.name in ("fp32", "topk"):
+        sup = r.array(n * d, "<f4", (n, d))
+        coef = r.array(n, "<f4")
+        return SVMModel(support_x=sup, coef=coef, gamma=gamma, device=str(device))
+    if r.codec.name == "fp16":
+        sup = r.array(n * d, "<f2", (n, d)).astype(np.float32)
+        coef = r.array(n, "<f2").astype(np.float32)
+        return SVMModel(support_x=sup, coef=coef, gamma=gamma, device=str(device))
+    scale = r.array(d, "<f4")
+    zero = r.array(d, "<f4")
+    q = r.array(n * d, "i1", (n, d))
     coef = r.array(n, "<f4")
-    return SVMModel(support_x=sup, coef=coef, gamma=gamma, device=str(device))
+    return QuantizedSVM(q=q, scale=scale, zero=zero, coef=coef, gamma=gamma,
+                        device=str(device))
 
 
 def encode(obj, codec="fp32") -> bytes:
@@ -149,6 +325,13 @@ def encode(obj, codec="fp32") -> bytes:
     codec = get_codec(codec)
     if isinstance(obj, SVMModel):
         return _encode_svm(obj, codec)
+    if isinstance(obj, QuantizedSVM):
+        if codec.name != "int8":
+            raise ValueError(
+                f"QuantizedSVM payloads re-encode only as int8 (their kept "
+                f"wire representation), not {codec.name!r}; dequantize() first"
+            )
+        return _encode_quantized(obj)
     if isinstance(obj, ConstantModel):
         return _header(KIND_CONST, codec) + _CONST_BODY.pack(float(obj.value))
     if isinstance(obj, Ensemble):
@@ -165,7 +348,8 @@ def encode(obj, codec="fp32") -> bytes:
 
 
 def decode(blob: bytes, *, device="cuda"):
-    """Decode one wire message; decoded SVMs score on ``device``."""
+    """Decode one wire message; decoded SVMs score on ``device``. int8
+    SVM payloads decode to a ``QuantizedSVM``."""
     r = WireReader(blob)
     if r.kind == KIND_SVM:
         return _decode_svm(r, device)
@@ -191,6 +375,21 @@ def decode(blob: bytes, *, device="cuda"):
 def encoded_nbytes(obj, codec="fp32") -> int:
     """Exact encoded size; defined as ``len(encode(obj, codec))``."""
     return len(encode(obj, codec))
+
+
+def svm_wire_nbytes(n: int, d: int, codec="fp32") -> int:
+    """Exact ``len(encode(SVMModel, codec))`` from the model's shape
+    alone: every codec's payload size is shape-deterministic."""
+    codec = get_codec(codec)
+    base = _HEADER.size + _SVM_PREFIX.size
+    if codec.name == "fp32":
+        return base + n * d * 4 + n * 4
+    if codec.name == "fp16":
+        return base + n * d * 2 + n * 2
+    if codec.name == "int8":
+        return base + d * 4 + d * 4 + n * d + n * 4
+    m = max(1, int(np.ceil(codec.param * n)))  # topk
+    return base + m * d * 4 + m * 4
 
 
 # the pre-round metadata exchange costs exactly this much per device

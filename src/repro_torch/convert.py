@@ -1,18 +1,21 @@
 """Carry trained state across from the reference package.
 
 The reference keeps a trained ``SVMModel`` as host arrays
-(``support_x``, ``coef``, ``gamma``) and a packed ``StackedEnsemble`` as
-``sup``/``coef``/``gammas`` arrays. These functions take those arrays
-(as numpy, e.g. ``np.asarray`` of the reference's fields) and return
-the port's objects, so a model trained by either package scores in the
-other. The fp32 wire format (``comm.wire``) is the other carrier: a
-blob from either package decodes in the other.
+(``support_x``, ``coef``, ``gamma``), a packed ``StackedEnsemble`` as
+``sup``/``coef``/``gammas`` arrays, and their int8 forms (``QuantizedSVM``,
+``QuantizedStackedEnsemble``) as ``q``/``scale``/``zero``/``coef`` plus
+gamma(s). These functions take those arrays (as numpy, e.g.
+``np.asarray`` of the reference's fields) and return the port's objects,
+so a model trained by either package scores in the other. The wire
+format (``comm.wire``) is the other carrier: a blob of any codec from
+either package decodes in the other.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.comm.wire import QuantizedStackedEnsemble, QuantizedSVM
 from repro_torch.core.ensemble import StackedEnsemble
 from repro_torch.core.svm import SVMModel
 from repro_torch.utils.device import resolve_device
@@ -42,3 +45,34 @@ def stacked_from_arrays(sup, coef, gammas, device="cuda") -> StackedEnsemble:
                          f"disagree: {s.shape}, {c.shape}, {g.shape}")
     return StackedEnsemble(torch.from_numpy(s).to(dev), torch.from_numpy(c).to(dev),
                            torch.from_numpy(g).to(dev))
+
+
+def quantized_svm_from_arrays(q, scale, zero, coef, gamma: float,
+                              device="cuda") -> QuantizedSVM:
+    """A reference ``QuantizedSVM``'s fields -> the port's, scored on
+    ``device`` through the ``rbf_gram_q8`` kernel."""
+    dev = resolve_device(device)
+    qa = np.array(q, np.int8)
+    sc, ze, c = (np.array(a, np.float32) for a in (scale, zero, coef))
+    n, d = qa.shape if qa.ndim == 2 else (-1, -1)
+    if qa.ndim != 2 or sc.shape != (d,) or ze.shape != (d,) or c.shape != (n,):
+        raise ValueError(f"q (n, d), scale (d,), zero (d,), coef (n,) disagree: "
+                         f"{qa.shape}, {sc.shape}, {ze.shape}, {c.shape}")
+    return QuantizedSVM(q=qa, scale=sc, zero=ze, coef=c, gamma=float(gamma),
+                        device=str(dev))
+
+
+def quantized_stacked_from_arrays(q, scale, zero, coef, gammas,
+                                  device="cuda") -> QuantizedStackedEnsemble:
+    """A reference ``QuantizedStackedEnsemble``'s arrays -> the port's
+    module, its int8 and fp32 buffers on ``device``."""
+    dev = resolve_device(device)
+    qa = np.array(q, np.int8)
+    sc, ze, c, g = (np.array(a, np.float32) for a in (scale, zero, coef, gammas))
+    if (qa.ndim != 3 or sc.shape != (qa.shape[0], qa.shape[2]) or ze.shape != sc.shape
+            or c.shape != qa.shape[:2] or g.shape != (qa.shape[0],)):
+        raise ValueError(f"q (k, n_max, d), scale and zero (k, d), coef (k, n_max), "
+                         f"gammas (k,) disagree: {qa.shape}, {sc.shape}, {ze.shape}, "
+                         f"{c.shape}, {g.shape}")
+    return QuantizedStackedEnsemble(*(torch.from_numpy(a).to(dev)
+                                      for a in (qa, sc, ze, c, g)))

@@ -3,7 +3,9 @@
 Port of ``repro.core.ensemble``. Two representations:
   * ``Ensemble`` — heterogeneous member list (SVMs, constants). SVM-only
     ensembles are packed once into a ``StackedEnsemble`` and scored with
-    the fused ``ensemble_score`` kernel; mixed ensembles take the
+    the fused ``ensemble_score`` kernel; all-``QuantizedSVM`` ensembles
+    (int8 wire payloads) pack once into a ``QuantizedStackedEnsemble``
+    and score with ``ensemble_score_q8``; mixed ensembles take the
     per-member mean.
   * ``StackedEnsemble`` — an ``nn.Module`` whose registered buffers are
     the padded member arrays stacked on a leading member axis: supports
@@ -114,6 +116,9 @@ class Ensemble:
     _stacked: Optional[StackedEnsemble] = dataclasses.field(
         default=None, init=False, repr=False, compare=False
     )
+    _qstacked: Optional[nn.Module] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
 
     @property
     def k(self) -> int:
@@ -133,11 +138,18 @@ class Ensemble:
 
     def predict(self, x: np.ndarray, chunk: int = 4096) -> np.ndarray:
         """Mean of member decision scores: the fused kernel for all-SVM
-        ensembles, the per-member mean otherwise (e.g. ConstantModel
-        baselines)."""
+        and all-``QuantizedSVM`` ensembles, the per-member mean otherwise
+        (e.g. ConstantModel baselines)."""
         if not self.members:
             raise ValueError("empty ensemble")
         if any(not isinstance(m, SVMModel) for m in self.members):
+            # deferred: comm.wire imports this module
+            from repro_torch.comm.wire import QuantizedStackedEnsemble, QuantizedSVM
+
+            if all(isinstance(m, QuantizedSVM) for m in self.members):
+                if self._qstacked is None:
+                    self._qstacked = QuantizedStackedEnsemble.from_members(self.members)
+                return self._qstacked.predict(x, chunk=chunk)
             return ensemble_predict_mean(self.members, x)
         return self.stacked().predict(x, chunk=chunk)
 

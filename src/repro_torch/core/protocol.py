@@ -1,23 +1,31 @@
 """One-shot federated learning protocol simulation (the paper, end to end).
 
-Port of ``repro.core.protocol.run_protocol`` with distillation off:
+Port of ``repro.core.protocol.run_protocol``:
   1. every device splits its data 50/40/10 (train/test/val);
   2. devices train local RBF-SVMs to completion (data-deficient devices
      fall back to constant classifiers — the paper's local baseline);
   3. devices report scalar metadata (n_train, val AUC);
   4. the server selects k models per strategy (cv / data / random) and
-     receives them — the SINGLE round of communication;
-  5. ensembles are evaluated on every device's test split (mean AUC).
+     receives them — the SINGLE round of communication — through the
+     round's wire codec (fp32 / fp16 / int8 / topk), under an optional
+     byte budget (the greedy knapsack of ``comm.budget``);
+  5. ensembles are evaluated on every device's test split (mean AUC);
+  6. optionally (``distill=DistillConfig(...)``, or the ``distill_proxy``
+     shorthand), the server distills the best cell on proxy data
+     (``repro_torch.distill``) and sends the student down in its codec.
 
-Communication is accounted on a ``CommLedger`` at exact fp32 wire
-sizes; ensembles are evaluated on the DECODED models. Evaluation
-streams every device's test split through the fused ``ensemble_score``
-kernel in ``eval_chunk``-row blocks, folding scores into per-device AUC
-accumulators.
+Communication is accounted on a ``CommLedger`` at exact wire sizes;
+ensembles and the student are evaluated on the DECODED models, so int8
+payloads score through the ``rbf_gram_q8`` and ``ensemble_score_q8``
+kernels. Evaluation streams every device's test split through the fused
+scoring kernel in ``eval_chunk``-row blocks, folding scores into
+per-device AUC accumulators.
 
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
-kernels' plain versions). Options outside the ported slice raise
-``NotImplementedError`` naming their ROADMAP item.
+kernels' plain versions). Options outside the ported slice (the
+streamed and sharded engines, aggregators other than mean, the
+``scenario`` proxy source) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.core.ensemble import Ensemble
 from repro_torch.core.svm import train_svm
 from repro_torch.data.federated import DeviceData, FederatedDataset
 from repro_torch.data.partition import pool_devices
+from repro_torch.distill import DistillConfig, distill_round
 from repro_torch.obs.trace import current_tracer
 from repro_torch.sim.engine import train_population
 from repro_torch.utils.device import resolve_device
@@ -55,6 +64,10 @@ class ProtocolResult:
     per_device: Dict[str, np.ndarray]
     ledger: Optional[CommLedger] = None
     codec: str = "fp32"
+    # the distilled student AS DEVICES RECEIVE IT (decoded from its
+    # download wire form) and its download codec
+    student: Optional[object] = None
+    student_codec: Optional[str] = None
     aggregator: str = "mean"
     # the best cell's server scorer (what the round deploys)
     server_scorer: Optional[object] = None
@@ -92,22 +105,13 @@ def _mean_auc_over_devices(devices: Sequence, scores_fn, chunk: int = 8192) -> t
     return float(np.mean(aucs)), aucs
 
 
-def _check_slice(engine, codec, budget_bytes, distill, distill_proxy) -> None:
+def _check_engine(engine) -> None:
     if engine in ("sharded", "streamed"):
         item = 15 if engine == "sharded" else 9
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet (ROADMAP queue 1 item {item})")
     if engine not in ("bucketed", "loop"):
         raise ValueError(f"unknown engine mode {engine!r}")
-    if codec != "fp32":
-        raise NotImplementedError(
-            f"codec={codec!r} is not ported yet (ROADMAP queue 1 item 8)")
-    if budget_bytes is not None:
-        raise NotImplementedError(
-            "budget_bytes is not ported yet (ROADMAP queue 1 item 8)")
-    if distill is not None or distill_proxy > 0:
-        raise NotImplementedError(
-            "distillation is not ported yet (ROADMAP queue 1 item 7)")
 
 
 def run_protocol(
@@ -123,13 +127,19 @@ def run_protocol(
     engine: str = "bucketed",
     codec: str = "fp32",
     budget_bytes: Optional[int] = None,
-    distill: Optional[object] = None,
+    distill: Optional[DistillConfig] = None,
     aggregator: str = "mean",
     device="cuda",
 ) -> ProtocolResult:
-    _check_slice(engine, codec, budget_bytes, distill, distill_proxy)
+    _check_engine(engine)
     agg = get_aggregator(aggregator)
     dev = resolve_device(device)
+    # ``distill=`` is the full config; the ``distill_proxy=l`` shorthand
+    # maps onto it (and fills in a config without a size)
+    if distill is None:
+        distill = DistillConfig(proxy_size=distill_proxy)
+    elif distill.proxy_size == 0 and distill_proxy > 0:
+        distill = dataclasses.replace(distill, proxy_size=distill_proxy)
 
     tracer = current_tracer()
     m = dataset.n_devices
@@ -142,9 +152,10 @@ def run_protocol(
     # --- the wire: priced uploads, decoded models, metadata on ledger ---
     with tracer.span("round.encode", cat="round", codec=codec):
         ex = ModelExchange({d.device_id: d.model for d in devices}, reports,
-                           codec=codec, device=dev)
+                           codec=codec, budget_bytes=budget_bytes, device=dev)
+    codec_spec = ex.codec
     log.info("trained %d local models (%s, engine=%s, codec=%s)",
-             m, dataset.name, engine, ex.codec)
+             m, dataset.name, engine, codec_spec)
     ledger = CommLedger()
     ex.record_metadata(ledger)
 
@@ -217,6 +228,20 @@ def run_protocol(
         bs = max(best, key=best.get)
         bk = max(ensemble_auc[bs], key=ensemble_auc[bs].get)
         server_scorer = cell_scorers.get((bs, bk))
+    # --- optional distillation of the best aggregated cell ---
+    student_recv = None
+    student_codec = None
+    if distill.proxy_size > 0 and best:
+        ids = ex.pick(bs, bk, seed)
+        teacher = server_scorer if server_scorer is not None else build_cell(agg, ex, ids, seed)
+        dr = distill_round(teacher.predict, devices, distill, seed, codec_spec,
+                           ledger, dim=dataset.dim, device=dev)
+        student_recv, student_codec = dr.student, dr.codec
+        dist_auc, dist_aucs = _mean_auc_over_devices(devices, student_recv.predict)
+        per_device["distilled"] = dist_aucs
+        ledger.record("down", "ensemble_download", ex.ensemble_nbytes(ids),
+                      codec=codec_spec, tag="download_ensemble")
+        ensemble_auc.setdefault("distilled", {})[bk] = dist_auc
 
     return ProtocolResult(
         dataset=dataset.name,
@@ -228,7 +253,9 @@ def run_protocol(
         comm_bytes=ledger.as_dict(),
         per_device=per_device,
         ledger=ledger,
-        codec=ex.codec,
+        codec=codec_spec,
+        student=student_recv,
+        student_codec=student_codec,
         aggregator=agg.spec,
         server_scorer=server_scorer,
     )

@@ -1,7 +1,14 @@
 // Fused ensemble scoring for Hopper (sm_90a):
 //   out[q] = (1/k) sum_t sum_j coef[t,j] * exp(-gamma_t * max(|x_q|^2 + |s_tj|^2 - 2 x_q.s_tj, 0))
 //
-// Replaces repro/kernels/ensemble_score.py::ensemble_score_pallas (TPU).
+// Replaces two TPU kernels of the reference package:
+//   repro/kernels/ensemble_score.py::ensemble_score_pallas        (fp32 supports)
+//   repro/kernels/ensemble_score_q8.py::ensemble_score_q8_pallas  (int8 supports,
+//       s_tj = q[t,j] * scale[t] + zero[t], per member and column)
+// Both run one kernel, a template over the support loader (supports.cuh):
+// an int8 tile is dequantised while it is staged in shared memory, so the
+// packed ensemble stays int8 in device memory (a quarter of the bytes).
+//
 // The TPU kernel walks (query tile, member, support tile) as a sequential
 // grid and adds each partial into a VMEM scratch accumulator. CUDA blocks
 // run in parallel and in no order, so here the member loop and the support
@@ -15,8 +22,10 @@
 // fp32 FMA (no tensor cores: TF32 would wreck the norm-expansion
 // cancellation), applies the exp epilogue and folds coef * K into its 4
 // per-query sums. At the end the 16 threads that share a query row add their
-// sums in a fixed order. Zero-padded supports carry zero coefficients;
-// padded query rows are computed and never stored.
+// sums in a fixed order. Padded supports carry zero coefficients (a padded
+// int8 row dequantises to its zero point: finite, and annihilated); rows
+// past n_max are staged as zeros; padded query rows are computed and never
+// stored.
 //
 // Bound on the H100: fp32 operations (about 2d + 6 per query-support pair);
 // the packed ensemble is read once per 32-query block and stays in L2 for
@@ -24,14 +33,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "supports.cuh"
+
 namespace {
 
 constexpr int EQ = 32;        // queries per block
 constexpr int EN = 64;        // supports per staged tile
 constexpr int THREADS = 128;  // 8 x 16 threads, 4 x 4 outputs each
 
+template <class Supports>
 __global__ void __launch_bounds__(THREADS)
-ensemble_score_kernel(const float* __restrict__ x, const float* __restrict__ sup,
+ensemble_score_kernel(const float* __restrict__ x, const Supports sup,
                       const float* __restrict__ coef, const float* __restrict__ gammas,
                       float* __restrict__ out, int b, int k, int n_max, int d) {
   extern __shared__ float sm[];
@@ -65,14 +77,14 @@ ensemble_score_kernel(const float* __restrict__ x, const float* __restrict__ sup
   float accq[4] = {0.f, 0.f, 0.f, 0.f};
   for (int t = 0; t < k; ++t) {
     const float g = gammas[t];
-    const float* S = sup + (int64_t)t * n_max * d;
+    const Supports S = sup.member(t, n_max, d);
     const float* C = coef + (int64_t)t * n_max;
     for (int j0 = 0; j0 < n_max; j0 += EN) {
       __syncthreads();  // the previous tile is fully consumed
       for (int e = tid; e < EN * d; e += THREADS) {
         const int r = e / d, c = e % d;
         const int j = j0 + r;
-        Ss[c * (EN + 1) + r] = j < n_max ? S[(int64_t)j * d + c] : 0.f;
+        Ss[c * (EN + 1) + r] = j < n_max ? S.at(j, c, d) : 0.f;
       }
       if (tid < EN) cs[tid] = (j0 + tid < n_max) ? C[j0 + tid] : 0.f;
       __syncthreads();
@@ -124,25 +136,43 @@ ensemble_score_kernel(const float* __restrict__ x, const float* __restrict__ sup
   }
 }
 
-}  // namespace
-
-extern "C" int ensemble_score_smem_bytes(int d) {
+int smem_bytes(int d) {
   return static_cast<int>(sizeof(float)) *
          (d * (EQ + 1) + d * (EN + 1) + EN + EN + EQ + EQ * 17);
 }
 
-extern "C" int ensemble_score_launch(const float* x, const float* sup,
-                                     const float* coef, const float* gammas,
-                                     float* out, int b, int k, int n_max, int d,
-                                     void* stream) {
-  const int smem = ensemble_score_smem_bytes(d);
+template <class Supports>
+int launch_scores(const float* x, const Supports sup, const float* coef,
+                  const float* gammas, float* out, int b, int k, int n_max, int d,
+                  void* stream) {
+  const int smem = smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ensemble_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        ensemble_score_kernel<Supports>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((b + EQ - 1) / EQ);
   ensemble_score_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       x, sup, coef, gammas, out, b, k, n_max, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ensemble_score_smem_bytes(int d) { return smem_bytes(d); }
+
+extern "C" int ensemble_score_launch(const float* x, const float* sup,
+                                     const float* coef, const float* gammas,
+                                     float* out, int b, int k, int n_max, int d,
+                                     void* stream) {
+  return launch_scores(x, Fp32Supports{sup}, coef, gammas, out, b, k, n_max, d, stream);
+}
+
+extern "C" int ensemble_score_q8_launch(const float* x, const int8_t* q,
+                                        const float* scale, const float* zero,
+                                        const float* coef, const float* gammas,
+                                        float* out, int b, int k, int n_max, int d,
+                                        void* stream) {
+  return launch_scores(x, Int8Supports{q, scale, zero}, coef, gammas, out, b, k, n_max,
+                       d, stream);
 }

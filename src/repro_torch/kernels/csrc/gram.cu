@@ -1,10 +1,14 @@
 // RBF Gram tiles for Hopper (sm_90a): exp(-gamma * max(|a|^2 + |b|^2 - 2 a.b, 0)).
 //
-// Replaces two TPU kernels of the reference package:
+// Replaces three TPU kernels of the reference package:
 //   repro/kernels/batched_gram.py::batched_rbf_gram_pallas  (per-device gamma, (g,))
 //   repro/kernels/rbf_gram.py::rbf_gram_pallas              (one scalar gamma)
-// Both run the same device code; the launchers differ only in where gamma
-// comes from, and each has its own wrapper and launch counter in Python.
+//   repro/kernels/rbf_gram_q8.py::rbf_gram_q8_pallas        (int8 supports b)
+// All three run the same tile, a template over the loader of the b side
+// (supports.cuh): fp32 as stored, or per-column affine int8 dequantised as
+// it is staged, so an int8 payload never exists as fp32 in device memory.
+// The launchers differ in that loader and in where gamma comes from; each
+// has its own wrapper and launch counter in Python.
 //
 // One block computes one 64 x 64 output tile of one device's Gram. The
 // feature dim streams through shared memory in 32-wide chunks, stored
@@ -16,9 +20,13 @@
 // (combine, clamp at 0, exp) runs on the registers before the single store.
 //
 // Padding contract, kept from the reference: a zero-padded row gives
-// exp(-gamma |x|^2) != 0. Nothing is masked here; callers mask.
+// exp(-gamma |x|^2) != 0. Nothing is masked here; callers mask. Rows past m
+// or n are staged as zeros and their outputs never written, so an int8 row,
+// which would dequantise to its zero point, is never padded in.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "supports.cuh"
 
 namespace {
 
@@ -27,8 +35,9 @@ constexpr int BN = 64;       // output cols per block
 constexpr int DK = 32;       // feature chunk staged per step
 constexpr int THREADS = 256;
 
+template <class Supports>
 __global__ void __launch_bounds__(THREADS)
-rbf_gram_tiles(const float* __restrict__ x1, const float* __restrict__ x2,
+rbf_gram_tiles(const float* __restrict__ x1, const Supports x2,
                const float* __restrict__ gammas, float gamma,
                float* __restrict__ out, int m, int n, int d) {
   __shared__ float As[DK][BM + 1];
@@ -40,7 +49,7 @@ rbf_gram_tiles(const float* __restrict__ x1, const float* __restrict__ x2,
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   const float* a = x1 + (int64_t)t * m * d;
-  const float* b = x2 + (int64_t)t * n * d;
+  const Supports b = x2.member(t, n, d);
   float* o = out + (int64_t)t * m * n;
   const float g = gammas != nullptr ? gammas[t] : gamma;
 
@@ -61,7 +70,7 @@ rbf_gram_tiles(const float* __restrict__ x1, const float* __restrict__ x2,
       const int gc = k0 + c;
       const int ra = row0 + r, rb = col0 + r;
       As[c][r] = (ra < m && gc < d) ? a[(int64_t)ra * d + gc] : 0.f;
-      Bs[c][r] = (rb < n && gc < d) ? b[(int64_t)rb * d + gc] : 0.f;
+      Bs[c][r] = (rb < n && gc < d) ? b.at(rb, gc, d) : 0.f;
     }
     __syncthreads();
     if (tid < BM) {
@@ -113,7 +122,7 @@ extern "C" int batched_rbf_gram_launch(const float* x1, const float* x2,
                                        int m, int n, int d, void* stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, g);
   rbf_gram_tiles<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x1, x2, gammas, 0.f, out, m, n, d);
+      x1, Fp32Supports{x2}, gammas, 0.f, out, m, n, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -121,6 +130,15 @@ extern "C" int rbf_gram_launch(const float* x1, const float* x2, float gamma,
                                float* out, int m, int n, int d, void* stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, 1);
   rbf_gram_tiles<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x1, x2, nullptr, gamma, out, m, n, d);
+      x1, Fp32Supports{x2}, nullptr, gamma, out, m, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rbf_gram_q8_launch(const float* x, const int8_t* q, const float* scale,
+                                  const float* zero, float gamma, float* out, int m,
+                                  int n, int d, void* stream) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, 1);
+  rbf_gram_tiles<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, Int8Supports{q, scale, zero}, nullptr, gamma, out, m, n, d);
   return static_cast<int>(cudaGetLastError());
 }

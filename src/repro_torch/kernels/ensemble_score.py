@@ -29,17 +29,20 @@ LAUNCHES = native.LaunchCounter("ensemble_score")
 _PLAIN_SLAB_ELEMS = 1 << 27
 
 
-def ensemble_score_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
-                         gammas: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: x (b, d), sup (k, n_max, d), coef
-    (k, n_max), gammas (k,) -> (b,) mean over members of each member's
-    ``sum_j coef_j exp(-gamma |x - s_j|^2)``. Members go in slabs so the
-    Gram slab stays bounded; per-member scores are stacked and averaged
-    as the reference's oracle does."""
+def plain_slab(b: int, n_max: int) -> int:
+    """Members per slab of the plain versions at b queries, n_max supports."""
+    return max(1, _PLAIN_SLAB_ELEMS // max(b * n_max, 1))
+
+
+def member_scores_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
+                        gammas: torch.Tensor) -> torch.Tensor:
+    """Each member's ``sum_j coef_j exp(-gamma |x - s_j|^2)``: x (b, d),
+    sup (k, n_max, d), coef (k, n_max), gammas (k,) -> (k, b). Members
+    go in slabs so the Gram slab stays bounded."""
     b = x.shape[0]
     k, n_max, _ = sup.shape
     sqx = (x * x).sum(1)[None, :, None]                    # (1, b, 1)
-    step = max(1, _PLAIN_SLAB_ELEMS // max(b * n_max, 1))
+    step = plain_slab(b, n_max)
     scores = []
     for lo in range(0, k, step):
         s = sup[lo: lo + step]
@@ -48,7 +51,16 @@ def ensemble_score_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
         d2 = torch.clamp(sqx + sqs - 2.0 * cross, min=0.0)
         kq = torch.exp(-gammas[lo: lo + step, None, None] * d2)
         scores.append(torch.bmm(kq, coef[lo: lo + step, :, None])[:, :, 0])
-    return torch.cat(scores).mean(0)
+    return torch.cat(scores)
+
+
+def ensemble_score_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
+                         gammas: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: x (b, d), sup (k, n_max, d), coef
+    (k, n_max), gammas (k,) -> (b,) mean over members of each member's
+    score; per-member scores are stacked and averaged as the reference's
+    oracle does."""
+    return member_scores_plain(x, sup, coef, gammas).mean(0)
 
 
 def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,

@@ -1,0 +1,83 @@
+"""Streaming RBF-Gram matvec ``K(x1, x2; gamma) @ v``: the matvec of the
+distillation CG solver.
+
+Replaces ``repro/kernels/gram_matvec.py::gram_matvec_pallas``. The TPU
+kernel carries a (bm, 1) sum across a sequential support-tile grid in
+VMEM; CUDA blocks run in parallel, so ``csrc/gram_matvec.cu`` gives each
+block 32 rows and one contiguous split of the supports, keeps the row
+sums in registers, writes one partial sum per (split, row), and a second
+launch adds the splits in order. No atomics; the (m, n) Gram never
+exists on either path (the plain version goes in row chunks). Both
+paths sum over supports in fp64: an fp32 sum of 4096 terms drifts by
+~1e-5 with the order of its terms alone, more than the registry's 1e-5
+between the two at the CG's l = 4096.
+
+Bound on the H100: fp32 operations. At the CG's l = 4096, d = 32 one
+call is 4096^2 x (2d + 8) ~ 1.2e9 operations against 1 MB of inputs.
+The split count is chosen so that the first launch has at least
+``TARGET_BLOCKS`` blocks, enough to fill 132 SMs several times over.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import native
+from repro_torch.kernels.rbf_gram import rbf_gram_plain
+
+LAUNCHES = native.LaunchCounter("gram_matvec")
+
+ROWS, TILE = 32, 64           # rows per block, supports per staged tile
+TARGET_BLOCKS = 4 * 132       # first-pass blocks to aim for on an H100
+_PLAIN_ROW_CHUNK = 1024       # the reference oracle's row chunk
+
+
+def gram_matvec_plain(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                      gamma: float) -> torch.Tensor:
+    """Plain PyTorch version: x1 (m, d), x2 (n, d), v (n,) -> (m,)
+    ``K(x1, x2; gamma) @ v``, row-chunked as the reference's oracle is,
+    so at most a (1024, n) Gram block exists at a time; the fp32 Gram
+    block meets v in an fp64 product, as the kernel sums in fp64."""
+    vd = v.to(torch.float64)
+    outs = [(rbf_gram_plain(x1[lo: lo + _PLAIN_ROW_CHUNK], x2, gamma).to(torch.float64)
+             @ vd).to(torch.float32)
+            for lo in range(0, x1.shape[0], _PLAIN_ROW_CHUNK)]
+    return torch.cat(outs) if outs else x1.new_zeros((0,))
+
+
+def support_splits(m: int, n: int) -> tuple:
+    """(chunk, splits): supports per split (a multiple of TILE) and the
+    number of splits, so that ceil(m / ROWS) x splits >= TARGET_BLOCKS
+    where n allows it."""
+    tiles = -(-n // TILE)
+    row_blocks = -(-m // ROWS)
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // row_blocks)))
+    chunk = -(-tiles // want) * TILE
+    return chunk, -(-n // chunk)
+
+
+def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                     gamma: float) -> torch.Tensor:
+    """Launch ``csrc/gram_matvec.cu`` on x1's CUDA device."""
+    native.check_cuda("gram_matvec", x1.device, x1=x1, x2=x2, v=v)
+    if x1.dim() != 2 or x2.dim() != 2 or v.dim() != 1:
+        raise ValueError("gram_matvec: want x1 (m, d), x2 (n, d), v (n,)")
+    m, d = x1.shape
+    n = x2.shape[0]
+    if x2.shape[1] != d or v.shape[0] != n:
+        raise ValueError(f"gram_matvec: shapes {tuple(x1.shape)}, {tuple(x2.shape)}, "
+                         f"{tuple(v.shape)} disagree")
+    out = torch.empty((m,), dtype=torch.float32, device=x1.device)
+    if m == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    lib = native.library("gram_matvec")
+    if lib.gram_matvec_smem_bytes(d) > native.MAX_SMEM_BYTES:
+        raise ValueError(f"gram_matvec: feature dim {d} needs more shared memory "
+                         "than a block may take")
+    chunk, splits = support_splits(m, n)
+    partial = torch.empty((splits, m), dtype=torch.float64, device=x1.device)
+    native.launch(LAUNCHES, x1.device, lib.gram_matvec_launch,
+                  x1.data_ptr(), x2.data_ptr(), v.data_ptr(), float(gamma),
+                  partial.data_ptr(), out.data_ptr(), m, n, d, chunk, splits)
+    return out

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface (no PyTorch headers, so a build takes
+library with a plain C interface (headers such as ``supports.cuh`` are
+included, not built) (no PyTorch headers, so a build takes
 seconds), loaded through ``ctypes``. Builds happen at first use, never
 at import, into ``_build/<content hash>/`` next to this file: the hash
 covers every source under ``csrc/`` and the compiler flags, so an edit
@@ -31,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram", "ensemble_score", "sdca")  # csrc/<name>.cu -> lib<name>.so
+SOURCES = ("gram", "ensemble_score", "sdca", "gram_matvec")  # csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,10 +45,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "batched_rbf_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x1, x2, gamma, out, m, n, d, stream
         "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _P],
+        # x, q, scale, zero, gamma, out, m, n, d, stream
+        "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _P],
     },
     "ensemble_score": {
         # x, sup, coef, gammas, out, b, k, n_max, d, stream
         "ensemble_score_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, q, scale, zero, coef, gammas, out, b, k, n_max, d, stream
+        "ensemble_score_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ensemble_score_smem_bytes": [_I],
     },
     "sdca": {
@@ -55,7 +60,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sdca_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         "sdca_smem_bytes": [_I],
     },
+    "gram_matvec": {
+        # x1, x2, v, gamma, partial, out, m, n, d, chunk, splits, stream
+        "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gram_matvec_smem_bytes": [_I],
+    },
 }
+
+# the dtype each kernel argument must have, by argument name; float32 otherwise
+ARG_DTYPES = {"n_real": torch.int32, "q": torch.int8}
 
 # shared memory a block may take on sm_90 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
@@ -150,11 +163,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def check_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on ``device``
-    of the dtype the kernel takes (int32 for ``n_real``, else float32)."""
+    of the dtype the kernel takes (``ARG_DTYPES`` by argument name, else
+    float32)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {device}")
     for arg, t in tensors.items():
-        want = torch.int32 if arg == "n_real" else torch.float32
+        want = ARG_DTYPES.get(arg, torch.float32)
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if t.dtype != want:

@@ -10,8 +10,8 @@ the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
 positional numpy argument tuple the reference's dispatcher of the same
 name also accepts, SDCA aside), ``make_ragged(rng)`` (the same on shapes
 off every tile multiple of the CUDA kernels: 64-row tiles, 32-wide
-feature chunks, 32-query blocks) and the tolerance the parity tests and
-``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
+feature chunks, 32-query and 32-row blocks, 64-support tiles) and the
+tolerance the parity tests and ``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
 (or, for SDCA, the XLA loop) each entry ports.
 """
 from __future__ import annotations
@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import batched_gram, ensemble_score as _ens, rbf_gram as _rbf, sdca as _sdca
+from repro_torch.kernels import ensemble_score_q8 as _ens_q8, gram_matvec as _gmv
+from repro_torch.kernels import rbf_gram_q8 as _q8
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -54,6 +56,30 @@ def ensemble_score(x, sup, coef, gammas):
     if _on_cuda(x, "ensemble_score"):
         return _ens.ensemble_score_cuda(x, sup, coef, gammas)
     return _ens.ensemble_score_plain(x, sup, coef, gammas)
+
+
+def gram_matvec(x1, x2, v, gamma: float):
+    """Streaming ``K(x1, x2; gamma) @ v``: x1 (m, d), x2 (n, d), v (n,)
+    -> (m,) fp32, without the (m, n) Gram."""
+    if _on_cuda(x1, "gram_matvec"):
+        return _gmv.gram_matvec_cuda(x1, x2, v, gamma)
+    return _gmv.gram_matvec_plain(x1, x2, v, gamma)
+
+
+def rbf_gram_q8(x, q, scale, zero, gamma: float):
+    """RBF Gram against per-column affine int8 supports: x (m, d) fp32,
+    q (n, d) int8, scale and zero (d,) -> (m, n) fp32."""
+    if _on_cuda(x, "rbf_gram_q8"):
+        return _q8.rbf_gram_q8_cuda(x, q, scale, zero, gamma)
+    return _q8.rbf_gram_q8_plain(x, q, scale, zero, gamma)
+
+
+def ensemble_score_q8(x, q, scale, zero, coef, gammas):
+    """Mean-of-member scores from int8 supports: x (b, d), q (k, n_max, d)
+    int8, scale and zero (k, d), coef (k, n_max), gammas (k,) -> (b,)."""
+    if _on_cuda(x, "ensemble_score_q8"):
+        return _ens_q8.ensemble_score_q8_cuda(x, q, scale, zero, coef, gammas)
+    return _ens_q8.ensemble_score_q8_plain(x, q, scale, zero, coef, gammas)
 
 
 def sdca(K, y, n_real, lam: float, epochs: int = 20):
@@ -98,6 +124,28 @@ def _mk_ensemble_score(rng):
             rng.uniform(0.1, 1.0, size=3).astype(np.float32))
 
 
+def _mk_gram_matvec(rng):
+    return (rng.normal(size=(48, 12)).astype(np.float32),
+            rng.normal(size=(40, 12)).astype(np.float32),
+            rng.normal(size=(40,)).astype(np.float32), 0.4)
+
+
+def _mk_rbf_gram_q8(rng):
+    return (rng.normal(size=(48, 12)).astype(np.float32),
+            rng.integers(-127, 128, size=(40, 12)).astype(np.int8),
+            rng.uniform(0.005, 0.1, size=12).astype(np.float32),
+            rng.normal(size=12).astype(np.float32), 0.4)
+
+
+def _mk_ensemble_score_q8(rng):
+    return (rng.normal(size=(40, 12)).astype(np.float32),
+            rng.integers(-127, 128, size=(3, 48, 12)).astype(np.int8),
+            rng.uniform(0.005, 0.05, size=(3, 12)).astype(np.float32),
+            rng.normal(size=(3, 12)).astype(np.float32),
+            (rng.normal(size=(3, 48)) / 48).astype(np.float32),
+            rng.uniform(0.1, 1.0, size=3).astype(np.float32))
+
+
 def make_sdca_problem(rng, g: int, b: int, d: int, n_real, lam: float = 0.01,
                       epochs: int = 20) -> tuple:
     """A padded batch of SDCA problems as the engine builds them: masked
@@ -137,6 +185,28 @@ def _ragged_ensemble_score(rng):
             rng.uniform(0.02, 0.2, size=5).astype(np.float32))
 
 
+def _ragged_gram_matvec(rng):
+    return (rng.normal(size=(77, 37)).astype(np.float32),
+            rng.normal(size=(131, 37)).astype(np.float32),
+            rng.normal(size=(131,)).astype(np.float32), 0.03)
+
+
+def _ragged_rbf_gram_q8(rng):
+    return (rng.normal(size=(130, 37)).astype(np.float32),
+            rng.integers(-127, 128, size=(67, 37)).astype(np.int8),
+            rng.uniform(0.002, 0.02, size=37).astype(np.float32),
+            rng.normal(size=37).astype(np.float32), 0.03)
+
+
+def _ragged_ensemble_score_q8(rng):
+    return (rng.normal(size=(37, 24)).astype(np.float32),
+            rng.integers(-127, 128, size=(5, 77, 24)).astype(np.int8),
+            rng.uniform(0.002, 0.02, size=(5, 24)).astype(np.float32),
+            rng.normal(size=(5, 24)).astype(np.float32),
+            (rng.normal(size=(5, 77)) / 77).astype(np.float32),
+            rng.uniform(0.02, 0.2, size=5).astype(np.float32))
+
+
 def _ragged_sdca(rng):
     return make_sdca_problem(rng, g=4, b=100, d=24, n_real=[100, 63, 1, 31])
 
@@ -162,6 +232,20 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
         KernelSpec("sdca", _sdca.sdca_cuda, _sdca.sdca_plain, sdca, _mk_sdca,
                    _ragged_sdca, _sdca.LAUNCHES, replaces="src/repro/core/svm.py:45",
                    source="src/repro_torch/kernels/csrc/sdca.cu"),
+        KernelSpec("gram_matvec", _gmv.gram_matvec_cuda, _gmv.gram_matvec_plain,
+                   gram_matvec, _mk_gram_matvec, _ragged_gram_matvec, _gmv.LAUNCHES,
+                   replaces="src/repro/kernels/gram_matvec.py:65",
+                   source="src/repro_torch/kernels/csrc/gram_matvec.cu"),
+        KernelSpec("rbf_gram_q8", _q8.rbf_gram_q8_cuda, _q8.rbf_gram_q8_plain,
+                   rbf_gram_q8, _mk_rbf_gram_q8, _ragged_rbf_gram_q8, _q8.LAUNCHES,
+                   replaces="src/repro/kernels/rbf_gram_q8.py:53",
+                   source="src/repro_torch/kernels/csrc/gram.cu"),
+        KernelSpec("ensemble_score_q8", _ens_q8.ensemble_score_q8_cuda,
+                   _ens_q8.ensemble_score_q8_plain, ensemble_score_q8,
+                   _mk_ensemble_score_q8, _ragged_ensemble_score_q8, _ens_q8.LAUNCHES,
+                   replaces="src/repro/kernels/ensemble_score_q8.py:72",
+                   source="src/repro_torch/kernels/csrc/ensemble_score.cu",
+                   tol=1e-4),
     )
 }
 

@@ -76,6 +76,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ops.batched_rbf_gram(x.transpose(1, 2), x.transpose(1, 2), g)
     with pytest.raises(ValueError, match="on cpu"):
         ops.batched_rbf_gram(x, x.cpu(), g)
+    xq = torch.randn(8, 4, device=cuda_device)
+    q = torch.zeros(5, 4, dtype=torch.int8, device=cuda_device)
+    sc, ze = torch.ones(4, device=cuda_device), torch.zeros(4, device=cuda_device)
+    assert ops.rbf_gram_q8(xq, q, sc, ze, 0.5).shape == (8, 5)
+    with pytest.raises(TypeError, match="int8"):
+        ops.rbf_gram_q8(xq, q.float(), sc, ze, 0.5)
 
 
 def test_train_population_matches_cpu(cuda_device):
@@ -109,4 +115,31 @@ def test_round_matches_cpu(cuda_device):
         for k in card.ensemble_auc[s]:
             assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
     for key in card.per_device:
+        np.testing.assert_allclose(card.per_device[key], cpu.per_device[key], atol=1e-4)
+
+
+def test_int8_distilled_round_matches_cpu(cuda_device):
+    """The int8 round with CG distillation: ledgers (the student's
+    download included) and ids equal, AUCs within 1e-4, and the three
+    int8/distillation kernels launched."""
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.data import make_dataset
+    from repro_torch.distill import DistillConfig
+
+    ds = make_dataset("gleam", seed=0, scale=0.4)
+    kw = dict(ks=(1, 3, 10), random_trials=2, codec="int8",
+              distill=DistillConfig(proxy_size=4096, solver="cg"))
+    ops.reset_launch_counts()
+    card = run_protocol(ds, device=cuda_device, **kw)
+    counts = ops.launch_counts()
+    assert all(counts[n] > 0 for n in ("gram_matvec", "rbf_gram_q8", "ensemble_score_q8"))
+    cpu = run_protocol(ds, device="cpu", **kw)
+    assert card.ledger.as_dict() == cpu.ledger.as_dict()
+    assert ([(e.tag, e.device_id) for e in card.ledger.events]
+            == [(e.tag, e.device_id) for e in cpu.ledger.events])
+    np.testing.assert_array_equal(card.student.q, cpu.student.q)
+    for s in cpu.ensemble_auc:
+        for k in cpu.ensemble_auc[s]:
+            assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
+    for key in cpu.per_device:
         np.testing.assert_allclose(card.per_device[key], cpu.per_device[key], atol=1e-4)

@@ -71,8 +71,10 @@ def test_sources_import_no_jax_or_repro(path):
 def test_default_device_is_the_card(monkeypatch):
     """Without CUDA every entry point called without ``device`` raises;
     nothing quietly moves to the CPU."""
+    from repro_torch.comm.wire import QuantizedSVM, _quantize_columns
     from repro_torch.core.ensemble import StackedEnsemble
     from repro_torch.core.protocol import run_protocol
+    from repro_torch.distill import distill_teacher
     from repro_torch.core.svm import SVMModel, train_svm
     from repro_torch.data import make_dataset
     from repro_torch.sim.engine import train_population
@@ -89,6 +91,8 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: train_svm(x, y),
         lambda: SVMModel(x, y * 0.1, 0.5).predict(x),
         lambda: StackedEnsemble.from_members([SVMModel(x, y * 0.1, 0.5)]),
+        lambda: QuantizedSVM(*_quantize_columns(x), y * 0.1, 0.5).predict(x),
+        lambda: distill_teacher(lambda q: q[:, 0], x),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

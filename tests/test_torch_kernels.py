@@ -22,6 +22,9 @@ JAX_DISPATCH = {
     "batched_rbf_gram": ref_ops.batched_rbf_gram,
     "rbf_gram": ref_ops.rbf_gram,
     "ensemble_score": ref_ops.ensemble_score,
+    "gram_matvec": ref_ops.gram_matvec,
+    "rbf_gram_q8": ref_ops.rbf_gram_q8,
+    "ensemble_score_q8": ref_ops.ensemble_score_q8,
 }
 
 
@@ -102,7 +105,8 @@ def test_registry_names_sources_and_replaced_kernels():
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
-    assert NAMES == ["batched_rbf_gram", "ensemble_score", "rbf_gram", "sdca"]
+    assert NAMES == ["batched_rbf_gram", "ensemble_score", "ensemble_score_q8",
+                     "gram_matvec", "rbf_gram", "rbf_gram_q8", "sdca"]
     for spec in ops.KERNEL_REGISTRY.values():
         assert (root / spec.source).is_file()
         path, line = spec.replaces.split(":")
@@ -110,10 +114,22 @@ def test_registry_names_sources_and_replaced_kernels():
         assert text.startswith("def "), (spec.name, text)
     assert {s.tol for s in ops.KERNEL_REGISTRY.values()} == {1e-5, 1e-4}
     assert ops.KERNEL_REGISTRY["ensemble_score"].tol == 1e-4
+    assert ops.KERNEL_REGISTRY["ensemble_score_q8"].tol == 1e-4
+    assert ops.KERNEL_REGISTRY["gram_matvec"].tol == ops.KERNEL_REGISTRY["rbf_gram_q8"].tol == 1e-5
 
 
 def test_build_is_keyed_by_source_content():
     h = native.source_hash()
     assert len(h) == 16 and native.build_dir().name == h
     assert sorted(p.stem for p in native.CSRC.glob("*.cu")) == sorted(native.SOURCES)
+
+
+def test_every_bound_function_is_exported_by_its_source():
+    import re
+
+    assert sorted(native.SIGNATURES) == sorted(native.SOURCES)
+    for name, fns in native.SIGNATURES.items():
+        text = (native.CSRC / f"{name}.cu").read_text()
+        exported = set(re.findall(r'extern "C" int (\w+)\(', text))
+        assert exported == set(fns), name
 

@@ -1,6 +1,8 @@
 """The port's one-shot round against the reference's, on the CPU: equal
-ledgers and picked ids, AUCs within 1e-4, the same best k; options
-outside the ported slice raise."""
+ledgers and picked ids, AUCs within 1e-4 (the distilled student's
+included), the same best k, for the fp32 round and for the int8, fp16,
+topk, budgeted and distilled rounds; options outside the ported slice
+raise."""
 import functools
 
 import numpy as np
@@ -8,21 +10,33 @@ import pytest
 
 from repro.core.protocol import run_protocol as ref_run
 from repro.data import make_dataset as ref_make
+from repro.distill import DistillConfig as RefDistill
 from repro_torch.core.protocol import run_protocol as pt_run
 from repro_torch.data import make_dataset as pt_make
+from repro_torch.distill import DistillConfig as PtDistill
 
+GLEAM = dict(data="gleam", scale=0.4, ks=(1, 3, 10), random_trials=2)
+EMNIST = dict(data="emnist", scale=0.02, ks=(1, 10, 50), random_trials=2)
 CASES = {
-    "gleam": dict(scale=0.4, ks=(1, 3, 10), random_trials=2),
-    "emnist": dict(scale=0.02, ks=(1, 10, 50), random_trials=2),
+    "gleam": GLEAM,
+    "emnist": EMNIST,
+    "gleam-int8-cg": dict(GLEAM, codec="int8", distill=dict(proxy_size=4096, solver="cg")),
+    "emnist-int8-nystrom": dict(EMNIST, codec="int8",
+                                distill=dict(proxy_size=4096, solver="nystrom")),
+    "gleam-fp16-dense": dict(GLEAM, codec="fp16", distill=dict(proxy_size=200, solver="dense")),
+    "gleam-topk": dict(GLEAM, codec="topk"),
+    "gleam-budget": dict(GLEAM, budget_bytes=12000),   # 10 uploads need ~26 kB
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _rounds(name: str):
-    c = CASES[name]
-    kw = dict(ks=c["ks"], random_trials=c["random_trials"])
-    ref = ref_run(ref_make(name, seed=0, scale=c["scale"]), **kw)
-    pt = pt_run(pt_make(name, seed=0, scale=c["scale"]), device="cpu", **kw)
+    c = dict(CASES[name])
+    data, scale, distill = c.pop("data"), c.pop("scale"), c.pop("distill", None)
+    ref = ref_run(ref_make(data, seed=0, scale=scale),
+                  distill=RefDistill(**distill) if distill else None, **c)
+    pt = pt_run(pt_make(data, seed=0, scale=scale),
+                distill=PtDistill(**distill) if distill else None, device="cpu", **c)
     return ref, pt
 
 
@@ -64,9 +78,39 @@ def test_server_scorer_is_the_best_cells_ensemble(name):
     ref, pt = _rounds(name)
     assert type(pt.server_scorer).__name__ == type(ref.server_scorer).__name__ == "Ensemble"
     assert pt.server_scorer.k == ref.server_scorer.k
-    q = pt_make(name, seed=5, scale=CASES[name]["scale"]).devices[0].x
+    q = pt_make(CASES[name]["data"], seed=5, scale=CASES[name]["scale"]).devices[0].x
     np.testing.assert_allclose(pt.server_scorer.predict(q), ref.server_scorer.predict(q),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in CASES if "distill" in CASES[n]))
+def test_distilled_student_matches(name):
+    ref, pt = _rounds(name)
+    assert pt.student_codec == ref.student_codec == CASES[name]["codec"]
+    assert type(pt.student).__name__ == type(ref.student).__name__
+    if CASES[name]["codec"] == "int8":
+        assert type(pt.student).__name__ == "QuantizedSVM"
+        for attr in ("q", "scale", "zero"):
+            got, want = getattr(pt.student, attr), np.asarray(getattr(ref.student, attr))
+            assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), attr
+    else:
+        assert pt.student.support_x.tobytes() == np.asarray(ref.student.support_x).tobytes()
+    assert pt.student.gamma == ref.student.gamma
+    for tag in ("download_distilled", "download_ensemble"):
+        assert len(pt.ledger.filter(tag=tag)) == 1
+        assert pt.ledger.total(tag=tag) == ref.ledger.total(tag=tag) > 0
+    assert abs(pt.ensemble_auc["distilled"][max(pt.ensemble_auc["distilled"])]
+               - ref.ensemble_auc["distilled"][max(ref.ensemble_auc["distilled"])]) <= 1e-4
+
+
+def test_budget_binds_and_packs_like_the_reference():
+    ref, pt = _rounds("gleam-budget")
+    for k in CASES["gleam-budget"]["ks"]:
+        for strat in ("cv", "data"):
+            tag = f"upload_{strat}_k{k}"
+            assert pt.ledger.total(tag=tag) <= 12000
+            assert pt.ledger.total(tag=tag) == ref.ledger.total(tag=tag)
+    assert len(pt.ledger.filter(tag="upload_cv_k10")) < 10
 
 
 def test_round_spans_cover_every_phase():
@@ -87,7 +131,7 @@ def test_round_spans_cover_every_phase():
 
 def test_loop_tier_round_equals_bucketed():
     c = CASES["gleam"]
-    ds = pt_make("gleam", seed=0, scale=c["scale"])
+    ds = pt_make(c["data"], seed=0, scale=c["scale"])
     _, bucketed = _rounds("gleam")
     loop = pt_run(ds, ks=c["ks"], random_trials=c["random_trials"], engine="loop",
                   device="cpu")
@@ -97,10 +141,10 @@ def test_loop_tier_round_equals_bucketed():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(codec="int8"), "item 8"),
-    (dict(budget_bytes=4096), "item 8"),
-    (dict(distill_proxy=30), "item 7"),
-    (dict(distill=object()), "item 7"),
+    (dict(distill=PtDistill(proxy_size=30, proxy="scenario")), "item 9"),
+    (dict(aggregator="reweight"), "item 10"),
+    (dict(aggregator="feature_stats"), "item 10"),
+    (dict(engine="sharded", codec="int8"), "item 15"),
     (dict(aggregator="fisher"), "item 10"),
     (dict(engine="streamed"), "item 9"),
     (dict(engine="sharded"), "item 15"),
