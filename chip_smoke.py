@@ -6,13 +6,15 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs six phases, each printing one JSON line on stdout:
+``repro``, and runs eight phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and one ragged shape, at the registry's
-           tolerance;
+           tolerance; flash attention in fp32 and bf16 at head dims 32, 64
+           and 128, 1, 4 and 6 query heads per KV head, causal, causal with
+           a window, non-causal, ragged lengths and the serve shape;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -31,16 +33,33 @@ It imports the port and nothing of JAX or of the reference package
            student's support count and codec, and each kernel's launches,
            all seven > 0, ``gram_matvec``'s equal to the CG iterations;
            then once more under the profiler;
+  lm_parity  llama3.2-1b at full width cut to 2 layers, fp32, with the
+           flash kernel (``use_pallas``): 2 prompts of 200 tokens and 8
+           greedy tokens through ``launch/serve.py``'s ``serve_prompts`` on
+           cuda and on cpu (the plain versions): equal tokens, last-position
+           logits within LM_LOGIT_TOL;
+  serve    the full 16-layer bf16 llama3.2-1b from the port's seeded init:
+           4 requests of 2,048 prompt tokens from
+           ``make_federated_lm_data`` through the ``MicroBatchScheduler``,
+           32 greedy tokens each: flash launches (exactly one per layer)
+           and peak memory of that first serve, prefill and decode seconds
+           and tokens/s of it (cold) and of a second serve (warm); then
+           the same serve once more under the profiler;
   timing   each kernel and its plain version, in turns (plain, kernel,
            kernel, plain) with CUDA events, at main-path shapes, beside the
-           analytic bound: the larger of fp32 operations over 67 TFLOP/s
-           and bytes (each input read once, each output written once) over
-           3.35 TB/s, the H100 SXM's published peaks.
+           analytic bound: the larger of operations over the card's peak
+           for the inputs' type (67 TFLOP/s fp32 outside the tensor cores,
+           989 TFLOP/s bf16 dense) and bytes (each input read once, each
+           output written once) over 3.35 TB/s, the H100 SXM's published
+           peaks; flash attention also beside ``library_ms``, one call of
+           ``torch.nn.functional.scaled_dot_product_attention`` on the same
+           tensors (a yardstick only: the port never calls it).
 
 The last three lines are the per-kernel summary ``{"kernels": [...]}``
-(each kernel's launches read from the round it was ported for: ``main``
-for the four fp32 kernels, ``main_q8`` for the three int8/CG ones, named
-in ``launches_path``), the card's name and power limit as ``nvidia-smi`` gives them, and
+(each kernel's launches read from the run it was ported for: ``main``
+for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
+``serve`` for flash attention, named in ``launches_path``), the card's
+name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
 directory without the port's sources. ``--phases`` runs a subset (for a
@@ -57,13 +76,34 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "main_q8", "timing")
+PHASES = ("build", "kernels", "parity", "main", "main_q8", "lm_parity", "serve", "timing")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_OPS = 989e12            # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 PARITY_KS = (1, 10, 38)
 FP32_KERNELS = ("batched_rbf_gram", "rbf_gram", "ensemble_score", "sdca")
+Q8_KERNELS = ("gram_matvec", "rbf_gram_q8", "ensemble_score_q8")
+LAUNCHES_PATH = {**{n: "main" for n in FP32_KERNELS}, **{n: "main_q8" for n in Q8_KERNELS},
+                 "flash_attention": "serve"}
+# bf16 keeps 8 significant bits: two fp32 results a rounding error apart can
+# round to neighbouring bf16 values, at most 2^-7 of the value apart; the
+# absolute term covers the fp32 difference itself near zero
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+# full-width logits (unit scale) after 2 fp32 layers whose sums (up to 8,192
+# terms) run in another order on each device: ~1e-5 expected
+LM_LOGIT_TOL = 1e-3
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-1b", 4, 2048, 32
+# (label, (B, S, H, K, hd), causal, window); the last is the serve phase's prefill
+FLASH_SHAPES = (
+    ("hd32 rep1 causal", (2, 256, 4, 4, 32), True, 0),
+    ("hd64 rep4 causal window100", (2, 300, 8, 2, 64), True, 100),
+    ("hd128 rep6 non-causal", (1, 256, 12, 2, 128), False, 0),
+    ("hd128 rep6 causal ragged333", (1, 333, 12, 2, 128), True, 0),
+    ("hd64 rep4 non-causal window64 ragged201", (2, 201, 8, 2, 64), False, 64),
+    ("serve b4 s2048 h32 k8 hd64 causal", (4, 2048, 32, 8, 64), True, 0),
+)
 
 
 def emit(obj) -> None:
@@ -101,6 +141,7 @@ def kernel_cases(rng, ops):
     from normal data by the port's own codec, so scale and zero are what
     the wire gives."""
     import numpy as np
+    import torch
 
     from repro_torch.comm.wire import _quantize_columns
 
@@ -140,6 +181,12 @@ def kernel_cases(rng, ops):
         n_real = rng.integers(lo, hi + 1, size=g)
         return ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=n_real)
 
+    def flash(shape, causal, window, dtype):
+        B, S, H, K, hd = shape
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+                   .to(dtype) for h in (H, K, K))
+        return q, k, v, causal, window
+
     cases = {
         "batched_rbf_gram": [
             ("fit g256 b64", _gram_inputs(rng, 256, 64, 64, 32)),
@@ -170,6 +217,11 @@ def kernel_cases(rng, ops):
             ("full b8192 k2821 n230", ens_q8(8192, 2821, 230, 32)),
             ("k100 b8192 n230", ens_q8(8192, 100, 230, 32)),
         ],
+        "flash_attention": [
+            (f"{label} {dt}", flash(shape, causal, window, getattr(torch, dt)))
+            for dt in ("bfloat16", "float32")
+            for label, shape, causal, window in FLASH_SHAPES
+        ],
     }
     for name, spec in ops.KERNEL_REGISTRY.items():
         cases[name].append(("ragged", spec.make_ragged(rng)))
@@ -181,7 +233,37 @@ def to_device(args, device):
     import torch
 
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 if isinstance(a, np.ndarray) else a for a in args)
+                 if isinstance(a, np.ndarray)
+                 else a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def agreement(spec, got, want):
+    """(max |kernel - plain|, within tolerance, the tolerance): the
+    registry's tol in fp32; in bf16, compared in fp32, at most
+    BF16_ATOL + BF16_RTOL |plain| element by element."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    finite = bool(torch.isfinite(got).all())
+    if got.dtype == torch.bfloat16:
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+        return err, finite and ok, f"{BF16_ATOL} + 2^-7 |plain|"
+    return err, finite and err <= spec.tol, spec.tol
+
+
+def _nbytes(a):
+    return a.numel() * a.element_size() if hasattr(a, "element_size") else a.nbytes
+
+
+def attention_pairs(Sq, Skv, causal, window):
+    """(query, key) pairs the causal and window masks leave, per (batch, head)."""
+    import numpy as np
+
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 # ----------------------------------------------------------------------
@@ -233,6 +315,15 @@ def work_of(name, args):
                + 2 * k * n_max * d)
         nbytes = 4 * b * d + k * n_max * d + 4 * (2 * k * d + k * n_max + k + b)
         return ops, nbytes
+    if name == "flash_attention":
+        q, k = args[0], args[1]
+        causal, window = (args[3], args[4]) if len(args) > 3 else (True, 0)
+        B, Sq, H, hd = q.shape
+        # per unmasked pair: hd multiply-adds for q.k and hd for p v
+        ops = B * H * attention_pairs(Sq, k.shape[1], causal, window) * 4 * hd
+        # q and o, k and v: each read or written once
+        nbytes = 2 * (_nbytes(q) + _nbytes(k))
+        return ops, nbytes
     if name == "sdca":
         K, n_real, epochs = args[0], args[2], args[4]
         g, b, _ = K.shape
@@ -246,7 +337,8 @@ def work_of(name, args):
 
 def bound_of(name, args):
     ops, nbytes = work_of(name, args)
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    bf16 = str(getattr(args[0], "dtype", "")) == "torch.bfloat16"
+    t_ops, t_bytes = ops / (PEAK_BF16_OPS if bf16 else PEAK_FP32_OPS), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -265,7 +357,8 @@ def phase_build(native):
 
 def phase_kernels(ops, device, rng):
     """Every case of every kernel against its plain version; all cases run,
-    and the phase fails at the end if any disagreed."""
+    and the phase fails at the end if any disagreed. ``errs`` holds each
+    kernel's largest fp32 error, ``errs[name + "/bf16"]`` its bf16 one."""
     import torch
 
     results, errs, failed = [], {}, []
@@ -277,18 +370,16 @@ def phase_kernels(ops, device, rng):
             torch.cuda.synchronize()
             want = spec.plain(*targs)
             torch.cuda.synchronize()
-            if tuple(got.shape) != tuple(want.shape):
-                raise AssertionError(f"{name} [{label}]: shape {tuple(got.shape)} "
-                                     f"!= plain {tuple(want.shape)}")
-            finite = bool(torch.isfinite(got).all())
-            err = float((got - want).abs().max()) if got.numel() else 0.0
-            ok = finite and err <= spec.tol
+            if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+                raise AssertionError(f"{name} [{label}]: {tuple(got.shape)} {got.dtype} "
+                                     f"!= plain {tuple(want.shape)} {want.dtype}")
+            err, ok, tol = agreement(spec, got, want)
             results.append({"kernel": name, "case": label, "shape": list(got.shape),
-                            "max_abs_err": err, "tol": spec.tol, "ok": ok})
-            errs[name] = max(errs.get(name, 0.0), err)
+                            "max_abs_err": err, "tol": tol, "ok": ok})
+            key = name + "/bf16" if got.dtype == torch.bfloat16 else name
+            errs[key] = max(errs.get(key, 0.0), err)
             if not ok:
-                failed.append(f"{name} [{label}]: max |kernel - plain| = {err} "
-                              f"(tol {spec.tol}), finite={finite}")
+                failed.append(f"{name} [{label}]: max |kernel - plain| = {err} (tol {tol})")
             del got, want, targs
     torch.cuda.empty_cache()
     if failed:
@@ -402,35 +493,167 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, **kw):
         if cg and sum(cg) != counts["gram_matvec"]:
             raise AssertionError(f"main: gram_matvec launched {counts['gram_matvec']} "
                                  f"times for {sum(cg)} CG iterations")
-    out["profile"] = profile_round(run_protocol, ds, **kw)
+    out["profile"], _ = profile_call(lambda: run_protocol(ds, ks=MAIN_KS, random_trials=3,
+                                                          device="cuda", **kw))
     return out
 
 
-def profile_round(run_protocol, ds, **kw):
-    """The same round once more, under ``torch.profiler``: the device's
-    busy seconds (the sum of every kernel and copy on the card; one stream,
-    so they do not overlap) against the round's wall seconds, and the
-    device time by kernel. The profiler slows the host, so this round's
-    wall is longer than the measured one's; the busy share is that of the
-    profiled round."""
+def profile_call(fn, top=12):
+    """``fn()`` under ``torch.profiler``: the device's busy seconds (the
+    sum of every kernel and copy on the card; one stream, so they do not
+    overlap) against the call's wall seconds, and the device time by
+    kernel. The profiler slows the host, so this wall is longer than an
+    unprofiled one's; the busy share is that of the profiled call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda", **kw)
+        result = fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_card) / 1e6
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
-    return {
+    ranked = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]
+    out = {
         "wall_seconds": wall, "device_seconds": busy,
         "device_busy_share": busy / wall if busy > 0 else None,
         "by_kernel": [{"name": e.key[:100], "count": e.count,
-                       "seconds": e.self_device_time_total / 1e6} for e in top],
+                       "seconds": e.self_device_time_total / 1e6} for e in ranked],
     }
+    return out, result
+
+
+def phase_lm_parity(ops, device):
+    """llama3.2-1b at full width, 2 layers, fp32, through the flash kernel
+    on cuda and through its plain version on cpu: the same seeded
+    parameters (drawn on the cpu, then moved), 2 prompts of 200 tokens,
+    8 greedy tokens; tokens equal and last-position logits within
+    LM_LOGIT_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import forward_prefill, init_cache, init_params
+
+    cfg = get_config(SERVE_ARCH).replace(n_layers=2, dtype=torch.float32, use_pallas=True)
+    prompts = np.stack([c[:200] for c in make_federated_lm_data(2, cfg.vocab, 208, seed=0)])
+    params = init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        params = params.to(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, _ = serve_prompts(cfg, params, prompts.astype(np.int32), gen=8)
+        logits, _ = forward_prefill(params, cfg, {"tokens": prompts},
+                                    init_cache(cfg, 2, 200, device=dev))
+        runs[dev.type] = {
+            "tokens": tokens, "logits": logits.cpu(), "seconds": time.perf_counter() - t0,
+            "flash_launches": ops.launch_counts()["flash_attention"]}
+    cpu, card = runs["cpu"], runs["cuda"]
+    diff = float((card["logits"] - cpu["logits"]).abs().max())
+    out = {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": "float32", "prompts": list(prompts.shape), "gen": 8,
+           "tokens_equal": bool(np.array_equal(card["tokens"], cpu["tokens"])),
+           "max_logit_diff": diff, "tol": LM_LOGIT_TOL,
+           "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "flash_launches": {k: r["flash_launches"] for k, r in runs.items()},
+           "tokens": card["tokens"].tolist()}
+    if not out["tokens_equal"]:
+        raise AssertionError(f"lm_parity: cuda tokens {card['tokens'].tolist()} != cpu "
+                             f"tokens {cpu['tokens'].tolist()}")
+    if not (torch.isfinite(card["logits"]).all() and diff <= LM_LOGIT_TOL):
+        raise AssertionError(f"lm_parity: logits differ by {diff} > {LM_LOGIT_TOL}")
+    # one prefill in serve_prompts and one more here, each a launch per layer
+    if cpu["flash_launches"] != 0 or card["flash_launches"] != 2 * cfg.n_layers:
+        raise AssertionError(f"lm_parity: flash launches {out['flash_launches']}, want "
+                             f"0 on cpu and {2 * cfg.n_layers} on cuda")
+    return out
+
+
+def phase_serve(ops, device):
+    """The full 16-layer bf16 llama3.2-1b serving 4 requests of 2,048
+    prompt tokens, 32 greedy tokens each, through ``serve_prompts`` (the
+    body of ``launch/serve.py``'s ``main``) with the flash kernel; then
+    the same serve once more under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import cache_spec, forward_prefill, init_cache, init_params
+    from repro_torch.models import param_count
+
+    cfg = get_config(SERVE_ARCH).replace(use_pallas=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != param_count(cfg):
+        raise AssertionError(f"serve: {n_params} parameters, config says {param_count(cfg)}")
+    clients = make_federated_lm_data(SERVE_BATCH, cfg.vocab, SERVE_PROMPT + 8, seed=0)
+    prompts = np.stack([c[:SERVE_PROMPT] for c in clients]).astype(np.int32)
+    kv_len = SERVE_PROMPT + SERVE_GEN + 1
+    spec = cache_spec(cfg, SERVE_BATCH, kv_len)
+    cache_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+                      for sub in spec["blocks"] for shape, dtype in sub["attn"].values())
+
+    # the first serve is the measured main path (launch counts, peak
+    # memory); it also pays the first calls' set-up (cuBLAS handles and
+    # heuristics), so a second, warm serve gives the steady-state seconds
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, sched = serve_prompts(cfg, params, prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    warm_tokens, warm_sched = serve_prompts(cfg, params, prompts, SERVE_GEN)
+
+    # the first generated token is the prefill's argmax, and the logits are finite
+    logits, _ = forward_prefill(params, cfg, {"tokens": prompts},
+                                init_cache(cfg, SERVE_BATCH, kv_len, device=device))
+    first = torch.argmax(logits, dim=-1).cpu().numpy()
+    profile, (again, _) = profile_call(lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    cold, warm = sched.score_fn.timings[0], warm_sched.score_fn.timings[0]
+
+    def rates(timing):
+        pre_s, dec_s = timing["prefill_seconds"], timing["decode_seconds"]
+        return {"prefill_seconds": pre_s,
+                "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / pre_s,
+                "decode_seconds": dec_s,
+                "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / dec_s,
+                "decode_ms_per_step": 1e3 * dec_s / SERVE_GEN}
+
+    out = {
+        "arch": SERVE_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], "vocab": cfg.vocab,
+        "dtype": "bfloat16", "params": n_params, "init_seconds": init_s,
+        "requests": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+        "kv_cache_bytes": cache_bytes, "peak_memory_bytes": peak,
+        "warm": rates(warm), "cold": rates(cold), "cold_serve_wall_seconds": wall,
+        "scheduler": vars(sched.stats), "kernels": counts,
+        "tokens_head": tokens[:, :8].tolist(), "profile": profile,
+    }
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"serve: tokens {tokens.shape} outside the vocabulary")
+    if not bool(torch.isfinite(logits.float()).all()) or not np.array_equal(first, tokens[:, 0]):
+        raise AssertionError("serve: prefill logits not finite or their argmax is not "
+                             "the first generated token")
+    if sched.stats.batches != 1 or sched.stats.scored_rows != SERVE_BATCH:
+        raise AssertionError(f"serve: scheduler stats {vars(sched.stats)}")
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"serve: flash_attention launched {counts['flash_attention']} "
+                             f"times, want one per layer ({cfg.n_layers})")
+    if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
+        raise AssertionError("serve: a repeat of the serve generated other tokens")
+    return out
 
 
 def _time_ms(fn, reps):
@@ -445,18 +668,36 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel, plain, args, budget_ms=40.0):
+def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms."""
+    each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms;
+    with ``library``, its two turns go between the kernel's (plain,
+    kernel, library, library, kernel, plain)."""
+    fns = {"plain": plain, "kernel": kernel}
+    order = ["plain", "kernel", "kernel", "plain"]
+    if library is not None:
+        fns["library"] = library
+        order[2:2] = ["library", "library"]
     reps = {}
-    for label, fn in (("plain", plain), ("kernel", kernel)):
+    for label, fn in fns.items():
         once = _time_ms(lambda: fn(*args), 1)   # warm-up, then size the run
         reps[label] = max(1, min(200, int(budget_ms / max(once, 1e-3))))
-    turns = {"plain": [], "kernel": []}
-    for label, fn in (("plain", plain), ("kernel", kernel),
-                      ("kernel", kernel), ("plain", plain)):
-        turns[label].append(_time_ms(lambda: fn(*args), reps[label]))
+    turns = {label: [] for label in fns}
+    for label in order:
+        turns[label].append(_time_ms(lambda: fns[label](*args), reps[label]))
     return turns, reps
+
+
+def sdpa_library(q, k, v, causal, window):
+    """The yardstick for flash attention: one PyTorch call on the same
+    tensors, in its (B, heads, S, hd) layout (transposed views)."""
+    import torch.nn.functional as F
+
+    if window:
+        raise ValueError("the library yardstick is timed without a window")
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), is_causal=causal,
+                                          enable_gqa=True).transpose(1, 2)
 
 
 TIMING_CASES = {
@@ -469,7 +710,10 @@ TIMING_CASES = {
     "gram_matvec": ("cg l4096 d32",),
     "rbf_gram_q8": ("student predict b8192 n4096 d32",),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
+    "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
+                        "serve b4 s2048 h32 k8 hd64 causal float32"),
 }
+LIBRARY = {"flash_attention": sdpa_library}
 
 
 def phase_timing(ops, device, rng):
@@ -482,15 +726,21 @@ def phase_timing(ops, device, rng):
         for label in labels:
             args = cases[name][label]
             targs = to_device(args, device)
-            turns, reps = time_pair(spec.kernel, spec.plain, targs)
+            library = LIBRARY.get(name)
+            turns, reps = time_pair(spec.kernel, spec.plain, targs, library=library)
             bound_ms, bound_by = bound_of(name, args)
             ops_n, bytes_n = work_of(name, args)
-            rows.append({
+            row = {
                 "kernel": name, "case": label,
                 "ms": sum(turns["kernel"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                "library_ms": sum(turns["library"]) / 2 if library else None,
                 "turns": turns, "reps": reps, "bound_ms": bound_ms,
                 "bound_by": bound_by, "ops": ops_n, "bytes": bytes_n,
-            })
+            }
+            if library:   # how far the yardstick's own answer is from the plain version's
+                row["library_max_abs_err"] = float(
+                    (library(*targs).float() - spec.plain(*targs).float()).abs().max())
+            rows.append(row)
             del targs
             torch.cuda.empty_cache()
     return {"rows": rows}
@@ -555,8 +805,13 @@ def main(argv=None) -> int:
                 counts[phase] = out["kernels"]
             elif phase == "main_q8":
                 out = phase_main(make_dataset, run_protocol, ops, trace,
-                                 tuple(ops.KERNEL_REGISTRY), codec="int8",
+                                 FP32_KERNELS + Q8_KERNELS, codec="int8",
                                  distill=DistillConfig(proxy_size=4096, solver="cg"))
+                counts[phase] = out["kernels"]
+            elif phase == "lm_parity":
+                out = phase_lm_parity(ops, device)
+            elif phase == "serve":
+                out = phase_serve(ops, device)
                 counts[phase] = out["kernels"]
             else:
                 out = phase_timing(ops, device, np.random.default_rng(0))
@@ -568,25 +823,29 @@ def main(argv=None) -> int:
         detail[phase] = out
         if phase == "timing":   # the turns and counts go to --out only
             out = {**out, "rows": [{k: r[k] for k in ("kernel", "case", "ms", "plain_ms",
-                                                      "bound_ms", "bound_by")}
+                                                      "library_ms", "bound_ms", "bound_by")}
                                    for r in out["rows"]]}
         emit(out)
 
-    # each kernel's launches come from the round it was ported for: the fp32
+    # each kernel's launches come from the run it was ported for: the fp32
     # round's four from ``main``, the int8 + distillation round's three from
-    # ``main_q8`` (both phase lines carry every kernel's count)
+    # ``main_q8``, flash attention from ``serve`` (every phase line carries
+    # every kernel's count)
     summary = []
     for name, spec in ops.KERNEL_REGISTRY.items():
         row = timing.get(name, {})
-        path = "main" if name in FP32_KERNELS else "main_q8"
-        summary.append({
+        path = LAUNCHES_PATH[name]
+        entry = {
             "name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
             "launches_path": path,
             "max_abs_err": errs.get(name), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
-            "bound_by": row.get("bound_by"), "library_ms": None,
-        })
+            "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
+        }
+        if name + "/bf16" in errs:
+            entry["max_abs_err_bf16"] = errs[name + "/bf16"]
+        summary.append(entry)
     if args.out:
         out_path = Path(args.out)
         out_path.parent.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,11 @@ gamma(s). These functions take those arrays (as numpy, e.g.
 so a model trained by either package scores in the other. The wire
 format (``comm.wire``) is the other carrier: a blob of any codec from
 either package decodes in the other.
+
+``lm_params_from_arrays`` carries an LM's parameter tree across: the
+reference's nested dict of arrays, whose blocks are stacked on a leading
+``n_superblocks`` axis per sub-layer kind, becomes the port's module with
+one entry per layer.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import torch
 from repro_torch.comm.wire import QuantizedStackedEnsemble, QuantizedSVM
 from repro_torch.core.ensemble import StackedEnsemble
 from repro_torch.core.svm import SVMModel
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import materialize, model_specs
 from repro_torch.utils.device import resolve_device
 
 
@@ -76,3 +83,28 @@ def quantized_stacked_from_arrays(q, scale, zero, coef, gammas,
                          f"{c.shape}, {g.shape}")
     return QuantizedStackedEnsemble(*(torch.from_numpy(a).to(dev)
                                       for a in (qa, sc, ze, c, g)))
+
+
+def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda"):
+    """A reference LM parameter tree (``repro.models.init_params``'s
+    layout, leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, p)``)
+    -> the port's parameter module on ``device``. Layer ``i`` of the port
+    is superblock ``i // period`` of the reference's sub-layer kind
+    ``i % period``. Values are carried exactly (bf16 through fp32)."""
+    dev = resolve_device(device)
+    period = len(cfg.sublayer_kinds())
+
+    def leaf(path, spec):
+        if path[0] == "blocks":
+            node = tree["blocks"][path[1] % period]
+            for key in path[2:]:
+                node = node[key]
+            arr = np.asarray(node)[path[1] // period]
+        else:
+            arr = np.asarray(tree[path[0]])
+        if tuple(arr.shape) != spec.shape:
+            raise ValueError(f"{'/'.join(map(str, path))}: reference array {arr.shape}, "
+                             f"config wants {spec.shape}")
+        return torch.from_numpy(np.array(arr, np.float32)).to(dev, spec.dtype)
+
+    return materialize(model_specs(cfg), leaf)

@@ -45,8 +45,8 @@ def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
                            zero: torch.Tensor, coef: torch.Tensor,
                            gammas: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/ensemble_score.cu``'s int8 kernel on x's CUDA device."""
-    native.check_cuda("ensemble_score_q8", x.device, x=x, q=q, scale=scale, zero=zero,
-                      coef=coef, gammas=gammas)
+    native.check_cuda("ensemble_score_q8", x.device, dtypes={"q": torch.int8},
+                      x=x, q=q, scale=scale, zero=zero, coef=coef, gammas=gammas)
     if (x.dim() != 2 or q.dim() != 3 or scale.dim() != 2 or zero.dim() != 2
             or coef.dim() != 2 or gammas.dim() != 1):
         raise ValueError("ensemble_score_q8: want x (b, d), q (k, n_max, d), scale and "

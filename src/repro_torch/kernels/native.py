@@ -26,13 +26,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram", "ensemble_score", "sdca", "gram_matvec")  # csrc/<name>.cu -> lib<name>.so
+SOURCES = ("gram", "ensemble_score", "sdca", "gram_matvec",
+           "flash_attention")  # csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,10 +66,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
         "gram_matvec_smem_bytes": [_I],
     },
+    "flash_attention": {
+        # q, k, v, o, B, Sq, Skv, H, K, hd, is_bf16, causal, window, scale, stream
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_attention_smem_bytes": [_I],
+    },
 }
-
-# the dtype each kernel argument must have, by argument name; float32 otherwise
-ARG_DTYPES = {"n_real": torch.int32, "q": torch.int8}
 
 # shared memory a block may take on sm_90 (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
@@ -161,14 +164,16 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_cuda(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+def check_cuda(name: str, device: torch.device, dtypes: Optional[Dict[str, torch.dtype]] = None,
+               **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on ``device``
-    of the dtype the kernel takes (``ARG_DTYPES`` by argument name, else
-    float32)."""
+    of the dtype the kernel takes: ``dtypes[arg]`` where the wrapper
+    names one, float32 otherwise."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {device}")
+    dtypes = dtypes or {}
     for arg, t in tensors.items():
-        want = ARG_DTYPES.get(arg, torch.float32)
+        want = dtypes.get(arg, torch.float32)
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if t.dtype != want:

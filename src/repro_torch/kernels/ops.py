@@ -10,7 +10,8 @@ the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
 positional numpy argument tuple the reference's dispatcher of the same
 name also accepts, SDCA aside), ``make_ragged(rng)`` (the same on shapes
 off every tile multiple of the CUDA kernels: 64-row tiles, 32-wide
-feature chunks, 32-query and 32-row blocks, 64-support tiles) and the
+feature chunks, 32-query and 32-row blocks, 64-support tiles, 64-row
+query and key tiles) and the
 tolerance the parity tests and ``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
 (or, for SDCA, the XLA loop) each entry ports.
 """
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import batched_gram, ensemble_score as _ens, rbf_gram as _rbf, sdca as _sdca
 from repro_torch.kernels import ensemble_score_q8 as _ens_q8, gram_matvec as _gmv
-from repro_torch.kernels import rbf_gram_q8 as _q8
+from repro_torch.kernels import flash_attention as _flash, rbf_gram_q8 as _q8
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -88,6 +89,14 @@ def sdca(K, y, n_real, lam: float, epochs: int = 20):
     if _on_cuda(K, "sdca"):
         return _sdca.sdca_cuda(K, y, n_real, lam, epochs)
     return _sdca.sdca_plain(K, y, n_real, lam, epochs)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """GQA attention: q (B, Sq, H, hd), k and v (B, Skv, K, hd) ->
+    (B, Sq, H, hd) in q's dtype, with causal and sliding-window masks."""
+    if _on_cuda(q, "flash_attention"):
+        return _flash.flash_attention_cuda(q, k, v, causal, window)
+    return _flash.flash_attention_plain(q, k, v, causal, window)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +216,16 @@ def _ragged_ensemble_score_q8(rng):
             rng.uniform(0.02, 0.2, size=5).astype(np.float32))
 
 
+def _mk_flash_attention(rng):
+    return tuple(rng.normal(size=(4, 64, 2, 16)).astype(np.float32) for _ in range(3))
+
+
+def _ragged_flash_attention(rng):
+    return (rng.normal(size=(2, 77, 6, 32)).astype(np.float32),
+            rng.normal(size=(2, 77, 2, 32)).astype(np.float32),
+            rng.normal(size=(2, 77, 2, 32)).astype(np.float32))
+
+
 def _ragged_sdca(rng):
     return make_sdca_problem(rng, g=4, b=100, d=24, n_real=[100, 63, 1, 31])
 
@@ -246,6 +265,12 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
                    replaces="src/repro/kernels/ensemble_score_q8.py:72",
                    source="src/repro_torch/kernels/csrc/ensemble_score.cu",
                    tol=1e-4),
+        KernelSpec("flash_attention", _flash.flash_attention_cuda,
+                   _flash.flash_attention_plain, flash_attention,
+                   _mk_flash_attention, _ragged_flash_attention, _flash.LAUNCHES,
+                   replaces="src/repro/kernels/flash_attention.py:68",
+                   source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                   tol=2e-5),
     )
 }
 

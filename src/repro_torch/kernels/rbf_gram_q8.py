@@ -42,7 +42,8 @@ def rbf_gram_q8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def rbf_gram_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                      zero: torch.Tensor, gamma: float) -> torch.Tensor:
     """Launch ``csrc/gram.cu``'s int8 tile on x's CUDA device."""
-    native.check_cuda("rbf_gram_q8", x.device, x=x, q=q, scale=scale, zero=zero)
+    native.check_cuda("rbf_gram_q8", x.device, dtypes={"q": torch.int8},
+                      x=x, q=q, scale=scale, zero=zero)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1 or zero.dim() != 1:
         raise ValueError("rbf_gram_q8: want x (m, d), q (n, d), scale (d,), zero (d,)")
     m, d = x.shape

@@ -50,7 +50,8 @@ def sdca_plain(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
 def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
               lam: float, epochs: int = 20) -> torch.Tensor:
     """Launch ``csrc/sdca.cu`` (one block per device) on K's CUDA device."""
-    native.check_cuda("sdca", K.device, K=K, y=y, n_real=n_real)
+    native.check_cuda("sdca", K.device, dtypes={"n_real": torch.int32},
+                      K=K, y=y, n_real=n_real)
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
         raise ValueError(f"sdca: want K (g, b, b), got {tuple(K.shape)}")
     g, b, _ = K.shape

@@ -1,0 +1,34 @@
+"""The LM of the deep path: config, parameters, layers, forward passes
+(ports of ``repro.models``; the dense family only)."""
+from repro_torch.models.config import ModelConfig, active_param_count, param_count
+from repro_torch.models.layers import blocked_attention
+from repro_torch.models.model import (
+    cache_spec,
+    forward_decode,
+    forward_prefill,
+    forward_train,
+    init_cache,
+    lm_loss,
+    make_decode_step,
+    make_eval_step,
+    make_prefill_step,
+)
+from repro_torch.models.params import init_params, model_specs
+
+__all__ = [
+    "ModelConfig",
+    "param_count",
+    "active_param_count",
+    "init_params",
+    "model_specs",
+    "blocked_attention",
+    "forward_train",
+    "forward_prefill",
+    "forward_decode",
+    "init_cache",
+    "cache_spec",
+    "lm_loss",
+    "make_eval_step",
+    "make_prefill_step",
+    "make_decode_step",
+]

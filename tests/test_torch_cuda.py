@@ -143,3 +143,71 @@ def test_int8_distilled_round_matches_cpu(cuda_device):
             assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
     for key in cpu.per_device:
         np.testing.assert_allclose(card.per_device[key], cpu.per_device[key], atol=1e-4)
+
+
+FLASH_CASES = [
+    # (B, Sq, Skv, H, K, hd), causal, window
+    ((2, 77, 77, 6, 2, 32), True, 0),
+    ((2, 130, 130, 8, 2, 64), True, 40),
+    ((1, 100, 100, 12, 2, 128), False, 0),
+    ((2, 150, 150, 4, 4, 16), False, 24),
+    ((1, 96, 40, 4, 1, 32), False, 8),   # queries past every key's window: keyless rows
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)), ids=lambda i: f"case{i}")
+def test_flash_attention_matches_plain(cuda_device, case, dtype):
+    """fp32 at the registry's 2e-5; bf16 compared in fp32 at 1e-4 + 2^-7 of
+    the plain value (bf16 keeps 8 significant bits, so two fp32 results a
+    rounding error apart may round one bf16 step apart)."""
+    (B, Sq, Skv, H, K, hd), causal, window = FLASH_CASES[case]
+    rng = _rng("flash", case)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device,
+                                                                          getattr(torch, dtype))
+               for s in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    before = spec.counter.count
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert spec.counter.count == before + 1 and got.dtype == q.dtype
+    want = spec.plain(q, k, v, causal, window)
+    diff = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert float(diff.max()) <= spec.tol
+    else:
+        assert bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    q = torch.randn(1, 8, 4, 32, device=cuda_device)
+    k = torch.randn(1, 8, 2, 32, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(torch.randn(1, 8, 3, 32, device=cuda_device), k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                            k[..., :24].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, k)
+
+
+def test_reduced_serve_matches_cpu(cuda_device):
+    """The reduced llama through ``serve_prompts`` with the flash kernel
+    on the card and its plain version on the CPU: equal greedy tokens,
+    one flash launch per layer on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import init_params
+
+    cfg = get_config("llama3.2-1b").reduced().replace(use_pallas=True)
+    prompts = _rng("serve").integers(1, cfg.vocab, size=(3, 48)).astype(np.int32)
+    params = init_params(cfg, seed=0, device="cpu")
+    cpu, _ = serve_prompts(cfg, params, prompts, 6)
+    ops.reset_launch_counts()
+    card, _ = serve_prompts(cfg, params.to(cuda_device), prompts, 6)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    np.testing.assert_array_equal(card, cpu)
