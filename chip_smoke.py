@@ -9,12 +9,22 @@ It imports the port and nothing of JAX or of the reference package
 ``repro``, and runs eight phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-           for sm_90a, one ``nvcc`` per source, all started together;
+           for sm_90a, one ``nvcc`` per source, all started together; count
+           the tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+           instructions in the compiled code (``cuobjdump -sass``): the
+           bf16 flash kernel must have all three, the scorers LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
-           the main path's shapes and one ragged shape, at the registry's
-           tolerance; flash attention in fp32 and bf16 at head dims 32, 64
-           and 128, 1, 4 and 6 query heads per KV head, causal, causal with
-           a window, non-causal, ragged lengths and the serve shape;
+           the main path's shapes and the registry's two shapes, at the
+           registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
+           and bf16 (the tensor-core ``flash_attention_tc.cu``) at head dims
+           32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
+           causal with a window, non-causal, ragged lengths and the serve
+           shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
+           and feature dims 12, 24, 32 and 37. Then determinism, bit for
+           bit: two launches of bf16 flash (serve shape) and of both
+           scorers (full shape) equal, and each scorer's first 1,000 rows of
+           an 8,192-row call equal to a 1,000-row call (the split plan never
+           depends on b);
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -201,6 +211,8 @@ def kernel_cases(rng, ops):
             ("full b8192 k2821 n230", ens(8192, 2821, 230, 32)),
             ("k100 b8192 n230", ens(8192, 100, 230, 32)),
             ("ideal predict b8192 k1 n2000", ens(8192, 1, 2000, 32)),
+            ("k10 b8 n230", ens(8, 10, 230, 32)),
+            ("d37 b300 k7 n77", ens(300, 7, 77, 37)),
         ],
         "sdca": [
             ("group g256 b64", sdca(256, 64, 33, 64)),
@@ -216,6 +228,9 @@ def kernel_cases(rng, ops):
         "ensemble_score_q8": [
             ("full b8192 k2821 n230", ens_q8(8192, 2821, 230, 32)),
             ("k100 b8192 n230", ens_q8(8192, 100, 230, 32)),
+            ("k1 b8192 n2000", ens_q8(8192, 1, 2000, 32)),
+            ("k10 b8 n230", ens_q8(8, 10, 230, 32)),
+            ("d37 b300 k7 n77", ens_q8(300, 7, 77, 37)),
         ],
         "flash_attention": [
             (f"{label} {dt}", flash(shape, causal, window, getattr(torch, dt)))
@@ -224,6 +239,7 @@ def kernel_cases(rng, ops):
         ],
     }
     for name, spec in ops.KERNEL_REGISTRY.items():
+        cases[name].append(("registry", spec.make_inputs(rng)))
         cases[name].append(("ragged", spec.make_ragged(rng)))
     return cases
 
@@ -346,12 +362,34 @@ def bound_of(name, args):
 # phases
 # ----------------------------------------------------------------------
 
+# SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
+SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
+SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",)}
+
+
+def sass_counts(native, name):
+    """How often each of SASS_OPS occurs in lib<name>.so's device code."""
+    import re
+
+    cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
+    r = subprocess.run([str(cuobjdump), "-sass", str(native.build_dir() / f"lib{name}.so")],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass lib{name}.so failed: {r.stderr.strip()}")
+    return {op: len(re.findall(rf"\b{op}\b", r.stdout)) for op in SASS_OPS}
+
+
 def phase_build(native):
     t0 = time.perf_counter()
     logs = native.build_all()
     secs = time.perf_counter() - t0
     libs = sorted(p.name for p in native.build_dir().glob("lib*.so"))
-    return {"seconds": secs, "built": sorted(logs), "libs": libs,
+    sass = {name: sass_counts(native, name) for name in SASS_REQUIRED}
+    missing = [f"{name}: {op}" for name, ops in SASS_REQUIRED.items() for op in ops
+               if sass[name][op] == 0]
+    if missing:
+        raise AssertionError(f"build: instructions missing from the compiled code: {missing}")
+    return {"seconds": secs, "built": sorted(logs), "libs": libs, "sass": sass,
             "build_dir": str(native.build_dir().relative_to(ROOT))}, logs
 
 
@@ -362,7 +400,8 @@ def phase_kernels(ops, device, rng):
     import torch
 
     results, errs, failed = [], {}, []
-    for name, cases in kernel_cases(rng, ops).items():
+    all_cases = kernel_cases(rng, ops)
+    for name, cases in all_cases.items():
         spec = ops.KERNEL_REGISTRY[name]
         for label, args in cases:
             targs = to_device(args, device)
@@ -384,7 +423,34 @@ def phase_kernels(ops, device, rng):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
-    return {"cases": results}, errs
+    return {"cases": results, "determinism": determinism(ops, device, all_cases)}, errs
+
+
+def determinism(ops, device, cases):
+    """Bit-for-bit checks: two launches of bf16 flash attention (serve
+    shape) and of both scorers (full shape) are equal; each scorer's first
+    1,000 rows of an 8,192-row call equal a 1,000-row call."""
+    import torch
+
+    shapes = {"flash_attention": "serve b4 s2048 h32 k8 hd64 causal bfloat16",
+              "ensemble_score": "full b8192 k2821 n230",
+              "ensemble_score_q8": "full b8192 k2821 n230"}
+    out, failed = {}, []
+    for name, label in shapes.items():
+        spec = ops.KERNEL_REGISTRY[name]
+        args = to_device(dict(cases[name])[label], device)
+        first, second = spec.kernel(*args), spec.kernel(*args)
+        checks = {"two_launches_equal": bool(torch.equal(first, second))}
+        if name != "flash_attention":   # x is the first argument
+            head = spec.kernel(args[0][:1000].contiguous(), *args[1:])
+            checks["rows_1000_of_8192_equal"] = bool(torch.equal(first[:1000], head))
+        out[name] = {"case": label, **checks}
+        failed += [f"{name}: {c}" for c, ok in checks.items() if not ok]
+        del args, first, second
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"determinism: {failed}")
+    return out
 
 
 def round_signature(res):
@@ -670,9 +736,12 @@ def _time_ms(fn, reps):
 
 def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
-    each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms;
-    with ``library``, its two turns go between the kernel's (plain,
-    kernel, library, library, kernel, plain)."""
+    each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms
+    from one call made after a warm-up call; with ``library``, its two
+    turns go between the kernel's (plain, kernel, library, library,
+    kernel, plain)."""
+    import torch
+
     fns = {"plain": plain, "kernel": kernel}
     order = ["plain", "kernel", "kernel", "plain"]
     if library is not None:
@@ -680,7 +749,9 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
         order[2:2] = ["library", "library"]
     reps = {}
     for label, fn in fns.items():
-        once = _time_ms(lambda: fn(*args), 1)   # warm-up, then size the run
+        fn(*args)                                # warm-up: a first call pays set-up
+        torch.cuda.synchronize()
+        once = _time_ms(lambda: fn(*args), 1)   # then size the run
         reps[label] = max(1, min(200, int(budget_ms / max(once, 1e-3))))
     turns = {label: [] for label in fns}
     for label in order:

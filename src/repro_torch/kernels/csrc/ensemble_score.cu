@@ -5,31 +5,57 @@
 //   repro/kernels/ensemble_score.py::ensemble_score_pallas        (fp32 supports)
 //   repro/kernels/ensemble_score_q8.py::ensemble_score_q8_pallas  (int8 supports,
 //       s_tj = q[t,j] * scale[t] + zero[t], per member and column)
-// Both run one kernel, a template over the support loader (supports.cuh):
-// an int8 tile is dequantised while it is staged in shared memory, so the
-// packed ensemble stays int8 in device memory (a quarter of the bytes).
+// Both run one template over the support loader (supports.cuh); the packed
+// int8 ensemble stays int8 in device memory (a quarter of the bytes) and is
+// dequantised in shared memory.
 //
 // The TPU kernel walks (query tile, member, support tile) as a sequential
-// grid and adds each partial into a VMEM scratch accumulator. CUDA blocks
-// run in parallel and in no order, so here the member loop and the support
-// loop run INSIDE the block: one block owns 32 queries for the whole
-// ensemble, keeps their running sums in registers, and writes each score
-// once. No atomics, so the result is deterministic run to run.
+// grid and adds each partial into a VMEM scratch accumulator. CUDA blocks run
+// in parallel and in no order, so the work is split in two passes, no atomics:
 //
-// Per (member, 64-support tile): the block stages the supports (full feature
-// dim, transposed, one padding column), their norms and coefficients in
-// shared memory; each of the 128 threads computes a 4 x 4 block of x.s in
-// fp32 FMA (no tensor cores: TF32 would wreck the norm-expansion
-// cancellation), applies the exp epilogue and folds coef * K into its 4
-// per-query sums. At the end the 16 threads that share a query row add their
-// sums in a fixed order. Padded supports carry zero coefficients (a padded
-// int8 row dequantises to its zero point: finite, and annihilated); rows
-// past n_max are staged as zeros; padded query rows are computed and never
-// stored.
+//   1. norms_kernel: |s_tj|^2 once per support (of the dequantised value for
+//      int8) into a (k, n_max) buffer.
+//   2. partials_kernel: grid (query tile of 128, split). The work items are
+//      the (member, 64-support tile) pairs, member-major; split s walks items
+//      s * per_split .. (s + 1) * per_split - 1. The plan (per_split, splits)
+//      comes from (k, n_max) alone, never from b
+//      (kernels/ensemble_score.py::split_plan), and every query row takes the
+//      same arithmetic in whatever block it lands, so a row's score is
+//      bit-identical whatever b or chunk it is scored in. At b <= 128 the
+//      plan's up to 264 splits are the whole grid: two blocks on each of the
+//      132 SMs. Each block writes one fp32 partial per query and split.
+//   3. mean_kernel: sums a query's partials in split order and divides by k.
 //
-// Bound on the H100: fp32 operations (about 2d + 6 per query-support pair);
-// the packed ensemble is read once per 32-query block and stays in L2 for
-// ensembles up to tens of MB.
+// partials_kernel, per block: 256 threads as 16 support groups x 16 query
+// lanes; thread (group, lane) owns queries lane + 16 i (i < 8) and supports
+// 4 group .. 4 group + 3 of each item, an 8 x 4 register tile read from
+// shared memory as float4 along the feature dim (3 loads per 32 FMAs; row
+// strides are an odd number of float4s, so the 8 rows a quarter-warp reads
+// fall on distinct banks, and the support reads are warp broadcasts). The
+// queries' tile and their norms are staged once per block. Then each warp
+// walks the items on its own: warp w stages, dequantises and reads only
+// rows 8 w .. 8 w + 7 of each support tile (with their coefficients and
+// norms), double-buffered by cp.async so the next item loads while this
+// one computes, and synchronises with __syncwarp alone: no block barrier
+// per item, so the warps drift apart and one warp's exp phase (MUFU-bound)
+// overlaps another's FMAs. A warp whose rows are all past n_max skips the
+// item (n_max = 230 pads to 232, not 256). At d = 32 (the round's) the
+// copies are 16 bytes: fp32 rows straight into the padded tile; int8 rows
+// plus the member's scale and zero rows into the warp's raw buffer, which
+// it dequantises with the plain version's __fmul_rn / __fadd_rn rounding.
+// Any other d takes a general instantiation: 4-byte copies for fp32, loads
+// through the loader for int8. The cross product stays on fp32 FMAs: TF32
+// would wreck the |x|^2 + |s|^2 - 2 x.s cancellation. The RBF is
+// ex2.approx of -gamma log2(e) d2. Padded supports carry zero coefficients
+// (a padded int8 row dequantises to its zero point: finite, and
+// annihilated); rows past n_max are staged as zeros; padded query rows are
+// computed and never stored.
+//
+// Bound on the H100: fp32 operations, about 2d + 8 per query-support pair:
+// 5.71 ms at b 8192, k 2821, n_max 230, d 32 (67 TFLOP/s). The fp32 ensemble
+// there is 2821 x 230 x 32 x 4 B = 83 MB, more than the 50 MB L2, so each
+// query tile reads it from device memory: 64 tiles x 83 MB over 3.35 TB/s is
+// 1.6 ms, under the arithmetic; int8 reads a quarter of that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,123 +63,343 @@
 
 namespace {
 
-constexpr int EQ = 32;        // queries per block
-constexpr int EN = 64;        // supports per staged tile
-constexpr int THREADS = 128;  // 8 x 16 threads, 4 x 4 outputs each
+constexpr int BQ = 128;              // queries per block
+constexpr int TS = 4;                // supports per thread
+constexpr int EN = 16 * TS;          // supports per work item: one tile of one member
+constexpr int THREADS = 256;         // 16 support groups x 16 query lanes
+constexpr int WARPS = THREADS / 32;  // warp w owns support groups 2 w and 2 w + 1 ...
+constexpr int WROWS = 2 * TS;        // ... so rows WROWS w .. WROWS w + 7 of every tile
+constexpr int TQ = BQ / 16;          // queries per thread
+constexpr int FAST_D = 32;           // the feature dim with 16-byte staging
+constexpr int RED_LD = 17;           // row stride of the final per-query sums
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <class Supports>
-__global__ void __launch_bounds__(THREADS)
-ensemble_score_kernel(const float* __restrict__ x, const Supports sup,
-                      const float* __restrict__ coef, const float* __restrict__ gammas,
-                      float* __restrict__ out, int b, int k, int n_max, int d) {
-  extern __shared__ float sm[];
-  float* Xs = sm;                      // [d][EQ + 1]
-  float* Ss = Xs + d * (EQ + 1);       // [d][EN + 1]
-  float* sqs = Ss + d * (EN + 1);      // [EN] support norms
-  float* cs = sqs + EN;                // [EN] support coefficients
-  float* sqx = cs + EN;                // [EQ] query norms
-  float* red = sqx + EQ;               // [EQ][17] final cross-thread sums
+// d rounded up to a float4
+__host__ __device__ constexpr int padded(int d) { return (d + 3) / 4 * 4; }
+// row stride (floats) of the staged tiles: an odd number of float4s
+__host__ __device__ constexpr int row_stride(int d) {
+  return (padded(d) / 4) % 2 ? padded(d) : padded(d) + 4;
+}
+// int8 raw staging of one warp and buffer at FAST_D: its rows, then the
+// member's scale and zero rows
+constexpr int RAW_WARP = WROWS * FAST_D + 2 * FAST_D * 4;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // supports tx, tx+16, tx+32, tx+48
-  const int ty = tid / 16;  // queries 4*ty .. 4*ty+3
-  const int q0 = blockIdx.x * EQ;
-
-  for (int e = tid; e < EQ * d; e += THREADS) {
-    const int r = e / d, c = e % d;
-    const int q = q0 + r;
-    Xs[c * (EQ + 1) + r] = q < b ? x[(int64_t)q * d + c] : 0.f;
-  }
-  __syncthreads();
-  if (tid < EQ) {
-    float s = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float v = Xs[c * (EQ + 1) + tid];
-      s += v * v;
-    }
-    sqx[tid] = s;
-  }
-
-  float accq[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = 0; t < k; ++t) {
-    const float g = gammas[t];
-    const Supports S = sup.member(t, n_max, d);
-    const float* C = coef + (int64_t)t * n_max;
-    for (int j0 = 0; j0 < n_max; j0 += EN) {
-      __syncthreads();  // the previous tile is fully consumed
-      for (int e = tid; e < EN * d; e += THREADS) {
-        const int r = e / d, c = e % d;
-        const int j = j0 + r;
-        Ss[c * (EN + 1) + r] = j < n_max ? S.at(j, c, d) : 0.f;
-      }
-      if (tid < EN) cs[tid] = (j0 + tid < n_max) ? C[j0 + tid] : 0.f;
-      __syncthreads();
-      if (tid < EN) {
-        float s = 0.f;
-        for (int c = 0; c < d; ++c) {
-          const float v = Ss[c * (EN + 1) + tid];
-          s += v * v;
-        }
-        sqs[tid] = s;
-      }
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < d; ++c) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = Xs[c * (EQ + 1) + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Ss[c * (EN + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();  // support norms are ready
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int jj = tx + 16 * j;
-          const float d2 = fmaxf(sqx[ty * 4 + i] + sqs[jj] - 2.f * acc[i][j], 0.f);
-          accq[i] += cs[jj] * expf(-g * d2);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) red[(ty * 4 + i) * 17 + tx] = accq[i];
-  __syncthreads();
-  if (tid < EQ) {
-    float s = 0.f;
-    for (int j = 0; j < 16; ++j) s += red[tid * 17 + j];
-    if (q0 + tid < b) out[q0 + tid] = s / static_cast<float>(k);
-  }
+__host__ __device__ constexpr int support_floats(int d) {
+  return 2 * EN * row_stride(d) > BQ * RED_LD ? 2 * EN * row_stride(d) : BQ * RED_LD;
 }
 
 int smem_bytes(int d) {
-  return static_cast<int>(sizeof(float)) *
-         (d * (EQ + 1) + d * (EN + 1) + EN + EN + EQ + EQ * 17);
+  const int floats = BQ * row_stride(d) + support_floats(d) + 4 * EN;
+  return 4 * floats + (d == FAST_D ? 2 * WARPS * RAW_WARP : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// global -> shared copies, zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x for the RBF's argument -gamma log2(e) d2 <= 0 (relative error ~2^-22;
+// results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One warp's rows r0 .. r0 + WROWS - 1 of an item (member t, supports j0 ..)
+// into its tile St; rows at or past `rows` are zero-filled. fp32: straight
+// into the tile.
+template <int D>
+__device__ __forceinline__ void stage_rows(const Fp32Supports& sup, int t, int j0, int rows,
+                                           int r0, int n_max, int d, int ld, float* St,
+                                           unsigned char*, int lane) {
+  const float* s = sup.s + ((int64_t)t * n_max + j0) * d;
+  if constexpr (D == FAST_D) {
+    for (int i = lane; i < WROWS * D / 4; i += 32) {
+      const int r = r0 + i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool valid = r < rows;
+      cp_async16(St + r * ld + c, s + (valid ? r : 0) * D + c, valid);
+    }
+  } else {
+    const int dp = padded(d);
+    for (int i = lane; i < WROWS * dp; i += 32) {
+      const int r = r0 + i / dp, c = i % dp;
+      const bool valid = r < rows && c < d;
+      cp_async4(St + r * ld + c, s + (valid ? r * d + c : 0), valid);
+    }
+  }
+}
+
+// int8: at FAST_D the raw rows and the member's scale and zero rows into the
+// warp's raw buffer (one 16-byte copy a lane); at any other d through the
+// loader, dequantised as it is stored
+template <int D>
+__device__ __forceinline__ void stage_rows(const Int8Supports& sup, int t, int j0, int rows,
+                                           int r0, int n_max, int d, int ld, float* St,
+                                           unsigned char* raw, int lane) {
+  if constexpr (D == FAST_D) {
+    constexpr int ROW_CHUNKS = WROWS * D / 16, VEC_CHUNKS = D / 4;
+    static_assert(ROW_CHUNKS + 2 * VEC_CHUNKS == 32, "one 16-byte copy a lane");
+    if (lane < ROW_CHUNKS) {
+      const int r = r0 + lane / (D / 16), c = (lane % (D / 16)) * 16;
+      const bool valid = r < rows;
+      const int8_t* q = sup.q + ((int64_t)t * n_max + j0 + (valid ? r : 0)) * D;
+      cp_async16(raw + (r - r0) * D + c, q + c, valid);
+    } else {
+      const int e = lane - ROW_CHUNKS;
+      const float* src = e < VEC_CHUNKS ? sup.scale + (int64_t)t * D + 4 * e
+                                        : sup.zero + (int64_t)t * D + 4 * (e - VEC_CHUNKS);
+      cp_async16(raw + WROWS * D + 16 * e, src, true);
+    }
+  } else {
+    const Int8Supports m = sup.member(t, n_max, d);
+    const int dp = padded(d);
+    for (int i = lane; i < WROWS * dp; i += 32) {
+      const int r = r0 + i / dp, c = i % dp;
+      St[r * ld + c] = r < rows && c < d ? m.at(j0 + r, c, d) : 0.f;
+    }
+  }
+}
+
+// int8 at FAST_D: the warp's raw rows into its rows of the fp32 tile, with
+// the plain version's rounding (a rounded multiply, then a rounded add);
+// returns whether it wrote, so the caller knows to synchronise the warp
+template <int D>
+__device__ __forceinline__ bool dequantise(const Fp32Supports&, int, int, float*,
+                                           const unsigned char*, int) {
+  return false;
+}
+template <int D>
+__device__ __forceinline__ bool dequantise(const Int8Supports&, int r0, int ld, float* St,
+                                           const unsigned char* raw, int lane) {
+  if constexpr (D != FAST_D) {
+    return false;
+  } else {
+    const float* scale = reinterpret_cast<const float*>(raw + WROWS * D);
+    const float* zero = scale + D;
+    for (int i = lane; i < WROWS * D / 4; i += 32) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const char4 qv = *reinterpret_cast<const char4*>(raw + r * D + c);
+      float4 s;
+      s.x = __fadd_rn(__fmul_rn(static_cast<float>(qv.x), scale[c]), zero[c]);
+      s.y = __fadd_rn(__fmul_rn(static_cast<float>(qv.y), scale[c + 1]), zero[c + 1]);
+      s.z = __fadd_rn(__fmul_rn(static_cast<float>(qv.z), scale[c + 2]), zero[c + 2]);
+      s.w = __fadd_rn(__fmul_rn(static_cast<float>(qv.w), scale[c + 3]), zero[c + 3]);
+      *reinterpret_cast<float4*>(St + (r0 + r) * ld + c) = s;
+    }
+    return true;
+  }
 }
 
 template <class Supports>
-int launch_scores(const float* x, const Supports sup, const float* coef,
-                  const float* gammas, float* out, int b, int k, int n_max, int d,
-                  void* stream) {
+__global__ void norms_kernel(const Supports sup, float* __restrict__ norms, int k, int n_max,
+                             int d) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= (int64_t)k * n_max) return;
+  const int t = static_cast<int>(j / n_max), r = static_cast<int>(j % n_max);
+  const Supports m = sup.member(t, n_max, d);
+  float s = 0.f;
+  for (int c = 0; c < d; ++c) {
+    const float v = m.at(r, c, d);
+    s = fmaf(v, v, s);
+  }
+  norms[j] = s;
+}
+
+template <class Supports, int D>
+__global__ void __launch_bounds__(THREADS, 2)
+partials_kernel(const float* __restrict__ x, const Supports sup, const float* __restrict__ coef,
+                const float* __restrict__ gammas, const float* __restrict__ norms,
+                float* __restrict__ partial, int b, int n_max, int d_arg, int tiles,
+                int per_split, int items) {
+  const int d = D ? D : d_arg;
+  const int dp = padded(d), ld = row_stride(d);
+  extern __shared__ float4 smem4[];
+  float* Xs = reinterpret_cast<float*>(smem4);  // [BQ][ld]
+  float* Ss = Xs + BQ * ld;                      // [2][EN][ld], then [BQ][RED_LD]
+  float* cs = Ss + support_floats(d);            // [2][EN] coefficients
+  float* ns = cs + 2 * EN;                       // [2][EN] support norms
+  unsigned char* raw = reinterpret_cast<unsigned char*>(ns + 2 * EN);  // [2][WARPS][RAW_WARP]
+
+  const int tid = threadIdx.x, lane = tid % 16, grp = tid / 16, warp = tid / 32;
+  const int wlane = tid % 32, r0 = WROWS * warp;
+  const int q0 = blockIdx.x * BQ;
+  const int i0 = blockIdx.y * per_split, i1 = min(i0 + per_split, items);
+
+  // the queries' tile, by all threads, once
+  if constexpr (D == FAST_D) {
+    for (int i = tid; i < BQ * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool valid = q0 + r < b;
+      cp_async16(Xs + r * ld + c, x + (int64_t)(valid ? q0 + r : 0) * D + c, valid);
+    }
+  } else {
+    for (int i = tid; i < BQ * dp; i += THREADS) {
+      const int r = i / dp, c = i % dp;
+      const bool valid = q0 + r < b && c < d;
+      cp_async4(Xs + r * ld + c, x + (valid ? (int64_t)(q0 + r) * d + c : 0), valid);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float sx[TQ], accq[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const float* xr = Xs + (lane + 16 * i) * ld;
+    float s = 0.f;
+    for (int c = 0; c < d; ++c) s = fmaf(xr[c], xr[c], s);
+    sx[i] = s;
+    accq[i] = 0.f;
+  }
+
+  // From here each warp walks the items on its own: it stages, dequantises
+  // and reads only its own rows of each tile (and their coefficients and
+  // norms), so it synchronises with __syncwarp alone, and the warps' exp
+  // phases interleave with each other's FMAs.
+  auto rows_of = [&](int it, int& t, int& j0) {
+    t = it / tiles;
+    j0 = (it - t * tiles) * EN;
+    return min(EN, n_max - j0);
+  };
+  auto stage_item = [&](int it, int buf) {
+    int t, j0;
+    const int rows = rows_of(it, t, j0);
+    if (r0 >= rows) return;  // every row of this warp is padding: nothing to stage
+    stage_rows<D>(sup, t, j0, rows, r0, n_max, d, ld, Ss + buf * EN * ld,
+                  raw + (buf * WARPS + warp) * RAW_WARP, wlane);
+    if (wlane < 2 * WROWS) {
+      const int r = r0 + wlane % WROWS;
+      const bool valid = r < rows;
+      const int64_t off = (int64_t)t * n_max + j0 + (valid ? r : 0);
+      if (wlane < WROWS) cp_async4(cs + buf * EN + r, coef + off, valid);
+      else cp_async4(ns + buf * EN + r, norms + off, valid);
+    }
+  };
+
+  if (i0 < i1) stage_item(i0, 0);
+  cp_async_commit();
+  for (int it = i0; it < i1; ++it) {
+    const int buf = (it - i0) & 1;
+    if (it + 1 < i1) stage_item(it + 1, buf ^ 1);  // the warp freed that buffer last step
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    int t, j0;
+    if (r0 < rows_of(it, t, j0)) {
+      float* St = Ss + buf * EN * ld;
+      if (dequantise<D>(sup, r0, ld, St, raw + (buf * WARPS + warp) * RAW_WARP, wlane))
+        __syncwarp();
+      const float gl = -__ldg(gammas + t) * LOG2E;
+      float acc[TQ][TS];
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int s = 0; s < TS; ++s) acc[i][s] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < dp; c += 4) {
+        float4 sv[TS];
+#pragma unroll
+        for (int s = 0; s < TS; ++s)
+          sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + 16 * i) * ld + c);
+#pragma unroll
+          for (int s = 0; s < TS; ++s) {
+            acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
+            acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
+            acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
+            acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        const float cj = cs[buf * EN + TS * grp + s], nj = ns[buf * EN + TS * grp + s];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const float d2 = fmaxf(sx[i] + nj - 2.f * acc[i][s], 0.f);
+          accq[i] = fmaf(cj, ex2(gl * d2), accq[i]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with this buffer before it is refilled
+  }
+
+  // the 16 support groups of each query, added in group order
+  __syncthreads();
+  float* red = Ss;
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) red[(lane + 16 * i) * RED_LD + grp] = accq[i];
+  __syncthreads();
+  if (tid < BQ && q0 + tid < b) {
+    float s = 0.f;
+    for (int g = 0; g < 16; ++g) s += red[tid * RED_LD + g];
+    partial[(int64_t)blockIdx.y * b + q0 + tid] = s;
+  }
+}
+
+__global__ void mean_kernel(const float* __restrict__ partial, float* __restrict__ out, int b,
+                            int splits, int k) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= b) return;
+  float s = 0.f;
+  for (int p = 0; p < splits; ++p) s += partial[(int64_t)p * b + q];
+  out[q] = s / static_cast<float>(k);
+}
+
+template <class Supports, int D>
+int launch_partials(const float* x, const Supports sup, const float* coef, const float* gammas,
+                    const float* norms, float* partial, int b, int k, int n_max, int d,
+                    int per_split, int splits, cudaStream_t stream) {
   const int smem = smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ensemble_score_kernel<Supports>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        partials_kernel<Supports, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((b + EQ - 1) / EQ);
-  ensemble_score_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, sup, coef, gammas, out, b, k, n_max, d);
+  const int tiles = (n_max + EN - 1) / EN;
+  const dim3 grid((b + BQ - 1) / BQ, splits);
+  partials_kernel<Supports, D><<<grid, THREADS, smem, stream>>>(
+      x, sup, coef, gammas, norms, partial, b, n_max, d, tiles, per_split, k * tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the three passes on one stream; norms (k * n_max) and partial (splits * b)
+// are the wrapper's scratch
+template <class Supports>
+int launch_scores(const float* x, const Supports sup, const float* coef, const float* gammas,
+                  float* norms, float* partial, float* out, int b, int k, int n_max, int d,
+                  int per_split, int splits, void* stream_arg) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_arg);
+  const int64_t n_sup = (int64_t)k * n_max;
+  if (n_sup > 0) {
+    norms_kernel<<<static_cast<unsigned>((n_sup + 255) / 256), 256, 0, stream>>>(
+        sup, norms, k, n_max, d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rc = d == FAST_D
+      ? launch_partials<Supports, FAST_D>(x, sup, coef, gammas, norms, partial, b, k, n_max,
+                                          d, per_split, splits, stream)
+      : launch_partials<Supports, 0>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
+                                     per_split, splits, stream);
+  if (rc != 0) return rc;
+  mean_kernel<<<(b + 255) / 256, 256, 0, stream>>>(partial, out, b, splits, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,18 +407,19 @@ int launch_scores(const float* x, const Supports sup, const float* coef,
 
 extern "C" int ensemble_score_smem_bytes(int d) { return smem_bytes(d); }
 
-extern "C" int ensemble_score_launch(const float* x, const float* sup,
-                                     const float* coef, const float* gammas,
-                                     float* out, int b, int k, int n_max, int d,
-                                     void* stream) {
-  return launch_scores(x, Fp32Supports{sup}, coef, gammas, out, b, k, n_max, d, stream);
+extern "C" int ensemble_score_launch(const float* x, const float* sup, const float* coef,
+                                     const float* gammas, float* norms, float* partial,
+                                     float* out, int b, int k, int n_max, int d, int per_split,
+                                     int splits, void* stream) {
+  return launch_scores(x, Fp32Supports{sup}, coef, gammas, norms, partial, out, b, k, n_max, d,
+                       per_split, splits, stream);
 }
 
-extern "C" int ensemble_score_q8_launch(const float* x, const int8_t* q,
-                                        const float* scale, const float* zero,
-                                        const float* coef, const float* gammas,
+extern "C" int ensemble_score_q8_launch(const float* x, const int8_t* q, const float* scale,
+                                        const float* zero, const float* coef,
+                                        const float* gammas, float* norms, float* partial,
                                         float* out, int b, int k, int n_max, int d,
-                                        void* stream) {
-  return launch_scores(x, Int8Supports{q, scale, zero}, coef, gammas, out, b, k, n_max,
-                       d, stream);
+                                        int per_split, int splits, void* stream) {
+  return launch_scores(x, Int8Supports{q, scale, zero}, coef, gammas, norms, partial, out, b,
+                       k, n_max, d, per_split, splits, stream);
 }

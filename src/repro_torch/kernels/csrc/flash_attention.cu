@@ -1,7 +1,9 @@
-// GQA flash attention with online softmax for Hopper (sm_90a):
+// GQA flash attention with online softmax for Hopper (sm_90a), float32:
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / rep] / sqrt(hd)) v[b, j, h / rep]
 // over the keys j that the causal (j <= i) and sliding-window (j > i - window)
-// masks leave, with rep = H / K query heads per KV head.
+// masks leave, with rep = H / K query heads per KV head. bfloat16 inputs go
+// to flash_attention_tc.cu (tensor cores); this kernel serves float32, where
+// the tensor cores have no full-precision product.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (TPU). The
 // TPU kernel pads q, k and v to 128-row tiles, transposes them to (B, H, S, hd)
@@ -14,7 +16,7 @@
 //   16 x 16: thread (ty, tx) owns rows 4 ty .. 4 ty + 3 of the tile;
 //   the q tile and, per step, one 64-key K and V tile are read in place from
 //   the (B, S, heads, hd) layout through its strides (no transpose, no padded
-//   copy) and staged in shared memory as fp32;
+//   copy) and staged in shared memory;
 //   S = q k^T: each thread computes a 4 x 4 block (its rows, keys tx + 16 c)
 //   with fp32 FMAs; each row's max and sum are reduced over the 16 threads
 //   that share the row with warp shuffles and kept, redundantly, by all 16;
@@ -23,8 +25,8 @@
 //
 // Statistics, P and the accumulator are fp32 (the TPU kernel casts its tiles
 // to fp32 before both products, so P stays fp32 for PV); the output is
-// acc / max(l, 1e-20), cast to the input type. Masked scores are NEG_INF =
-// -1e9, as in the reference, not -inf: exp(-inf - (-inf)) would be NaN.
+// acc / max(l, 1e-20). Masked scores are NEG_INF = -1e9, as in the
+// reference, not -inf: exp(-inf - (-inf)) would be NaN.
 //
 // Keys at or past Skv are masked by length on every call, whatever causal and
 // window say, with -inf so they never count (the TPU kernel relies on the
@@ -38,12 +40,9 @@
 // over all Skv keys, because such a block walks every tile.
 //
 // Bound on the H100: operations. At the serve shape (B 4, S 2048, H 32, K 8,
-// hd 64, bf16, causal) the work is 68.75 GFLOP against 83.9 MB of q, k, v and
-// o; the bf16 tensor-core bound is 0.0695 ms, and the fp32 FMA design here can
-// reach at most 1.03 ms (67 TFLOP/s outside the tensor cores). Its inner loops
-// read shared memory once per two FMAs, so they run below even that.
-// mma.sync / wgmma and TMA are the way to the tensor-core bound.
-#include <cuda_bf16.h>
+// hd 64, causal) in fp32 the work is 68.75 GFLOP: 1.03 ms at 67 TFLOP/s
+// outside the tensor cores. Its inner loops read shared memory once per two
+// FMAs, so they run below even that.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,29 +54,17 @@ constexpr int BK = 64;        // keys per staged tile
 constexpr int THREADS = 256;  // 16 x 16: 4 rows x 4 keys of S, 4 rows x hd/16 of o each
 constexpr float NEG_INF = -1e9f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   // Qs [BQ][HD + 1], Ks [BK][HD + 1], Vs [BK][HD], Ps [BQ][BK + 1]
   return BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Sq, int Skv, int H, int Kh, int causal, int window,
-             float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H, int Kh,
+             int causal, int window, float scale) {
   constexpr int LD = HD + 1;   // padded row stride of the q and K tiles
   constexpr int PLD = BK + 1;  // padded row stride of P
   constexpr int CPT = HD / 16; // accumulator columns per thread
@@ -96,8 +83,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, c = i % HD, qp = q0 + r;
-    Qs[r * LD + c] = qp < Sq ? to_f32(q[((int64_t)b * Sq + qp) * H * HD + (int64_t)h * HD + c])
-                             : 0.f;
+    Qs[r * LD + c] = qp < Sq ? q[((int64_t)b * Sq + qp) * H * HD + (int64_t)h * HD + c] : 0.f;
   }
 
   const int q_last = min(q0 + BQ, Sq) - 1;  // the tile's last real row
@@ -123,8 +109,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int r = i / HD, c = i % HD, kp = k0 + r;
       const int64_t off = ((int64_t)b * Skv + kp) * Kh * HD + (int64_t)kvh * HD + c;
-      Ks[r * LD + c] = kp < Skv ? to_f32(k[off]) : 0.f;
-      Vs[r * HD + c] = kp < Skv ? to_f32(v[off]) : 0.f;
+      Ks[r * LD + c] = kp < Skv ? k[off] : 0.f;
+      Vs[r * HD + c] = kp < Skv ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -198,62 +184,39 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    T* row = o + ((int64_t)b * Sq + qp) * H * HD + (int64_t)h * HD;
+    float* row = o + ((int64_t)b * Sq + qp) * H * HD + (int64_t)h * HD;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j] / den);
+    for (int j = 0; j < CPT; ++j) row[tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+template <int HD>
+int launch_hd(const float* q, const float* k, const float* v, float* o, int B, int Sq, int Skv,
               int H, int Kh, int causal, int window, float scale, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * smem_floats<HD>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, Kh, causal, window, scale);
+  flash_kernel<HD><<<grid, THREADS, smem, stream>>>(q, k, v, o, Sq, Skv, H, Kh, causal,
+                                                    window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-                 int H, int Kh, int hd, int causal, int window, float scale,
-                 cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_hd<T, 16>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// shared memory one block takes at head dim hd (0 for an unsupported hd)
-extern "C" int flash_attention_smem_bytes(int hd) {
-  switch (hd) {
-    case 16: return static_cast<int>(sizeof(float)) * smem_floats<16>();
-    case 32: return static_cast<int>(sizeof(float)) * smem_floats<32>();
-    case 64: return static_cast<int>(sizeof(float)) * smem_floats<64>();
-    case 128: return static_cast<int>(sizeof(float)) * smem_floats<128>();
-    default: return 0;
-  }
-}
-
-// is_bf16: 0 for float32 tensors, 1 for bfloat16; q, k, v and o all of that type
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+// q, k, v and o float32, (B, S, heads, hd) and contiguous
+extern "C" int flash_attention_launch(const float* q, const float* k, const float* v, float* o,
                                       int B, int Sq, int Skv, int H, int Kh, int hd,
-                                      int is_bf16, int causal, int window, float scale,
-                                      void* stream) {
+                                      int causal, int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_typed<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, Kh, hd, causal, window,
-                                       scale, s);
-  return launch_typed<float>(q, k, v, o, B, Sq, Skv, H, Kh, hd, causal, window, scale, s);
+  switch (hd) {
+    case 16: return launch_hd<16>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, s);
+    case 32: return launch_hd<32>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, s);
+    case 64: return launch_hd<64>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, s);
+    case 128: return launch_hd<128>(q, k, v, o, B, Sq, Skv, H, Kh, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

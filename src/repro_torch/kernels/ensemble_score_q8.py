@@ -2,16 +2,19 @@
 ensemble evaluation of an int8 round (``QuantizedStackedEnsemble``).
 
 Replaces ``repro/kernels/ensemble_score_q8.py::ensemble_score_q8_pallas``.
-It launches ``csrc/ensemble_score.cu``'s kernel (one block owns 32
-queries and loops over every member and 64-support tile, sums in
-registers, no atomics), instantiated with the int8 support loader of
-``csrc/supports.cuh``: each support tile is read as int8 and dequantised
-with the member's (d,) scale and zero rows while it is staged in shared
-memory. Zero coefficients annihilate padded rows, whose
-dequantised value (the zero point) is finite. Returns sum / k.
+It launches ``csrc/ensemble_score.cu``'s template (see
+``ensemble_score``: the split plan, the 128-query x 64-support blocks,
+partials summed in split order, no atomics) instantiated with the int8
+loader of ``csrc/supports.cuh``. At d = 32 each warp copies its int8
+rows of an item and the member's scale and zero rows raw with 16-byte
+``cp.async`` and dequantises them from shared memory; the support norms
+are of the dequantised values. Zero coefficients
+annihilate padded rows, whose dequantised value (the zero point) is
+finite. Returns sum / k.
 
-Bound on the H100: fp32 operations, as ``ensemble_score``; the packed
-int8 ensemble is a quarter of the fp32 one's bytes.
+Bound on the H100: fp32 operations, as ``ensemble_score`` (5.71 ms at
+the full ensemble); the packed int8 ensemble is a quarter of the fp32
+one's bytes.
 """
 from __future__ import annotations
 
@@ -64,10 +67,5 @@ def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     if lib.ensemble_score_smem_bytes(d) > native.MAX_SMEM_BYTES:
         raise ValueError(f"ensemble_score_q8: feature dim {d} needs more shared "
                          "memory than a block may take")
-    out = torch.empty((b,), dtype=torch.float32, device=x.device)
-    if b == 0:
-        return out
-    native.launch(LAUNCHES, x.device, lib.ensemble_score_q8_launch,
-                  x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-                  coef.data_ptr(), gammas.data_ptr(), out.data_ptr(), b, k, n_max, d)
-    return out
+    return _ens.launch_scores("ensemble_score_q8", LAUNCHES, lib.ensemble_score_q8_launch, x,
+                              (q, scale, zero), coef, gammas)

@@ -5,18 +5,27 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
 (the TPU kernel: q, k and v padded to 128-row tiles and transposed to
 (B, H, S, hd), grid (B, H, q tile, kv tile) with the kv sweep as the
 sequential innermost dimension carrying the softmax statistics and the
-accumulator in VMEM). ``csrc/flash_attention.cu`` moves the kv loop
-inside one block per (64-row query tile, query head, batch), reads the
-(B, S, heads, hd) tensors in place through their strides, stages each
-K/V tile in shared memory as fp32 and keeps the statistics and the
-accumulator in fp32 registers; see the source for the design.
+accumulator in VMEM). Two hand-written kernels, picked by dtype, both
+with the kv loop inside one block per (query tile, query head, batch)
+and q, k, v read in place from (B, S, heads, hd):
+
+- bfloat16 (the serve path): ``csrc/flash_attention_tc.cu``, the
+  FlashAttention-2 shape on ``mma.sync`` tensor cores, 128-row blocks of
+  8 warps. K/V tiles double-buffered in shared memory by 16-byte
+  ``cp.async``, Q fragments in registers, the online softmax on the fp32
+  accumulator fragments, P kept in registers as two bf16 parts (P_hi +
+  P_lo, ~16 bits, since the reference keeps P in fp32 for P V)
+  multiplied by V.
+- float32: ``csrc/flash_attention.cu``, 64-row blocks, fp32 FMAs on
+  tiles staged in shared memory (the tensor cores have no full-precision
+  product).
 
 Bound on the H100: operations. At the serve shape (B 4, S 2048, H 32,
-K 8, hd 64, bf16, causal) the bf16 tensor-core bound is 0.0695 ms; the
-kernel's fp32 FMAs can reach 1.03 ms at most.
+K 8, hd 64, causal) the bf16 tensor-core bound is 0.0695 ms; in fp32
+the FMA limit is 1.03 ms.
 
 Keys are masked by length (``k_pos < Skv``) on every call, so the
-kernel and the plain version agree with the reference's oracle
+kernels and the plain version agree with the reference's oracle
 (``flash_attention_ref``) on every input, including the non-causal
 windowed calls on a ragged length that the TPU kernel gets wrong or
 refuses.
@@ -32,7 +41,7 @@ from repro_torch.kernels import native
 LAUNCHES = native.LaunchCounter("flash_attention")
 
 NEG_INF = -1e9
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,10 +84,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on q's CUDA device. Takes
-    contiguous float32 or bfloat16 tensors, all of one type, head dims
-    16, 32, 64 or 128, and a query head count that is a multiple of the
-    KV head count; raises on anything else."""
+    """Launch ``csrc/flash_attention_tc.cu`` (bfloat16) or
+    ``csrc/flash_attention.cu`` (float32) on q's CUDA device. Takes
+    contiguous tensors all of one of those types (bfloat16 ones 16-byte
+    aligned, for ``cp.async``), head dims 16, 32, 64 or 128, and a query
+    head count that is a multiple of the KV head count; raises on
+    anything else."""
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
     native.check_cuda("flash_attention", q.device,
@@ -95,9 +106,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if Skv == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
-    lib = native.library("flash_attention")
-    native.launch(LAUNCHES, q.device, lib.flash_attention_launch,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, Sq, Skv, H, K, hd, int(q.dtype == torch.bfloat16), int(bool(causal)),
-                  int(window), 1.0 / math.sqrt(hd))
+    if q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: bfloat16 q, k and v must be 16-byte aligned")
+        fn = native.library("flash_attention_tc").flash_attention_tc_launch
+    else:
+        fn = native.library("flash_attention").flash_attention_launch
+    native.launch(LAUNCHES, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), B, Sq, Skv, H, K, hd, int(bool(causal)), int(window),
+                  1.0 / math.sqrt(hd))
     return out

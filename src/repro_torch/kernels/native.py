@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gram", "ensemble_score", "sdca", "gram_matvec",
-           "flash_attention")  # csrc/<name>.cu -> lib<name>.so
+           "flash_attention", "flash_attention_tc")  # csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,10 +50,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _P],
     },
     "ensemble_score": {
-        # x, sup, coef, gammas, out, b, k, n_max, d, stream
-        "ensemble_score_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # x, q, scale, zero, coef, gammas, out, b, k, n_max, d, stream
-        "ensemble_score_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, sup, coef, gammas, norms, partial, out, b, k, n_max, d, per_split,
+        # splits, stream
+        "ensemble_score_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, q, scale, zero, coef, gammas, norms, partial, out, b, k, n_max, d,
+        # per_split, splits, stream
+        "ensemble_score_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _P],
         "ensemble_score_smem_bytes": [_I],
     },
     "sdca": {
@@ -67,9 +70,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gram_matvec_smem_bytes": [_I],
     },
     "flash_attention": {
-        # q, k, v, o, B, Sq, Skv, H, K, hd, is_bf16, causal, window, scale, stream
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-        "flash_attention_smem_bytes": [_I],
+        # q, k, v, o, B, Sq, Skv, H, K, hd, causal, window, scale, stream (float32)
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attention_tc": {
+        # the same arguments, bfloat16
+        "flash_attention_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

@@ -10,8 +10,8 @@ the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
 positional numpy argument tuple the reference's dispatcher of the same
 name also accepts, SDCA aside), ``make_ragged(rng)`` (the same on shapes
 off every tile multiple of the CUDA kernels: 64-row tiles, 32-wide
-feature chunks, 32-query and 32-row blocks, 64-support tiles, 64-row
-query and key tiles) and the
+feature chunks, 32-row blocks, 128-query blocks over 64-support tiles,
+64- and 128-row query tiles over 64-key tiles) and the
 tolerance the parity tests and ``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
 (or, for SDCA, the XLA loop) each entry ports.
 """
@@ -269,7 +269,8 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
                    _flash.flash_attention_plain, flash_attention,
                    _mk_flash_attention, _ragged_flash_attention, _flash.LAUNCHES,
                    replaces="src/repro/kernels/flash_attention.py:68",
-                   source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                   # the serve path's bf16 kernel; fp32 runs csrc/flash_attention.cu
+                   source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                    tol=2e-5),
     )
 }

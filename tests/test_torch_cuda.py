@@ -12,6 +12,9 @@ The CPU tests hold each plain version to the JAX reference
 version on the same card tensors, at the registry's tolerance, and the
 round on the card to the round on the CPU.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -104,7 +107,9 @@ def test_round_matches_cpu(cuda_device):
     ds = make_dataset("gleam", seed=0, scale=0.4)
     ops.reset_launch_counts()
     card = run_protocol(ds, ks=(1, 3, 10), random_trials=2, device=cuda_device)
-    assert all(v > 0 for v in ops.launch_counts().values()), ops.launch_counts()
+    counts = ops.launch_counts()   # the fp32 round's four kernels
+    assert all(counts[n] > 0 for n in ("batched_rbf_gram", "rbf_gram", "ensemble_score",
+                                       "sdca")), counts
     cpu = run_protocol(ds, ks=(1, 3, 10), random_trials=2, device="cpu")
     assert card.ledger.as_dict() == cpu.ledger.as_dict()
     assert ([(e.tag, e.device_id) for e in card.ledger.events]
@@ -211,3 +216,112 @@ def test_reduced_serve_matches_cpu(cuda_device):
     card, _ = serve_prompts(cfg, params.to(cuda_device), prompts, 6)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     np.testing.assert_array_equal(card, cpu)
+
+
+def _smoke_flash_shapes():
+    """chip_smoke.py's FLASH_SHAPES (it imports nothing but the standard library)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FLASH_SHAPES
+
+
+SMOKE_FLASH = _smoke_flash_shapes()
+
+
+def _bf16_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("case", range(len(SMOKE_FLASH)), ids=[c[0] for c in SMOKE_FLASH])
+def test_flash_tc_matches_plain_at_smoke_shapes(cuda_device, case):
+    """The bf16 tensor-core kernel at chip_smoke.py's shapes (hd 32, 64 and
+    128, the serve shape included) within 1e-4 + 2^-7 |plain|."""
+    _, (B, S, H, K, hd), causal, window = SMOKE_FLASH[case]
+    rng = _rng("flash-tc", case)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for h in (H, K, K))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ops.KERNEL_REGISTRY["flash_attention"].plain(q, k, v, causal, window)
+    assert got.dtype == torch.bfloat16 and _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("shape", ["registry", "ragged"])
+def test_flash_tc_matches_plain_at_registry_inputs(cuda_device, shape):
+    """hd 16 (registry) and hd 32 with 3 query heads per KV head on 77 rows
+    (ragged), in bf16, under every mask."""
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    args = (spec.make_inputs if shape == "registry" else spec.make_ragged)(_rng("tc-" + shape))
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in args)
+    for causal, window in ((True, 0), (True, 16), (False, 0), (False, 16)):
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert _bf16_close(got, spec.plain(q, k, v, causal, window)), (causal, window)
+
+
+def _ensemble(rng, b, k, n_max, d, q8):
+    """Scorer inputs as a trained ensemble gives them: coef = alpha y /
+    (lam n), int8 supports quantised by the port's own codec."""
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    sup = rng.normal(size=(k, n_max, d)).astype(np.float32)
+    sign = np.where(rng.random((k, n_max)) < 0.5, -1.0, 1.0)
+    coef = (rng.random((k, n_max)) * sign / (0.01 * n_max)).astype(np.float32)
+    gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=k))).astype(np.float32)
+    if not q8:
+        return x, sup, coef, gam
+    from repro_torch.comm.wire import _quantize_columns
+
+    q = np.empty((k, n_max, d), np.int8)
+    scale = np.empty((k, d), np.float32)
+    zero = np.empty((k, d), np.float32)
+    for t in range(k):
+        q[t], scale[t], zero[t] = _quantize_columns(sup[t])
+    return x, q, scale, zero, coef, gam
+
+
+SCORER_SHAPES = {   # (b, k, n_max, d)
+    "ideal k1 n2000": (8192, 1, 2000, 32),
+    "k100 n230": (8192, 100, 230, 32),
+    "full k2821 n230": (8192, 2821, 230, 32),
+    "d12 ragged": (37, 5, 77, 12),
+    "d24 ragged": (37, 5, 77, 24),
+    "d37 ragged": (300, 7, 77, 37),
+}
+SCORERS = ("ensemble_score", "ensemble_score_q8")
+
+
+@pytest.mark.parametrize("shape", sorted(SCORER_SHAPES))
+@pytest.mark.parametrize("name", SCORERS)
+def test_scorer_matches_plain(cuda_device, name, shape):
+    spec = ops.KERNEL_REGISTRY[name]
+    args = _on(_ensemble(_rng(name + shape), *SCORER_SHAPES[shape], q8=name.endswith("q8")),
+               cuda_device)
+    got = spec.kernel(*args)
+    want = spec.plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", *SCORERS])
+def test_two_launches_are_bit_identical(cuda_device, name):
+    spec = ops.KERNEL_REGISTRY[name]
+    if name == "flash_attention":
+        rng = _rng("twice-flash")
+        args = tuple(torch.from_numpy(rng.normal(size=(2, 300, h, 64)).astype(np.float32))
+                     .to(cuda_device, torch.bfloat16) for h in (8, 2, 2))
+    else:
+        args = _on(_ensemble(_rng("twice" + name), *SCORER_SHAPES["k100 n230"],
+                             q8=name.endswith("q8")), cuda_device)
+    assert torch.equal(spec.kernel(*args), spec.kernel(*args))
+
+
+@pytest.mark.parametrize("name", SCORERS)
+def test_score_does_not_depend_on_the_batch(cuda_device, name):
+    """The first 1,000 rows of an 8,192-row call equal, bit for bit, a
+    1,000-row call: the split plan never depends on b."""
+    spec = ops.KERNEL_REGISTRY[name]
+    x, *rest = _on(_ensemble(_rng("rows" + name), *SCORER_SHAPES["full k2821 n230"],
+                             q8=name.endswith("q8")), cuda_device)
+    full = spec.kernel(x, *rest)
+    head = spec.kernel(x[:1000].contiguous(), *rest)
+    assert torch.equal(full[:1000], head)
