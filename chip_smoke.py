@@ -20,11 +20,14 @@ It imports the port and nothing of JAX or of the reference package
            32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
            causal with a window, non-causal, ragged lengths and the serve
            shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
-           and feature dims 12, 24, 32 and 37. Then determinism, bit for
-           bit: two launches of bf16 flash (serve shape) and of both
-           scorers (full shape) equal, and each scorer's first 1,000 rows of
-           an 8,192-row call equal to a 1,000-row call (the split plan never
-           depends on b);
+           and feature dims 12, 24, 32 and 37; SDCA at the group shapes and
+           on the pooled emnist ideal, whose alphas are not all 0 or 1. Then
+           determinism, bit for bit: two launches of bf16 flash (serve
+           shape), of both scorers (full shape) and of SDCA (emnist ideal,
+           g256 b64) equal, each scorer's first 1,000 rows of an 8,192-row
+           call equal to a 1,000-row call (the split plan never depends on
+           b), and one SDCA group member solved alone equal to its alpha in
+           the group;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -63,7 +66,10 @@ It imports the port and nothing of JAX or of the reference package
            output written once) over 3.35 TB/s, the H100 SXM's published
            peaks; flash attention also beside ``library_ms``, one call of
            ``torch.nn.functional.scaled_dot_product_attention`` on the same
-           tensors (a yardstick only: the port never calls it).
+           tensors (a yardstick only: the port never calls it). SDCA's
+           rows also give ns a step and a chain figure: the steps of the
+           longest solve times one step's latency, from the kernel on a
+           single 32-row tile.
 
 The last three lines are the per-kernel summary ``{"kernels": [...]}``
 (each kernel's launches read from the run it was ported for: ``main``
@@ -217,7 +223,11 @@ def kernel_cases(rng, ops):
         "sdca": [
             ("group g256 b64", sdca(256, 64, 33, 64)),
             ("group g128 b256", sdca(128, 256, 193, 256)),
+            # random normals at gamma 1/32: every alpha ends at 0 or 1, so any
+            # order of summation agrees here; kept for timing only
             ("ideal g1 b2048 n2000", sdca(1, 2048, 2000, 2000)),
+            # the round's own ideal: 64 of its 2,000 alphas end inside (0, 1)
+            ("ideal emnist g1 b2048 n2000", ops.make_ideal_sdca_problem(seed=0)),
         ],
         "gram_matvec": [
             ("cg l4096 d32", matvec(4096, 32)),
@@ -426,10 +436,15 @@ def phase_kernels(ops, device, rng):
     return {"cases": results, "determinism": determinism(ops, device, all_cases)}, errs
 
 
+SDCA_MEMBER = 17   # the group member solved alone in the determinism check
+
+
 def determinism(ops, device, cases):
     """Bit-for-bit checks: two launches of bf16 flash attention (serve
-    shape) and of both scorers (full shape) are equal; each scorer's first
-    1,000 rows of an 8,192-row call equal a 1,000-row call."""
+    shape), of both scorers (full shape) and of SDCA (the emnist ideal and
+    group g256 b64) are equal; each scorer's first 1,000 rows of an
+    8,192-row call equal a 1,000-row call; member 17 of the g256 b64 SDCA
+    group solved alone (g = 1) equals its alpha in the group."""
     import torch
 
     shapes = {"flash_attention": "serve b4 s2048 h32 k8 hd64 causal bfloat16",
@@ -447,6 +462,20 @@ def determinism(ops, device, cases):
         out[name] = {"case": label, **checks}
         failed += [f"{name}: {c}" for c, ok in checks.items() if not ok]
         del args, first, second
+    sdca = ops.KERNEL_REGISTRY["sdca"].kernel
+    checks = {}
+    for label in ("ideal emnist g1 b2048 n2000", "group g256 b64"):
+        args = to_device(dict(cases["sdca"])[label], device)
+        first = sdca(*args)
+        checks[f"two_launches_equal [{label}]"] = bool(torch.equal(first, sdca(*args)))
+    # args and first are the g256 b64 group's
+    K, y, n_real = (a[SDCA_MEMBER:SDCA_MEMBER + 1].contiguous() for a in args[:3])
+    alone = sdca(K, y, n_real, *args[3:])
+    checks[f"member {SDCA_MEMBER} alone equals in group [group g256 b64]"] = bool(
+        torch.equal(alone[0], first[SDCA_MEMBER]))
+    out["sdca"] = checks
+    failed += [f"sdca: {c}" for c, ok in checks.items() if not ok]
+    del args, first, alone
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"determinism: {failed}")
@@ -777,7 +806,8 @@ TIMING_CASES = {
     "rbf_gram": ("ideal 2000x2000x32",),
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
                        "ideal predict b8192 k1 n2000"),
-    "sdca": ("ideal g1 b2048 n2000", "group g256 b64", "group g128 b256"),
+    "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
+             "group g128 b256"),
     "gram_matvec": ("cg l4096 d32",),
     "rbf_gram_q8": ("student predict b8192 n4096 d32",),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
@@ -811,10 +841,30 @@ def phase_timing(ops, device, rng):
             if library:   # how far the yardstick's own answer is from the plain version's
                 row["library_max_abs_err"] = float(
                     (library(*targs).float() - spec.plain(*targs).float()).abs().max())
+            if name == "sdca":   # the longest chain of dependent steps in the call
+                row["steps"] = int(args[4] * min(int(args[2].max()), args[0].shape[1]))
+                row["ns_per_step"] = 1e6 * row["ms"] / row["steps"]
             rows.append(row)
             del targs
             torch.cuda.empty_cache()
-    return {"rows": rows}
+    step_ns = sdca_step_ns(ops, device, rng)
+    for row in rows:
+        if row["kernel"] == "sdca":
+            row["chain_ms"] = 1e-6 * row["steps"] * step_ns
+    return {"rows": rows, "sdca_step_ns": step_ns}
+
+
+def sdca_step_ns(ops, device, rng, epochs=1250):
+    """One SDCA step's latency on the card: the kernel on a single 32-row
+    tile (so the look-ahead matvec has 32 x 32 products to hide) for
+    40,000 steps, warm, over the step count. The chain figure beside the
+    bytes bound is a case's steps times this."""
+    args = ops.make_sdca_problem(rng, g=1, b=32, d=32, n_real=[32], epochs=epochs)
+    targs = to_device(args, device)
+    kernel = ops.KERNEL_REGISTRY["sdca"].kernel
+    kernel(*targs)
+    ms = min(_time_ms(lambda: kernel(*targs), 5) for _ in range(3))
+    return 1e6 * ms / (epochs * 32)
 
 
 # ----------------------------------------------------------------------
@@ -893,9 +943,9 @@ def main(argv=None) -> int:
         out = {"phase": phase, "ok": True, "phase_seconds": time.perf_counter() - t0, **out}
         detail[phase] = out
         if phase == "timing":   # the turns and counts go to --out only
-            out = {**out, "rows": [{k: r[k] for k in ("kernel", "case", "ms", "plain_ms",
-                                                      "library_ms", "bound_ms", "bound_by")}
-                                   for r in out["rows"]]}
+            keep = ("kernel", "case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "ns_per_step", "chain_ms")
+            out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
         emit(out)
 
     # each kernel's launches come from the run it was ported for: the fp32

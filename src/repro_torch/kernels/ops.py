@@ -172,6 +172,37 @@ def make_sdca_problem(rng, g: int, b: int, d: int, n_real, lam: float = 0.01,
     return K.astype(np.float32), y, n_real, lam, epochs
 
 
+def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
+                            lam: float = 0.01, epochs: int = 20) -> tuple:
+    """The pooled-data ideal's SDCA problem as ``run_protocol``'s
+    ``round.ideal`` builds it on ``make_dataset("emnist", seed, scale)``:
+    every device's train split pooled, ``cap`` rows drawn by
+    ``default_rng(seed)``, the RBF Gram at ``default_gamma`` (its plain
+    version, on the host), padded as ``train_svm`` pads it (2,000 rows
+    to a bucket of 2,048). Unlike ``make_sdca_problem``'s random data,
+    many of its alphas end strictly inside (0, 1)."""
+    from repro_torch.core.svm import SDCA_BUCKET, default_gamma
+    from repro_torch.data import make_dataset
+    from repro_torch.data.partition import derive_device_seed, split_train_test_val
+
+    ds = make_dataset("emnist", seed=seed, scale=scale)
+    trains = [split_train_test_val(dev, seed=derive_device_seed(seed, i))["train"]
+              for i, dev in enumerate(ds.devices)]
+    x = np.concatenate([t.x for t in trains])
+    y = np.concatenate([t.y for t in trains])
+    if len(y) > cap:
+        idx = np.random.default_rng(seed).choice(len(y), cap, replace=False)
+        x, y = x[idx], y[idx]
+    n = len(y)
+    b = max(-(-n // SDCA_BUCKET) * SDCA_BUCKET, SDCA_BUCKET)
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    K = np.zeros((1, b, b), np.float32)
+    K[0, :n, :n] = _rbf.rbf_gram_plain(xt, xt, default_gamma(x)).numpy()
+    yp = np.ones((1, b), np.float32)
+    yp[0, :n] = y
+    return K, yp, np.asarray([n], np.int32), lam, epochs
+
+
 def _mk_sdca(rng):
     return make_sdca_problem(rng, g=3, b=64, d=12, n_real=[64, 40, 17])
 

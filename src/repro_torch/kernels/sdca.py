@@ -5,13 +5,19 @@ Replaces ``repro/core/svm.py::_sdca``, which is not a Pallas kernel but
 an XLA ``fori_loop`` inside ``jit``, vmapped over a bucket of devices by
 the reference engine. In eager PyTorch each of its 20 x bucket
 coordinate steps would be several launches, so ``csrc/sdca.cu`` runs the
-whole solve in one launch: one block per device, alpha and y in shared
-memory, and each step's ``Ky[i] . alpha`` a fixed-order block reduction.
+whole solve in one launch, one block per device, as a tiled,
+delayed-update solve: coordinates go in tiles of ``TILE``; a tile's
+K (y o alpha) is summed in fp64 once, from alpha at the tile's start, by
+warps that work one tile ahead; one warp then steps through the tile, a
+lane a coordinate, carrying each step's change into the other lanes'
+fp64 sums with a shuffle instead of a block reduction.
 
 Bound on the H100: latency. The steps form one dependent chain per
-device, so neither the bytes (each K read once: 64 MB for a 256-device
-group of bucket 256) nor the operations bound it; the design keeps each
-solve on one SM with two barriers per step and the K rows in L2.
+device (40,000 for the ideal), so neither the bytes (each K read once)
+nor the operations bound it; the design shortens one step to a shuffle,
+the reference's fp32 arithmetic and three fp64 operations, with one
+barrier a tile and none a step, and streams each tile's K rows from L2
+under the steps of the tile before.
 """
 from __future__ import annotations
 
@@ -20,6 +26,12 @@ import torch
 from repro_torch.kernels import native
 
 LAUNCHES = native.LaunchCounter("sdca")
+# The kernel's order of summation (tests/test_torch_kernel_design.py emulates
+# it): coordinates go in tiles of TILE, one lane each of the stepping warp; a
+# tile row's matvec is summed by 32 lanes, lane l over the GROUP-column groups
+# l, l + 32, ... in turn, then over the lanes pairwise, bit 4 of the lane first.
+TILE = 32
+GROUP = 4
 
 
 def sdca_plain(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
@@ -58,6 +70,9 @@ def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
     if tuple(y.shape) != (g, b) or tuple(n_real.shape) != (g,):
         raise ValueError(f"sdca: y {tuple(y.shape)} / n_real {tuple(n_real.shape)} "
                          f"do not match K {tuple(K.shape)}")
+    if b % GROUP or K.data_ptr() % 16:
+        raise ValueError(f"sdca: the kernel reads K rows 4 columns at a time: the bucket "
+                         f"({b}) must be a multiple of {GROUP} and K 16-byte aligned")
     lib = native.library("sdca")
     if lib.sdca_smem_bytes(b) > native.MAX_SMEM_BYTES:
         raise ValueError(f"sdca: bucket {b} needs more shared memory than a block may take")

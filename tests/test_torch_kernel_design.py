@@ -10,8 +10,15 @@ What can be held here is the plan and the arithmetic they follow:
   emulated in plain PyTorch: bf16 products summed in fp32, the online softmax
   in the log2 domain over 64-key tiles, P split into two bf16 parts for P V.
   The emulation stays within the on-card bf16 tolerance of the plain version
-  and of the JAX reference's oracle.
+  and of the JAX reference's oracle;
+- the tiled, delayed-update SDCA kernel's order (``csrc/sdca.cu``), emulated in
+  plain PyTorch: fp64 tile matvecs summed lane by lane over 4-column groups,
+  then by a butterfly across the lanes, one tile ahead of the steps; fp64
+  in-tile updates. The emulation stays within the registry's 1e-5 of the plain version
+  on the pooled-data ideal of the emnist federation, whose alphas are not all
+  0 or 1, and on the engine's group shapes.
 """
+import functools
 import importlib.util
 import inspect
 import math
@@ -25,6 +32,7 @@ from repro.kernels import ref
 from repro.utils.seeds import derive_stream_seed
 from repro_torch.kernels import ensemble_score as ens
 from repro_torch.kernels import ops
+from repro_torch.kernels import sdca as sdca_mod
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -184,3 +192,126 @@ def test_two_part_p_keeps_sixteen_bits():
     two = p_hi + _bf16(p - p_hi)
     assert float(((two - p).abs() / p).max()) <= 2.0 ** -16
     assert float(((p_hi - p).abs() / p).max()) > 2.0 ** -10
+
+
+# ----------------------------------------------------------------------
+# the tiled, delayed-update SDCA kernel's order
+# ----------------------------------------------------------------------
+
+def sdca_tiled_emulated(K, y, n_real, lam, epochs):
+    """``csrc/sdca.cu`` in plain PyTorch, device by device. Tile u (of
+    ``epochs`` x ceil(n / TILE)) starts from w = (its rows' matvec over every
+    column outside tile u-1) + (tile u-1's columns, added step by step during
+    tile u-1 from the new alphas). The matvec of a row: lane l of 32 adds the
+    GROUP-column groups l, l + 32, ... in turn (products exact in fp64), then
+    the lanes' sums are added pairwise over bit 4, then 3, ... 0. A step: the
+    reference's fp32 arithmetic on (float)w_r, then w += (K y)[:, r]
+    (alpha_new - alpha_old) in fp64."""
+    K, y, n_real = (torch.as_tensor(a) for a in (K, y, n_real))
+    g, b, _ = K.shape
+    T, G = sdca_mod.TILE, sdca_mod.GROUP
+    lam32 = np.float32(lam)
+    out = torch.zeros((g, b), dtype=torch.float32)
+    for t in range(g):
+        nr = int(n_real[t])
+        n = max(0, min(nr, b))
+        nf = np.float32(nr)
+        lam_n = lam32 * nf
+        yv = y[t, :n]
+        alpha = torch.zeros(n, dtype=torch.float32)
+        tiles = -(-n // T)
+        passes = -(-n // (32 * G))
+        Kp = torch.zeros((n, passes * 32 * G), dtype=torch.float64)
+        Kp[:, :n] = K[t, :n, :n].double()
+
+        def start(u):
+            return (u % tiles) * T
+
+        def block(r0, c0):   # K[r0 + r, c0 + c] y[c0 + c], zero past n
+            blk = torch.zeros((T, T), dtype=torch.float32)
+            rr, cc = min(T, n - r0), min(T, n - c0)
+            blk[:rr, :cc] = K[t, r0:r0 + rr, c0:c0 + cc] * yv[c0:c0 + cc]
+            return blk.double()
+
+        def matvec(s, ex):
+            v = torch.zeros(Kp.shape[1], dtype=torch.float64)
+            v[:n] = (yv * alpha).double()
+            v[ex:ex + T] = 0.0
+            rows = Kp[torch.clamp(torch.arange(s, s + T), max=n - 1)]
+            prod = (rows * v).view(T, passes, 32, G)   # column (32 j + lane) G + q
+            lanes = torch.zeros((T, 32), dtype=torch.float64)
+            for j in range(passes):
+                for q in range(G):
+                    lanes = lanes + prod[:, j, :, q]
+            while lanes.shape[-1] > 1:
+                halves = lanes.view(T, 2, -1)
+                lanes = halves[:, 0] + halves[:, 1]
+            return lanes[:, 0]
+
+        carry = torch.zeros(T, dtype=torch.float64)
+        for u in range(epochs * tiles):
+            s = start(u)
+            w = matvec(s, start(u - 1) if u > 0 else n) + carry
+            D, B = block(s, s), block(start(u + 1), s)
+            carry = torch.zeros(T, dtype=torch.float64)
+            for r in range(min(T, n - s)):
+                i = s + r
+                old = alpha[i].numpy()[()]
+                f = np.float32(float(w[r])) / lam_n
+                grad = np.float32(1.0) - yv[i].numpy()[()] * f
+                step = grad * lam32 * nf / np.maximum(K[t, i, i].numpy()[()], np.float32(1e-8))
+                new = np.minimum(np.maximum(old + step, np.float32(0.0)), np.float32(1.0))
+                alpha[i] = float(new)
+                w = w + D[:, r] * (float(new) - float(old))
+                carry = carry + B[:, r] * float(new)
+        out[t, :n] = alpha
+    return out
+
+
+def _sdca_plain(args):
+    K, y, n_real, lam, epochs = args
+    return sdca_mod.sdca_plain(torch.from_numpy(K), torch.from_numpy(y),
+                               torch.from_numpy(n_real), lam, epochs)
+
+
+@functools.lru_cache(maxsize=None)
+def _ideal(seed):
+    """The emnist ideal's SDCA problem and the plain version's alpha."""
+    args = ops.make_ideal_sdca_problem(seed=seed)
+    return args, _sdca_plain(args)
+
+
+def test_sdca_tile_constants_match_the_kernel():
+    src = (ROOT / "src/repro_torch/kernels/csrc/sdca.cu").read_text()
+    assert f"constexpr int TILE = {sdca_mod.TILE};" in src
+    assert f"constexpr int GROUP = {sdca_mod.GROUP};" in src
+
+
+def test_sdca_emnist_ideal_has_interior_alphas():
+    """The on-card check at the ideal's shape can fail only where alphas end
+    strictly inside (0, 1); random normal data at gamma 1/32 leaves none."""
+    (K, _, n_real, _, _), alpha = _ideal(0)
+    assert K.shape == (1, 2048, 2048) and int(n_real[0]) == 2000
+    a = alpha[0, :2000]
+    assert int(((a > 0) & (a < 1)).sum()) >= 50
+    assert float(alpha[0, 2000:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sdca_tiled_order_holds_the_tolerance_on_the_emnist_ideal(seed):
+    args, want = _ideal(seed)
+    got = sdca_tiled_emulated(*args)
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["sdca"].tol
+
+
+@pytest.mark.parametrize("g,b,lo,hi", [(16, 64, 33, 64), (4, 256, 193, 256)],
+                         ids=["g16-b64", "g4-b256"])
+def test_sdca_tiled_order_holds_the_tolerance_on_group_shapes(g, b, lo, hi):
+    """Not bit for bit: the plain version sums each step's dot in fp32, the
+    kernel in fp64, so (float)w and the fp32 sum may round apart wherever the
+    tile covers the bucket or not; most of these alphas end inside (0, 1)."""
+    rng = _rng("sdca-group", b)
+    args = ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=rng.integers(lo, hi + 1, size=g))
+    got, want = sdca_tiled_emulated(*args), _sdca_plain(args)
+    assert int(((want > 0) & (want < 1)).sum()) > 0
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["sdca"].tol
