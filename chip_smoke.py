@@ -12,7 +12,8 @@ It imports the port and nothing of JAX or of the reference package
            for sm_90a, one ``nvcc`` per source, all started together; count
            the tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
            instructions in the compiled code (``cuobjdump -sass``): the
-           bf16 flash kernel must have all three, the scorers LDGSTS;
+           bf16 flash kernel must have all three, the scorers and
+           ``gram_matvec`` LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
@@ -21,13 +22,16 @@ It imports the port and nothing of JAX or of the reference package
            causal with a window, non-causal, ragged lengths and the serve
            shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
            and feature dims 12, 24, 32 and 37; SDCA at the group shapes and
-           on the pooled emnist ideal, whose alphas are not all 0 or 1. Then
-           determinism, bit for bit: two launches of bf16 flash (serve
-           shape), of both scorers (full shape) and of SDCA (emnist ideal,
-           g256 b64) equal, each scorer's first 1,000 rows of an 8,192-row
-           call equal to a 1,000-row call (the split plan never depends on
-           b), and one SDCA group member solved alone equal to its alpha in
-           the group;
+           on the pooled emnist ideal, whose alphas are not all 0 or 1;
+           ``gram_matvec`` at the CG's l 4,096 on random normals and on the
+           round's own validation-pool proxy rows
+           (``ops.make_cg_matvec_problem``). Then determinism, bit for bit:
+           two launches of bf16 flash (serve shape), of both scorers (full
+           shape), of SDCA (emnist ideal, g256 b64) and of ``gram_matvec``
+           (both l 4,096 cases) equal, each scorer's first 1,000 rows of
+           an 8,192-row call equal to a 1,000-row call (the split plan never
+           depends on b), and one SDCA group member solved alone equal to
+           its alpha in the group;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -79,8 +83,10 @@ name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
 directory without the port's sources. ``--phases`` runs a subset (for a
-first check of a new kernel: ``--phases build,kernels``); ``--out FILE``
-writes the compiler's log and the detailed timings there as JSON.
+first check of a new kernel: ``--phases build,kernels``), ``--kernels``
+restricts the ``kernels`` and ``timing`` phases to the named kernels
+(``--kernels gram_matvec``); ``--out FILE`` writes the compiler's log and
+the detailed timings there as JSON.
 """
 from __future__ import annotations
 
@@ -231,6 +237,9 @@ def kernel_cases(rng, ops):
         ],
         "gram_matvec": [
             ("cg l4096 d32", matvec(4096, 32)),
+            # the round's own CG input: 4,096 pooled validation rows at
+            # default_gamma (gamma |x|^2 ~ 1)
+            ("cg emnist l4096 d32", ops.make_cg_matvec_problem(seed=0)),
         ],
         "rbf_gram_q8": [
             ("student predict b8192 n4096 d32", gram_q8(8192, 4096, 32)),
@@ -374,7 +383,8 @@ def bound_of(name, args):
 
 # SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
 SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
-SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",)}
+SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
+                 "gram_matvec": ("LDGSTS",)}
 
 
 def sass_counts(native, name):
@@ -403,14 +413,15 @@ def phase_build(native):
             "build_dir": str(native.build_dir().relative_to(ROOT))}, logs
 
 
-def phase_kernels(ops, device, rng):
-    """Every case of every kernel against its plain version; all cases run,
-    and the phase fails at the end if any disagreed. ``errs`` holds each
-    kernel's largest fp32 error, ``errs[name + "/bf16"]`` its bf16 one."""
+def phase_kernels(ops, device, rng, names):
+    """Every case of every kernel in ``names`` against its plain version;
+    all cases run, and the phase fails at the end if any disagreed.
+    ``errs`` holds each kernel's largest fp32 error, ``errs[name +
+    "/bf16"]`` its bf16 one."""
     import torch
 
     results, errs, failed = [], {}, []
-    all_cases = kernel_cases(rng, ops)
+    all_cases = {n: c for n, c in kernel_cases(rng, ops).items() if n in names}
     for name, cases in all_cases.items():
         spec = ops.KERNEL_REGISTRY[name]
         for label, args in cases:
@@ -440,43 +451,42 @@ SDCA_MEMBER = 17   # the group member solved alone in the determinism check
 
 
 def determinism(ops, device, cases):
-    """Bit-for-bit checks: two launches of bf16 flash attention (serve
-    shape), of both scorers (full shape) and of SDCA (the emnist ideal and
-    group g256 b64) are equal; each scorer's first 1,000 rows of an
+    """Bit-for-bit checks of the kernels in ``cases``: two launches of
+    bf16 flash attention (serve shape), of both scorers (full shape), of
+    SDCA (the emnist ideal and group g256 b64) and of ``gram_matvec`` (both
+    l 4,096 CG cases) are equal; each scorer's first 1,000 rows of an
     8,192-row call equal a 1,000-row call; member 17 of the g256 b64 SDCA
     group solved alone (g = 1) equals its alpha in the group."""
     import torch
 
-    shapes = {"flash_attention": "serve b4 s2048 h32 k8 hd64 causal bfloat16",
-              "ensemble_score": "full b8192 k2821 n230",
-              "ensemble_score_q8": "full b8192 k2821 n230"}
-    out, failed = {}, []
-    for name, label in shapes.items():
-        spec = ops.KERNEL_REGISTRY[name]
-        args = to_device(dict(cases[name])[label], device)
-        first, second = spec.kernel(*args), spec.kernel(*args)
-        checks = {"two_launches_equal": bool(torch.equal(first, second))}
-        if name != "flash_attention":   # x is the first argument
-            head = spec.kernel(args[0][:1000].contiguous(), *args[1:])
-            checks["rows_1000_of_8192_equal"] = bool(torch.equal(first[:1000], head))
-        out[name] = {"case": label, **checks}
-        failed += [f"{name}: {c}" for c, ok in checks.items() if not ok]
-        del args, first, second
-    sdca = ops.KERNEL_REGISTRY["sdca"].kernel
-    checks = {}
-    for label in ("ideal emnist g1 b2048 n2000", "group g256 b64"):
-        args = to_device(dict(cases["sdca"])[label], device)
-        first = sdca(*args)
-        checks[f"two_launches_equal [{label}]"] = bool(torch.equal(first, sdca(*args)))
-    # args and first are the g256 b64 group's
-    K, y, n_real = (a[SDCA_MEMBER:SDCA_MEMBER + 1].contiguous() for a in args[:3])
-    alone = sdca(K, y, n_real, *args[3:])
-    checks[f"member {SDCA_MEMBER} alone equals in group [group g256 b64]"] = bool(
-        torch.equal(alone[0], first[SDCA_MEMBER]))
-    out["sdca"] = checks
-    failed += [f"sdca: {c}" for c, ok in checks.items() if not ok]
-    del args, first, alone
+    twice = {"flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",),
+             "ensemble_score": ("full b8192 k2821 n230",),
+             "ensemble_score_q8": ("full b8192 k2821 n230",),
+             "sdca": ("ideal emnist g1 b2048 n2000", "group g256 b64"),
+             "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32")}
+    out = {}
+    for name, labels in twice.items():
+        if name not in cases:
+            continue
+        kernel, checks = ops.KERNEL_REGISTRY[name].kernel, {}
+        for label in labels:
+            args = to_device(dict(cases[name])[label], device)
+            first = kernel(*args)
+            checks[f"two_launches_equal [{label}]"] = bool(torch.equal(first, kernel(*args)))
+            if name.startswith("ensemble_score"):   # x is the first argument
+                head = kernel(args[0][:1000].contiguous(), *args[1:])
+                checks[f"rows_1000_of_8192_equal [{label}]"] = bool(
+                    torch.equal(first[:1000], head))
+            if label == "group g256 b64":
+                K, y, n_real = (a[SDCA_MEMBER:SDCA_MEMBER + 1].contiguous() for a in args[:3])
+                alone = kernel(K, y, n_real, *args[3:])
+                checks[f"member {SDCA_MEMBER} alone equals in group [{label}]"] = bool(
+                    torch.equal(alone[0], first[SDCA_MEMBER]))
+            del args, first
+        out[name] = checks
     torch.cuda.empty_cache()
+    failed = [f"{name}: {c}" for name, checks in out.items() for c, ok in checks.items()
+              if not ok]
     if failed:
         raise AssertionError(f"determinism: {failed}")
     return out
@@ -808,7 +818,7 @@ TIMING_CASES = {
                        "ideal predict b8192 k1 n2000"),
     "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
              "group g128 b256"),
-    "gram_matvec": ("cg l4096 d32",),
+    "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
     "rbf_gram_q8": ("student predict b8192 n4096 d32",),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
@@ -817,12 +827,14 @@ TIMING_CASES = {
 LIBRARY = {"flash_attention": sdpa_library}
 
 
-def phase_timing(ops, device, rng):
+def phase_timing(ops, device, rng, names):
     import torch
 
     cases = {name: dict(c) for name, c in kernel_cases(rng, ops).items()}
     rows = []
     for name, labels in TIMING_CASES.items():
+        if name not in names:
+            continue
         spec = ops.KERNEL_REGISTRY[name]
         for label in labels:
             args = cases[name][label]
@@ -847,6 +859,8 @@ def phase_timing(ops, device, rng):
             rows.append(row)
             del targs
             torch.cuda.empty_cache()
+    if "sdca" not in names:
+        return {"rows": rows}
     step_ns = sdca_step_ns(ops, device, rng)
     for row in rows:
         if row["kernel"] == "sdca":
@@ -873,6 +887,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernels for the kernels and timing phases "
+                         "(default: all)")
     ap.add_argument("--out", help="JSON file for the compiler log and detailed timings")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -901,6 +918,10 @@ def main(argv=None) -> int:
     from repro_torch.obs import trace
     from repro_torch.utils.device import resolve_device
 
+    names = [k for k in args.kernels.split(",") if k] or list(ops.KERNEL_REGISTRY)
+    unknown = sorted(set(names) - set(ops.KERNEL_REGISTRY))
+    if unknown:
+        ap.error(f"unknown kernels {unknown}")
     card = nvidia_smi()
     device = resolve_device("cuda")   # also turns TF32 off
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
@@ -918,7 +939,7 @@ def main(argv=None) -> int:
                 out, logs = phase_build(native)
                 detail["nvcc"] = logs
             elif phase == "kernels":
-                out, errs = phase_kernels(ops, device, np.random.default_rng(0))
+                out, errs = phase_kernels(ops, device, np.random.default_rng(0), names)
             elif phase == "parity":
                 out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
@@ -935,7 +956,7 @@ def main(argv=None) -> int:
                 out = phase_serve(ops, device)
                 counts[phase] = out["kernels"]
             else:
-                out = phase_timing(ops, device, np.random.default_rng(0))
+                out = phase_timing(ops, device, np.random.default_rng(0), names)
                 timing = {r["kernel"]: r for r in reversed(out["rows"])}
         except Exception as e:
             emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})

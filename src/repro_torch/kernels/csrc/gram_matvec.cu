@@ -6,136 +6,264 @@
 // tile) as a sequential grid and carries a (bm, 1) sum in VMEM across the
 // support tiles. CUDA blocks run in parallel and in no order, so here:
 //
-//   pass 1  grid (row tiles of 32, support splits): each block owns 32 rows
-//           and one contiguous split of the supports, loops over that split
-//           64 supports at a time, keeps the 32 running sums in registers and
-//           writes one partial sum per row into partial[split][row];
-//   pass 2  out[i] = sum over splits of partial[split][i], in split order.
+//   pass 1  grid (splits, row blocks of BQ = 128): block (s, b) owns the row
+//           block's 128 rows and support tiles s * per_split ..
+//           (s + 1) * per_split - 1 (kernels/gram_matvec.py::split_plan),
+//           keeps one fp64 sum a row and writes it to partial[s][row];
+//   pass 2  out[i] = sum over splits of partial[s][i], in split order.
 //
-// Splitting the supports gives the card enough blocks at m = 4096 (128 row
-// tiles alone would leave 132 SMs with one block each). Every sum is taken
-// in a fixed order and there are no atomics, so the result is deterministic.
-// The (m, n) Gram never exists in device memory. The sums over supports are
-// kept in fp64 (one fp64 FMA per pair, against ~2d + 6 fp32 operations):
-// an fp32 sum of 4096 terms drifts by ~1e-5 with the order of its terms
-// alone, so fp64 sums here and in the plain version make the two agree to
-// the registry's 1e-5 at the CG's l = 4096.
+// No atomics; every sum is taken in a fixed order, so two launches agree bit
+// for bit. At the CG's l = 4096: 32 row blocks x 8 splits = 256 blocks of 256
+// threads, two resident per SM (__launch_bounds__(256, 2), ~40 KB of shared
+// memory a block): one wave on 132 SMs x 2 = 264 slots (97 %), each block
+// 128 rows x 512 supports. A thread-block cluster of a row block's 8 splits,
+// adding them through distributed shared memory in one launch, measured
+// slower: at two blocks an SM the card holds fewer clusters of 8 than the
+// grid has (a cluster must fit in one GPC), so the clustered grid ran in
+// two waves (PERF.md section 6).
 //
-// Per (row tile, 64-support tile): the supports (full feature dim,
-// transposed, one padding column), their norms and v are staged in shared
-// memory; each of the 128 threads computes a 4 x 4 block of x1.x2 in plain
-// fp32 FMA (no tensor cores: TF32 would wreck the cancellation of the norm
-// expansion), applies the exp epilogue and folds v * K into its 4 row sums.
-// Supports past the split's end are staged as zeros with v = 0, so they add
-// nothing; rows past m are computed and never stored.
+// Per block: 256 threads as 16 support groups x 16 row lanes; thread (group,
+// lane) owns rows lane + 16 i (i < 8) and supports 4 group .. 4 group + 3 of
+// each 64-support tile, an 8 x 4 register tile read from shared memory as
+// float4 along the feature dim (12 loads a 128 FMAs; row strides are an odd
+// number of float4s, so a quarter-warp's 8 row reads fall on distinct banks,
+// and the support reads are warp broadcasts). The rows' tile and their norms
+// are staged once a block (16-byte cp.async). Then each warp walks the
+// split's tiles on its own: warp w stages only rows 8 w .. 8 w + 7 of each
+// support tile and their v (cp.async, double-buffered, so the next tile
+// loads while this one computes), its lanes 0-7 take those rows' norms and
+// convert their v to fp64 once a tile, and it synchronises with __syncwarp
+// alone: no block barrier a tile, so the warps drift apart and one warp's
+// exp phase (MUFU and conversions) overlaps another's FMAs. At d = 32 (the
+// round's) the copies are 16 bytes with compile-time addresses; any other d
+// takes a general instantiation with 4-byte copies (nested row / column
+// loops, no runtime division by d). Supports past n are staged as zeros with
+// v = 0 and add exactly 0; rows past m are computed and never stored.
+//
+// Per-pair arithmetic (the same as the kernel this replaces; the CPU
+// emulation in tests/test_torch_kernel_design.py follows it):
+//   cross = 0; for c = 0 .. d-1: cross = fmaf(x1[i][c], x2[j][c], cross)
+//   sq    = 0; for c = 0 .. d-1: sq = fmaf(a[c], a[c], sq)      (each norm)
+//   d2    = fmaxf(sqx + sqs - 2.f * cross, 0.f)
+//   K     = expf(-gamma * d2)                  (full precision, not ex2.approx)
+//   acc   = fma((double)v[j], (double)K, acc)  (v converted once a tile)
+// Sums over supports stay fp64 in a fixed order: a thread adds its 4
+// supports of each tile in turn, tile after tile of its split; a block adds
+// its 16 groups in group order; the second pass adds the splits in order.
+// No fp32 sub-sums, no TF32: the norm expansion's cancellation leaves the
+// registry's 1e-5 little headroom at l = 4096 (PERF.md section 7).
 //
 // Bound on the H100: fp32 operations, about 2d + 8 per (row, support) pair;
-// the inputs are 1 MB at the CG's l = 4096, d = 32.
+// 0.018 ms at l = 4096, d = 32 (67 TFLOP/s), against 1 MB of inputs. What
+// holds it back is the instructions a pair: 32 FMAs, 3 shared loads and ~18
+// for the epilogue (expf alone ~10), ~53 in all (PERF.md section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MQ = 32;        // rows per block
-constexpr int MN = 64;        // supports per staged tile
-constexpr int THREADS = 128;  // 8 x 16 threads, 4 x 4 (row, support) pairs each
+constexpr int BQ = 128;              // rows per block
+constexpr int BLOCKS_PER_SM = 2;     // resident blocks an SM (registers: 128 a thread)
+constexpr int TQ = 8;                // rows per thread
+constexpr int TS = 4;                // supports per thread
+constexpr int GROUPS = 16;           // support groups
+constexpr int TILE = GROUPS * TS;    // supports per staged tile
+constexpr int LANES = BQ / TQ;       // row lanes: thread (group, lane) owns rows lane + LANES i
+constexpr int THREADS = LANES * GROUPS;
+constexpr int WARPS = THREADS / 32;  // warp w owns support groups 2 w and 2 w + 1 ...
+constexpr int WROWS = TS * 32 / LANES;  // ... so rows WROWS w .. WROWS (w + 1) - 1 of every tile
+constexpr int FAST_D = 32;           // the feature dim with 16-byte staging
+constexpr int RED_LD = 17;           // row stride (doubles) of the group sums
 
-__global__ void __launch_bounds__(THREADS)
+// d rounded up to a float4
+__host__ __device__ constexpr int padded(int d) { return (d + 3) / 4 * 4; }
+// row stride (floats) of the staged tiles: an odd number of float4s
+__host__ __device__ constexpr int row_stride(int d) {
+  return (padded(d) / 4) % 2 ? padded(d) : padded(d) + 4;
+}
+// the two support buffers, reused as the [BQ][RED_LD] fp64 group sums
+__host__ __device__ constexpr int support_floats(int d) {
+  return 2 * TILE * row_stride(d) > 2 * BQ * RED_LD ? 2 * TILE * row_stride(d)
+                                                    : 2 * BQ * RED_LD;
+}
+
+// Xs, the support buffers, v as staged (fp32) and the support norms, then
+// v in fp64; every part is a multiple of 8 bytes
+int smem_bytes(int d) {
+  return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// global -> shared copies, zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 gram_matvec_partial(const float* __restrict__ x1, const float* __restrict__ x2,
-                    const float* __restrict__ v, float gamma,
-                    double* __restrict__ partial, int m, int n, int d, int chunk) {
-  extern __shared__ __align__(16) float sm[];
-  float* Xs = sm;                      // [d][MQ + 1]
-  float* Ss = Xs + d * (MQ + 1);       // [d][MN + 1]
-  float* sqs = Ss + d * (MN + 1);      // [MN] support norms
-  float* vs = sqs + MN;                // [MN] v of the staged supports
-  float* sqx = vs + MN;                // [MQ] row norms
-  // [MQ][17] final cross-thread sums; 98 d + 160 floats precede it, an
-  // even count, so it is 8-byte aligned
-  double* red = reinterpret_cast<double*>(sqx + MQ);
+                    const float* __restrict__ v, float gamma, double* __restrict__ partial,
+                    int m, int n, int d_arg, int per_split) {
+  const int d = D ? D : d_arg;
+  const int dp = padded(d), ld = row_stride(d);
+  extern __shared__ float4 smem4[];
+  float* Xs = reinterpret_cast<float*>(smem4);  // [BQ][ld]
+  float* Ss = Xs + BQ * ld;                      // [2][TILE][ld], then [BQ][RED_LD] doubles
+  float* vs = Ss + support_floats(d);            // [2][TILE] v as staged
+  float* ns = vs + 2 * TILE;                     // [2][TILE] support norms
+  double* vd = reinterpret_cast<double*>(ns + 2 * TILE);  // [2][TILE] v in fp64
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // supports tx, tx+16, tx+32, tx+48
-  const int ty = tid / 16;  // rows 4*ty .. 4*ty+3
-  const int r0 = blockIdx.x * MQ;
-  const int j_begin = blockIdx.y * chunk;
-  const int j_end = min(n, j_begin + chunk);
+  const int tid = threadIdx.x, lane = tid % LANES, grp = tid / LANES, warp = tid / 32;
+  const int wlane = tid % 32, r0 = WROWS * warp;
+  const int q0 = blockIdx.y * BQ;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int t0 = blockIdx.x * per_split, t1 = min(t0 + per_split, tiles);
 
-  for (int e = tid; e < MQ * d; e += THREADS) {
-    const int r = e / d, c = e % d;
-    const int q = r0 + r;
-    Xs[c * (MQ + 1) + r] = q < m ? x1[(int64_t)q * d + c] : 0.f;
+  // the rows' tile, by all threads, once
+  if constexpr (D == FAST_D) {
+    for (int i = tid; i < BQ * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool valid = q0 + r < m;
+      cp_async16(Xs + r * ld + c, x1 + (int64_t)(valid ? q0 + r : 0) * D + c, valid);
+    }
+  } else {
+    for (int r = warp; r < BQ; r += WARPS) {
+      const bool row_ok = q0 + r < m;
+      for (int c = wlane; c < dp; c += 32) {
+        const bool valid = row_ok && c < d;
+        cp_async4(Xs + r * ld + c, x1 + (valid ? (int64_t)(q0 + r) * d + c : 0), valid);
+      }
+    }
   }
-  __syncthreads();
-  if (tid < MQ) {
+  cp_async_commit();
+
+  // one warp's rows r0 .. r0 + WROWS - 1 of support tile t, and their v
+  auto stage_tile = [&](int t, int buf) {
+    const int j0 = t * TILE, rows = min(TILE, n - j0);
+    if (r0 >= rows) return;  // every row of this warp is padding: nothing to stage
+    float* St = Ss + buf * TILE * ld;
+    if constexpr (D == FAST_D) {
+      for (int i = wlane; i < WROWS * D / 4; i += 32) {
+        const int r = r0 + i / (D / 4), c = (i % (D / 4)) * 4;
+        const bool valid = r < rows;
+        cp_async16(St + r * ld + c, x2 + (int64_t)(j0 + (valid ? r : 0)) * D + c, valid);
+      }
+    } else {
+      for (int r = r0; r < r0 + WROWS; ++r) {
+        const bool row_ok = r < rows;
+        for (int c = wlane; c < dp; c += 32) {
+          const bool valid = row_ok && c < d;
+          cp_async4(St + r * ld + c, x2 + (valid ? (int64_t)(j0 + r) * d + c : 0), valid);
+        }
+      }
+    }
+    if (wlane < WROWS) {
+      const int r = r0 + wlane;
+      const bool valid = r < rows;
+      cp_async4(vs + buf * TILE + r, v + (valid ? j0 + r : 0), valid);
+    }
+  };
+
+  if (t0 < t1) stage_tile(t0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's copies of the rows' tile have landed ...
+  __syncthreads();     // ... and everyone's
+  float sx[TQ];
+  double acc64[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const float* xr = Xs + (lane + LANES * i) * ld;
     float s = 0.f;
-    for (int c = 0; c < d; ++c) {
-      const float a = Xs[c * (MQ + 1) + tid];
-      s += a * a;
-    }
-    sqx[tid] = s;
+    for (int c = 0; c < d; ++c) s = fmaf(xr[c], xr[c], s);
+    sx[i] = s;
+    acc64[i] = 0.0;
   }
 
-  double accq[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int j0 = j_begin; j0 < j_end; j0 += MN) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = tid; e < MN * d; e += THREADS) {
-      const int r = e / d, c = e % d;
-      const int j = j0 + r;
-      Ss[c * (MN + 1) + r] = j < j_end ? x2[(int64_t)j * d + c] : 0.f;
-    }
-    if (tid < MN) vs[tid] = (j0 + tid < j_end) ? v[j0 + tid] : 0.f;
-    __syncthreads();
-    if (tid < MN) {
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) {
-        const float b = Ss[c * (MN + 1) + tid];
-        s += b * b;
+  // From here each warp walks the split's tiles on its own: it stages and
+  // reads only its own rows of each tile (and their v and norms), so it
+  // synchronises with __syncwarp alone.
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) stage_tile(t + 1, buf ^ 1);  // the warp freed that buffer last step
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int rows = min(TILE, n - t * TILE);
+    if (r0 < rows) {
+      const float* St = Ss + buf * TILE * ld;
+      if (wlane < WROWS) {  // the warp's rows: their norms, and v in fp64
+        const int r = r0 + wlane;
+        const float* sr = St + r * ld;
+        float s = 0.f;
+        for (int c = 0; c < d; ++c) s = fmaf(sr[c], sr[c], s);
+        ns[buf * TILE + r] = s;
+        vd[buf * TILE + r] = static_cast<double>(vs[buf * TILE + r]);
       }
-      sqs[tid] = s;
-    }
-    float acc[4][4];
+      __syncwarp();
+      float acc[TQ][TS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float av[4], bv[4];
+        for (int s = 0; s < TS; ++s) acc[i][s] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < dp; c += 4) {
+        float4 sv[TS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = Xs[c * (MQ + 1) + ty * 4 + i];
+        for (int s = 0; s < TS; ++s)
+          sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Ss[c * (MN + 1) + tx + 16 * j];
+        for (int i = 0; i < TQ; ++i) {
+          const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + LANES * i) * ld + c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int s = 0; s < TS; ++s) {
+            acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
+            acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
+            acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
+            acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
+          }
+        }
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();  // support norms are ready
+      for (int s = 0; s < TS; ++s) {
+        const float nj = ns[buf * TILE + TS * grp + s];
+        const double vj = vd[buf * TILE + TS * grp + s];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jj = tx + 16 * j;
-        const float d2 = fmaxf(sqx[ty * 4 + i] + sqs[jj] - 2.f * acc[i][j], 0.f);
-        accq[i] = fma(static_cast<double>(vs[jj]),
-                      static_cast<double>(expf(-gamma * d2)), accq[i]);
+        for (int i = 0; i < TQ; ++i) {
+          const float d2 = fmaxf(sx[i] + nj - 2.f * acc[i][s], 0.f);
+          acc64[i] = fma(vj, static_cast<double>(expf(-gamma * d2)), acc64[i]);
+        }
       }
     }
+    __syncwarp();  // the warp is done with this buffer before it is refilled
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) red[(ty * 4 + i) * 17 + tx] = accq[i];
+  // the 16 support groups of each row, added in group order
   __syncthreads();
-  if (tid < MQ) {
+  double* red = reinterpret_cast<double*>(Ss);
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) red[(lane + LANES * i) * RED_LD + grp] = acc64[i];
+  __syncthreads();
+  if (tid < BQ && q0 + tid < m) {
     double s = 0.0;
-    for (int j = 0; j < 16; ++j) s += red[tid * 17 + j];
-    if (r0 + tid < m) partial[(int64_t)blockIdx.y * m + r0 + tid] = s;
+    for (int g = 0; g < GROUPS; ++g) s += red[tid * RED_LD + g];
+    partial[(int64_t)blockIdx.x * m + q0 + tid] = s;
   }
 }
 
-__global__ void sum_splits(const double* __restrict__ partial, float* __restrict__ out,
-                           int m, int splits) {
+__global__ void sum_splits(const double* __restrict__ partial, float* __restrict__ out, int m,
+                           int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   double s = 0.0;
@@ -143,30 +271,37 @@ __global__ void sum_splits(const double* __restrict__ partial, float* __restrict
   out[i] = static_cast<float>(s);
 }
 
-}  // namespace
-
-extern "C" int gram_matvec_smem_bytes(int d) {
-  return static_cast<int>(sizeof(float)) * (d * (MQ + 1) + d * (MN + 1) + MN + MN + MQ) +
-         static_cast<int>(sizeof(double)) * MQ * 17;
-}
-
-// ``chunk`` (a multiple of 64) supports per split, ``splits`` = ceil(n / chunk);
-// ``partial`` holds splits * m doubles.
-extern "C" int gram_matvec_launch(const float* x1, const float* x2, const float* v,
-                                  float gamma, double* partial, float* out, int m,
-                                  int n, int d, int chunk, int splits, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = gram_matvec_smem_bytes(d);
+template <int D>
+int launch(const float* x1, const float* x2, const float* v, float gamma, double* partial,
+           float* out, int m, int n, int d, int per_split, int splits, cudaStream_t stream) {
+  const int smem = smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gram_matvec_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        gram_matvec_partial<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((m + MQ - 1) / MQ, splits);
-  gram_matvec_partial<<<grid, THREADS, smem, st>>>(x1, x2, v, gamma, partial, m, n, d,
-                                                   chunk);
-  cudaError_t err = cudaGetLastError();
+  gram_matvec_partial<D><<<dim3(splits, (m + BQ - 1) / BQ), THREADS, smem, stream>>>(
+      x1, x2, v, gamma, partial, m, n, d, per_split);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits<<<(m + 255) / 256, 256, 0, st>>>(partial, out, m, splits);
+  sum_splits<<<(m + 255) / 256, 256, 0, stream>>>(partial, out, m, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int gram_matvec_smem_bytes(int d) { return smem_bytes(d); }
+
+// ``per_split`` 64-support tiles per split, ``splits`` = ceil(tiles / per_split),
+// both from kernels/gram_matvec.py::split_plan; ``partial`` holds splits * m
+// doubles
+extern "C" int gram_matvec_launch(const float* x1, const float* x2, const float* v,
+                                  float gamma, double* partial, float* out, int m, int n,
+                                  int d, int per_split, int splits, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte copies need 16-byte aligned rows: d = 32 and aligned bases
+  const bool fast = d == FAST_D && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x2) % 16 == 0;
+  return fast ? launch<FAST_D>(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st)
+              : launch<0>(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st);
 }

@@ -4,18 +4,18 @@ distillation CG solver.
 Replaces ``repro/kernels/gram_matvec.py::gram_matvec_pallas``. The TPU
 kernel carries a (bm, 1) sum across a sequential support-tile grid in
 VMEM; CUDA blocks run in parallel, so ``csrc/gram_matvec.cu`` gives each
-block 32 rows and one contiguous split of the supports, keeps the row
-sums in registers, writes one partial sum per (split, row), and a second
-launch adds the splits in order. No atomics; the (m, n) Gram never
-exists on either path (the plain version goes in row chunks). Both
-paths sum over supports in fp64: an fp32 sum of 4096 terms drifts by
-~1e-5 with the order of its terms alone, more than the registry's 1e-5
-between the two at the CG's l = 4096.
+block 128 rows and one contiguous split of the supports (``split_plan``),
+keeps the row sums in registers over the split's 64-support tiles,
+writes one partial sum per (split, row), and a second launch adds the
+splits in order. No atomics; the (m, n) Gram never exists on either
+path (the plain version goes in row chunks). Both paths sum over
+supports in fp64: an fp32 sum of 4096 terms drifts by ~1e-5 with the
+order of its terms alone, more than the registry's 1e-5 between the two
+at the CG's l = 4096.
 
 Bound on the H100: fp32 operations. At the CG's l = 4096, d = 32 one
 call is 4096^2 x (2d + 8) ~ 1.2e9 operations against 1 MB of inputs.
-The split count is chosen so that the first launch has at least
-``TARGET_BLOCKS`` blocks, enough to fill 132 SMs several times over.
+``split_plan`` fills the card's two resident blocks an SM in one wave.
 """
 from __future__ import annotations
 
@@ -26,8 +26,8 @@ from repro_torch.kernels.rbf_gram import rbf_gram_plain
 
 LAUNCHES = native.LaunchCounter("gram_matvec")
 
-ROWS, TILE = 32, 64           # rows per block, supports per staged tile
-TARGET_BLOCKS = 4 * 132       # first-pass blocks to aim for on an H100
+ROWS, TILE = 128, 64          # rows per block, supports per staged tile
+TARGET_BLOCKS = 2 * 132       # two resident blocks on each SM of an H100: one wave
 _PLAIN_ROW_CHUNK = 1024       # the reference oracle's row chunk
 
 
@@ -44,15 +44,16 @@ def gram_matvec_plain(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs) if outs else x1.new_zeros((0,))
 
 
-def support_splits(m: int, n: int) -> tuple:
-    """(chunk, splits): supports per split (a multiple of TILE) and the
-    number of splits, so that ceil(m / ROWS) x splits >= TARGET_BLOCKS
-    where n allows it."""
-    tiles = -(-n // TILE)
-    row_blocks = -(-m // ROWS)
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // row_blocks)))
-    chunk = -(-tiles // want) * TILE
-    return chunk, -(-n // chunk)
+def split_plan(m: int, n: int) -> tuple:
+    """(per_split, splits): 64-support tiles per split and the number of
+    splits. As many splits as keep ceil(m / ROWS) x splits within
+    TARGET_BLOCKS, one wave; split s takes tiles s * per_split ..
+    (s + 1) * per_split - 1, and no split is empty."""
+    tiles = max(1, -(-n // TILE))
+    row_blocks = max(1, -(-m // ROWS))
+    want = max(1, min(tiles, TARGET_BLOCKS // row_blocks))
+    per_split = -(-tiles // want)
+    return per_split, -(-tiles // per_split)
 
 
 def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
@@ -75,9 +76,9 @@ def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
     if lib.gram_matvec_smem_bytes(d) > native.MAX_SMEM_BYTES:
         raise ValueError(f"gram_matvec: feature dim {d} needs more shared memory "
                          "than a block may take")
-    chunk, splits = support_splits(m, n)
+    per_split, splits = split_plan(m, n)
     partial = torch.empty((splits, m), dtype=torch.float64, device=x1.device)
     native.launch(LAUNCHES, x1.device, lib.gram_matvec_launch,
                   x1.data_ptr(), x2.data_ptr(), v.data_ptr(), float(gamma),
-                  partial.data_ptr(), out.data_ptr(), m, n, d, chunk, splits)
+                  partial.data_ptr(), out.data_ptr(), m, n, d, per_split, splits)
     return out

@@ -65,7 +65,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sdca_smem_bytes": [_I],
     },
     "gram_matvec": {
-        # x1, x2, v, gamma, partial, out, m, n, d, chunk, splits, stream
+        # x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, stream
         "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
         "gram_matvec_smem_bytes": [_I],
     },

@@ -10,7 +10,7 @@ the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
 positional numpy argument tuple the reference's dispatcher of the same
 name also accepts, SDCA aside), ``make_ragged(rng)`` (the same on shapes
 off every tile multiple of the CUDA kernels: 64-row tiles, 32-wide
-feature chunks, 32-row blocks, 128-query blocks over 64-support tiles,
+feature chunks, 128-row blocks and 128-query blocks over 64-support tiles,
 64- and 128-row query tiles over 64-key tiles) and the
 tolerance the parity tests and ``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
 (or, for SDCA, the XLA loop) each entry ports.
@@ -201,6 +201,30 @@ def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
     yp = np.ones((1, b), np.float32)
     yp[0, :n] = y
     return K, yp, np.asarray([n], np.int32), lam, epochs
+
+
+def make_cg_matvec_problem(seed: int = 0, scale: float = 0.15, l: int = 4096) -> tuple:
+    """The distillation CG's matvec input on ``make_dataset("emnist", seed,
+    scale)``: every device's validation split pooled, ``l`` rows drawn by
+    the ``validation`` proxy source with ``default_rng(seed)``, deduped
+    as ``distill_teacher`` dedupes them, gamma = ``default_gamma`` of the
+    rows (about 1 / |x|^2), and v seeded normal from the same generator.
+    Returns ``(xp, xp, v, gamma)``, the matvec's arguments."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.svm import default_gamma
+    from repro_torch.data import make_dataset
+    from repro_torch.data.partition import derive_device_seed, split_train_test_val
+    from repro_torch.distill.proxy import make_proxy
+    from repro_torch.distill.solvers import dedupe_proxy
+
+    ds = make_dataset("emnist", seed=seed, scale=scale)
+    devices = [SimpleNamespace(splits=split_train_test_val(dev, derive_device_seed(seed, i)))
+               for i, dev in enumerate(ds.devices)]
+    rng = np.random.default_rng(seed)
+    xp = dedupe_proxy(make_proxy("validation", n=l, rng=rng, devices=devices))
+    v = rng.normal(size=len(xp)).astype(np.float32)
+    return xp, xp, v, default_gamma(xp)
 
 
 def _mk_sdca(rng):

@@ -119,6 +119,32 @@ def test_sdca_member_does_not_depend_on_its_group(cuda_device):
     assert torch.equal(alone[0], group[17])
 
 
+def _cg_matvec(case, device):
+    """The CG's l = 4096 matvec inputs: random normals at gamma 1 / (d var),
+    or the round's own validation-pool proxy rows at default_gamma."""
+    if case == "cg emnist l4096 d32":
+        return _on(ops.make_cg_matvec_problem(seed=0), device)
+    rng = _rng("cg-normals")
+    xp = rng.normal(size=(4096, 32)).astype(np.float32)
+    v = rng.normal(size=4096).astype(np.float32)
+    return _on((xp, xp, v, float(1.0 / (32 * xp.var()))), device)
+
+
+CG_CASES = ["cg l4096 d32", "cg emnist l4096 d32"]
+
+
+@pytest.mark.parametrize("case", CG_CASES, ids=[c.replace(" ", "-") for c in CG_CASES])
+def test_gram_matvec_cg_inputs(cuda_device, case):
+    """The clustered kernel within the registry's 1e-5 of the plain version
+    at the CG's shape, and bit for bit the same in two launches."""
+    spec = ops.KERNEL_REGISTRY["gram_matvec"]
+    args = _cg_matvec(case, cuda_device)
+    got = ops.gram_matvec(*args)
+    want = spec.plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+    assert torch.equal(got, ops.gram_matvec(*args))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.randn(2, 8, 4, device=cuda_device)
     g = torch.ones(2, device=cuda_device)

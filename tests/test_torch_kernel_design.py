@@ -16,7 +16,14 @@ What can be held here is the plan and the arithmetic they follow:
   then by a butterfly across the lanes, one tile ahead of the steps; fp64
   in-tile updates. The emulation stays within the registry's 1e-5 of the plain version
   on the pooled-data ideal of the emnist federation, whose alphas are not all
-  0 or 1, and on the engine's group shapes.
+  0 or 1, and on the engine's group shapes;
+- the ``gram_matvec`` kernel (``csrc/gram_matvec.cu``): its split plan
+  covers every support tile once, its tile constants mirror the source, and
+  its per-pair arithmetic and order of summation, emulated in plain PyTorch
+  (fp32 FMA chains over ascending features, expf, fp64 sums thread by
+  thread, then group by group, then split by split), stay within the registry's 1e-5
+  of the plain version on the CG's l = 4096 inputs: random normals and the
+  round's own validation-pool proxy rows.
 """
 import functools
 import importlib.util
@@ -31,6 +38,7 @@ import torch
 from repro.kernels import ref
 from repro.utils.seeds import derive_stream_seed
 from repro_torch.kernels import ensemble_score as ens
+from repro_torch.kernels import gram_matvec as gmv
 from repro_torch.kernels import ops
 from repro_torch.kernels import sdca as sdca_mod
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
@@ -315,3 +323,134 @@ def test_sdca_tiled_order_holds_the_tolerance_on_group_shapes(g, b, lo, hi):
     got, want = sdca_tiled_emulated(*args), _sdca_plain(args)
     assert int(((want > 0) & (want < 1)).sum()) > 0
     assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["sdca"].tol
+
+
+# ----------------------------------------------------------------------
+# the gram_matvec kernel's plan, constants and order
+# ----------------------------------------------------------------------
+
+def test_gram_matvec_constants_match_the_kernel():
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram_matvec.cu").read_text()
+    # 16 row lanes x 16 support groups of 8 x 4 register tiles
+    for line in (f"constexpr int BQ = {gmv.ROWS};", "constexpr int TQ = 8;",
+                 "constexpr int TS = 4;", "constexpr int GROUPS = 16;", "constexpr int TILE = GROUPS * TS;",
+                 "constexpr int BLOCKS_PER_SM = 2;"):
+        assert line in src, line
+    assert gmv.TILE == 16 * 4
+    # one wave of two resident blocks an SM, as __launch_bounds__ promises
+    assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src and gmv.TARGET_BLOCKS == 2 * 132
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (48, 40), (77, 131), (4096, 4096), (130, 4097),
+                                 (5000, 64), (100, 10_000), (33_000, 200), (4096, 575)])
+def test_gram_matvec_split_plan_covers_every_support_once(m, n):
+    per_split, splits = gmv.split_plan(m, n)
+    assert splits >= 1 and per_split >= 1
+    tiles = -(-n // gmv.TILE)
+    # split s takes tiles s * per_split .. min((s + 1) * per_split, tiles) - 1
+    owned = [list(range(s * per_split, min((s + 1) * per_split, tiles))) for s in range(splits)]
+    assert all(owned)                                   # no empty split
+    assert [t for ts in owned for t in ts] == list(range(tiles))
+    supports = [j for ts in owned for t in ts
+                for j in range(t * gmv.TILE, min((t + 1) * gmv.TILE, n))]
+    assert supports == list(range(n))
+    # within one wave where the supports allow more than one split, and one
+    # tile fewer a split would take more splits than that
+    row_blocks = -(-m // gmv.ROWS)
+    want = max(1, gmv.TARGET_BLOCKS // row_blocks)
+    assert splits <= want
+    assert per_split == 1 or -(-tiles // (per_split - 1)) > want
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf: the fp32 product is exact in fp64, the add rounded to fp32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512):
+    """``csrc/gram_matvec.cu`` in plain PyTorch. Per pair: the cross product
+    an fmaf chain over ascending features from 0, each norm likewise,
+    d2 = max((sqx + sqs) - 2 cross, 0) in fp32, K = exp(-gamma d2) rounded
+    to fp32, then v K exactly in fp64. Sums: the thread of group g adds
+    supports 4 g .. 4 g + 3 of each 64-support tile in turn, tile after tile
+    of its split; a block adds its 16 groups in order; the second pass adds
+    the splits in order."""
+    x1, x2, v = (torch.as_tensor(a) for a in (x1, x2, v))
+    m, d = x1.shape
+    n = x2.shape[0]
+    per_split, splits = gmv.split_plan(m, n)
+    groups, ts = 16, gmv.TILE // 16
+    width = splits * per_split * gmv.TILE
+    s = torch.zeros((width, d), dtype=torch.float32)
+    s[:n] = x2
+    vp = torch.zeros(width, dtype=torch.float64)
+    vp[:n] = v.double()
+
+    def norms(a):
+        sq = torch.zeros(a.shape[0], dtype=torch.float32)
+        for c in range(d):
+            sq = _fma32(a[:, c], a[:, c], sq)
+        return sq
+
+    sqs = norms(s)
+    neg_gamma = torch.tensor(-np.float32(gamma))
+    out = torch.empty(m, dtype=torch.float32)
+    for lo in range(0, m, row_chunk):
+        xr = x1[lo:lo + row_chunk]
+        cross = torch.zeros((xr.shape[0], width), dtype=torch.float32)
+        for c in range(d):
+            cross = _fma32(xr[:, c, None], s[None, :, c], cross)
+        d2 = torch.clamp((norms(xr)[:, None] + sqs[None, :]) - 2.0 * cross, min=0.0)
+        K = torch.exp((neg_gamma * d2).double()).float()
+        # support (split p, tile t, group g, k) at ((p * per_split + t) * 16 + g) * 4 + k
+        prod = (vp[None, :] * K.double()).view(-1, splits, per_split, groups, ts)
+        acc = torch.zeros(prod.shape[:2] + (groups,), dtype=torch.float64)
+        for t in range(per_split):
+            for k in range(ts):
+                acc = acc + prod[:, :, t, :, k]
+        block = torch.zeros(prod.shape[:2], dtype=torch.float64)
+        for g in range(groups):
+            block = block + acc[:, :, g]
+        total = torch.zeros(prod.shape[0], dtype=torch.float64)
+        for p in range(splits):
+            total = total + block[:, p]
+        out[lo:lo + row_chunk] = total.float()
+    return out
+
+
+def _cg_normals(l=4096, d=32):
+    """Random normals drawn as chip_smoke.py's "cg l4096 d32" case draws them."""
+    rng = _rng("cg-normals")
+    xp = rng.normal(size=(l, d)).astype(np.float32)
+    v = rng.normal(size=l).astype(np.float32)
+    return xp, xp, v, float(1.0 / (d * xp.var()))
+
+
+@functools.lru_cache(maxsize=None)
+def _cg_case(label):
+    spec = ops.KERNEL_REGISTRY["gram_matvec"]
+    if label == "cg l4096 d32":
+        return _cg_normals()
+    if label == "cg emnist l4096 d32":
+        return ops.make_cg_matvec_problem(seed=0)
+    return (spec.make_inputs if label == "registry" else spec.make_ragged)(_rng("gmv-" + label))
+
+
+GMV_CASES = ["registry", "ragged", "cg l4096 d32", "cg emnist l4096 d32"]
+
+
+def test_cg_emnist_problem_is_the_rounds_proxy():
+    """4,096 distinct validation-pool rows at default_gamma: gamma |x|^2 ~ 1."""
+    x1, x2, v, gamma = _cg_case("cg emnist l4096 d32")
+    assert x1 is x2 and x1.shape == (4096, 32) and v.shape == (4096,)
+    assert len(np.unique(x1, axis=0)) == 4096
+    assert 0.5 < gamma * float((x1.astype(np.float64) ** 2).sum(1).mean()) < 2.0
+
+
+@pytest.mark.parametrize("label", GMV_CASES, ids=[c.replace(" ", "-") for c in GMV_CASES])
+def test_gram_matvec_order_holds_the_tolerance(label):
+    x1, x2, v, gamma = _cg_case(label)
+    got = gram_matvec_emulated(x1, x2, v, gamma)
+    want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (x1, x2, v)), gamma)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["gram_matvec"].tol
