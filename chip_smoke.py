@@ -12,8 +12,8 @@ It imports the port and nothing of JAX or of the reference package
            for sm_90a, one ``nvcc`` per source, all started together; count
            the tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
            instructions in the compiled code (``cuobjdump -sass``): the
-           bf16 flash kernel must have all three, the scorers and
-           ``gram_matvec`` LDGSTS;
+           bf16 flash kernel and ``rbf_gram_q8``'s ``gram_q8`` must have
+           all three, the scorers and ``gram_matvec`` LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
@@ -25,11 +25,14 @@ It imports the port and nothing of JAX or of the reference package
            on the pooled emnist ideal, whose alphas are not all 0 or 1;
            ``gram_matvec`` at the CG's l 4,096 on random normals and on the
            round's own validation-pool proxy rows
-           (``ops.make_cg_matvec_problem``). Then determinism, bit for bit:
+           (``ops.make_cg_matvec_problem``); ``rbf_gram_q8`` on normal data
+           and on the round's own int8 student
+           (``ops.make_q8_student_problem``). Then determinism, bit for bit:
            two launches of bf16 flash (serve shape), of both scorers (full
-           shape), of SDCA (emnist ideal, g256 b64) and of ``gram_matvec``
-           (both l 4,096 cases) equal, each scorer's first 1,000 rows of
-           an 8,192-row call equal to a 1,000-row call (the split plan never
+           shape), of SDCA (emnist ideal, g256 b64), of ``gram_matvec``
+           (both l 4,096 cases) and of ``rbf_gram_q8`` (the student) equal,
+           the first 1,000 rows of an 8,192-row call of each scorer and of
+           ``rbf_gram_q8`` equal to a 1,000-row call (the split plan never
            depends on b), and one SDCA group member solved alone equal to
            its alpha in the group;
   parity   ``run_protocol`` on the full gleam federation three ways
@@ -63,7 +66,8 @@ It imports the port and nothing of JAX or of the reference package
            and tokens/s of it (cold) and of a second serve (warm); then
            the same serve once more under the profiler;
   timing   each kernel and its plain version, in turns (plain, kernel,
-           kernel, plain) with CUDA events, at main-path shapes, beside the
+           kernel, plain) with CUDA events, at main-path shapes, beside a
+           ``fill_`` of the output (the card's own write rate) and the
            analytic bound: the larger of operations over the card's peak
            for the inputs' type (67 TFLOP/s fp32 outside the tensor cores,
            989 TFLOP/s bf16 dense) and bytes (each input read once, each
@@ -243,6 +247,9 @@ def kernel_cases(rng, ops):
         ],
         "rbf_gram_q8": [
             ("student predict b8192 n4096 d32", gram_q8(8192, 4096, 32)),
+            # the round's own int8 student: 4,096 proxy supports as the codec
+            # sends them, the first 8,192 pooled test rows, default_gamma
+            ("student emnist b8192 n4096 d32", ops.make_q8_student_problem(seed=0)),
         ],
         "ensemble_score_q8": [
             ("full b8192 k2821 n230", ens_q8(8192, 2821, 230, 32)),
@@ -384,7 +391,7 @@ def bound_of(name, args):
 # SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
 SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
-                 "gram_matvec": ("LDGSTS",)}
+                 "gram_matvec": ("LDGSTS",), "gram_q8": ("HMMA", "LDSM", "LDGSTS")}
 
 
 def sass_counts(native, name):
@@ -453,9 +460,10 @@ SDCA_MEMBER = 17   # the group member solved alone in the determinism check
 def determinism(ops, device, cases):
     """Bit-for-bit checks of the kernels in ``cases``: two launches of
     bf16 flash attention (serve shape), of both scorers (full shape), of
-    SDCA (the emnist ideal and group g256 b64) and of ``gram_matvec`` (both
-    l 4,096 CG cases) are equal; each scorer's first 1,000 rows of an
-    8,192-row call equal a 1,000-row call; member 17 of the g256 b64 SDCA
+    SDCA (the emnist ideal and group g256 b64), of ``gram_matvec`` (both
+    l 4,096 CG cases) and of ``rbf_gram_q8`` (the emnist student) are
+    equal; the first 1,000 rows of an 8,192-row call of each scorer and of
+    ``rbf_gram_q8`` equal a 1,000-row call; member 17 of the g256 b64 SDCA
     group solved alone (g = 1) equals its alpha in the group."""
     import torch
 
@@ -463,7 +471,9 @@ def determinism(ops, device, cases):
              "ensemble_score": ("full b8192 k2821 n230",),
              "ensemble_score_q8": ("full b8192 k2821 n230",),
              "sdca": ("ideal emnist g1 b2048 n2000", "group g256 b64"),
-             "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32")}
+             "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
+             "rbf_gram_q8": ("student emnist b8192 n4096 d32",)}
+    by_rows = ("ensemble_score", "ensemble_score_q8", "rbf_gram_q8")
     out = {}
     for name, labels in twice.items():
         if name not in cases:
@@ -473,7 +483,7 @@ def determinism(ops, device, cases):
             args = to_device(dict(cases[name])[label], device)
             first = kernel(*args)
             checks[f"two_launches_equal [{label}]"] = bool(torch.equal(first, kernel(*args)))
-            if name.startswith("ensemble_score"):   # x is the first argument
+            if name in by_rows:   # x is the first argument
                 head = kernel(args[0][:1000].contiguous(), *args[1:])
                 checks[f"rows_1000_of_8192_equal [{label}]"] = bool(
                     torch.equal(first[:1000], head))
@@ -603,7 +613,7 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, **kw):
     return out
 
 
-def profile_call(fn, top=12):
+def profile_call(fn, top=20):
     """``fn()`` under ``torch.profiler``: the device's busy seconds (the
     sum of every kernel and copy on the card; one stream, so they do not
     overlap) against the call's wall seconds, and the device time by
@@ -798,6 +808,19 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     return turns, reps
 
 
+def fill_ms(like, budget_ms=20.0):
+    """One ``fill_`` of a tensor shaped as the kernel's output: the card's
+    own rate of writing those bytes, a floor for a byte-bound kernel whose
+    output is its traffic. Warm, back-to-back, CUDA events."""
+    import torch
+
+    t = torch.empty_like(like)
+    t.fill_(0.5)
+    torch.cuda.synchronize()
+    once = _time_ms(lambda: t.fill_(0.5), 1)
+    return _time_ms(lambda: t.fill_(0.5), max(1, min(200, int(budget_ms / max(once, 1e-3)))))
+
+
 def sdpa_library(q, k, v, causal, window):
     """The yardstick for flash attention: one PyTorch call on the same
     tensors, in its (B, heads, S, hd) layout (transposed views)."""
@@ -819,7 +842,7 @@ TIMING_CASES = {
     "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
              "group g128 b256"),
     "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
-    "rbf_gram_q8": ("student predict b8192 n4096 d32",),
+    "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32"),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
                         "serve b4 s2048 h32 k8 hd64 causal float32"),
@@ -849,6 +872,7 @@ def phase_timing(ops, device, rng, names):
                 "library_ms": sum(turns["library"]) / 2 if library else None,
                 "turns": turns, "reps": reps, "bound_ms": bound_ms,
                 "bound_by": bound_by, "ops": ops_n, "bytes": bytes_n,
+                "fill_ms": fill_ms(spec.kernel(*targs)),
             }
             if library:   # how far the yardstick's own answer is from the plain version's
                 row["library_max_abs_err"] = float(
@@ -965,7 +989,7 @@ def main(argv=None) -> int:
         detail[phase] = out
         if phase == "timing":   # the turns and counts go to --out only
             keep = ("kernel", "case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "ns_per_step", "chain_ms")
+                    "fill_ms", "ns_per_step", "chain_ms")
             out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
         emit(out)
 

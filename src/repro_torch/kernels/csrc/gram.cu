@@ -1,14 +1,13 @@
 // RBF Gram tiles for Hopper (sm_90a): exp(-gamma * max(|a|^2 + |b|^2 - 2 a.b, 0)).
 //
-// Replaces three TPU kernels of the reference package:
+// Replaces two TPU kernels of the reference package:
 //   repro/kernels/batched_gram.py::batched_rbf_gram_pallas  (per-device gamma, (g,))
 //   repro/kernels/rbf_gram.py::rbf_gram_pallas              (one scalar gamma)
-//   repro/kernels/rbf_gram_q8.py::rbf_gram_q8_pallas        (int8 supports b)
-// All three run the same tile, a template over the loader of the b side
-// (supports.cuh): fp32 as stored, or per-column affine int8 dequantised as
-// it is staged, so an int8 payload never exists as fp32 in device memory.
-// The launchers differ in that loader and in where gamma comes from; each
-// has its own wrapper and launch counter in Python.
+// Both run the same tile, a template over the loader of the b side
+// (supports.cuh), here instantiated with fp32 supports as stored. The
+// launchers differ in where gamma comes from; each has its own wrapper and
+// launch counter in Python. The int8 Gram (rbf_gram_q8_pallas) has a
+// kernel of its own, gram_q8.cu.
 //
 // One block computes one 64 x 64 output tile of one device's Gram. The
 // feature dim streams through shared memory in 32-wide chunks, stored
@@ -21,8 +20,7 @@
 //
 // Padding contract, kept from the reference: a zero-padded row gives
 // exp(-gamma |x|^2) != 0. Nothing is masked here; callers mask. Rows past m
-// or n are staged as zeros and their outputs never written, so an int8 row,
-// which would dequantise to its zero point, is never padded in.
+// or n are staged as zeros and their outputs never written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -131,14 +129,5 @@ extern "C" int rbf_gram_launch(const float* x1, const float* x2, float gamma,
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, 1);
   rbf_gram_tiles<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x1, Fp32Supports{x2}, nullptr, gamma, out, m, n, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int rbf_gram_q8_launch(const float* x, const int8_t* q, const float* scale,
-                                  const float* zero, float gamma, float* out, int m,
-                                  int n, int d, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, 1);
-  rbf_gram_tiles<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, Int8Supports{q, scale, zero}, nullptr, gamma, out, m, n, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram", "ensemble_score", "sdca", "gram_matvec",
+SOURCES = ("gram", "gram_q8", "ensemble_score", "sdca", "gram_matvec",
            "flash_attention", "flash_attention_tc")  # csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,8 +46,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "batched_rbf_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x1, x2, gamma, out, m, n, d, stream
         "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _P],
-        # x, q, scale, zero, gamma, out, m, n, d, stream
-        "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _P],
+    },
+    "gram_q8": {
+        # x, q, scale, zero, gamma, out, m, n, d, per_split, splits, stream
+        "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
     },
     "ensemble_score": {
         # x, sup, coef, gammas, norms, partial, out, b, k, n_max, d, per_split,

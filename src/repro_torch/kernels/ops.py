@@ -203,6 +203,30 @@ def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
     return K, yp, np.asarray([n], np.int32), lam, epochs
 
 
+def _emnist_devices(seed: int, scale: float) -> list:
+    """Each device of ``make_dataset("emnist", seed, scale)`` with its
+    train / test / val splits, as ``run_protocol`` splits them."""
+    from types import SimpleNamespace
+
+    from repro_torch.data import make_dataset
+    from repro_torch.data.partition import derive_device_seed, split_train_test_val
+
+    ds = make_dataset("emnist", seed=seed, scale=scale)
+    return [SimpleNamespace(splits=split_train_test_val(dev, derive_device_seed(seed, i)))
+            for i, dev in enumerate(ds.devices)]
+
+
+def _cg_proxy(devices: list, seed: int, l: int):
+    """(deduped proxy rows, the generator that drew them): ``l`` rows of
+    the ``validation`` proxy source with ``default_rng(seed)``, deduped as
+    ``distill_teacher`` dedupes them."""
+    from repro_torch.distill.proxy import make_proxy
+    from repro_torch.distill.solvers import dedupe_proxy
+
+    rng = np.random.default_rng(seed)
+    return dedupe_proxy(make_proxy("validation", n=l, rng=rng, devices=devices)), rng
+
+
 def make_cg_matvec_problem(seed: int = 0, scale: float = 0.15, l: int = 4096) -> tuple:
     """The distillation CG's matvec input on ``make_dataset("emnist", seed,
     scale)``: every device's validation split pooled, ``l`` rows drawn by
@@ -210,21 +234,31 @@ def make_cg_matvec_problem(seed: int = 0, scale: float = 0.15, l: int = 4096) ->
     as ``distill_teacher`` dedupes them, gamma = ``default_gamma`` of the
     rows (about 1 / |x|^2), and v seeded normal from the same generator.
     Returns ``(xp, xp, v, gamma)``, the matvec's arguments."""
-    from types import SimpleNamespace
-
     from repro_torch.core.svm import default_gamma
-    from repro_torch.data import make_dataset
-    from repro_torch.data.partition import derive_device_seed, split_train_test_val
-    from repro_torch.distill.proxy import make_proxy
-    from repro_torch.distill.solvers import dedupe_proxy
 
-    ds = make_dataset("emnist", seed=seed, scale=scale)
-    devices = [SimpleNamespace(splits=split_train_test_val(dev, derive_device_seed(seed, i)))
-               for i, dev in enumerate(ds.devices)]
-    rng = np.random.default_rng(seed)
-    xp = dedupe_proxy(make_proxy("validation", n=l, rng=rng, devices=devices))
+    xp, rng = _cg_proxy(_emnist_devices(seed, scale), seed, l)
     v = rng.normal(size=len(xp)).astype(np.float32)
     return xp, xp, v, default_gamma(xp)
+
+
+def make_q8_student_problem(seed: int = 0, scale: float = 0.15, l: int = 4096,
+                            b: int = 8192) -> tuple:
+    """The int8 student's scoring input on the same federation as
+    ``make_cg_matvec_problem``: its supports are that problem's deduped
+    validation-pool proxy rows, quantised by the int8 codec
+    (``comm/wire.py::_quantize_columns``, as ``encode(student, "int8")``
+    does), gamma is their ``default_gamma``, and the queries are the first
+    ``b`` pooled test rows, the first chunk ``QuantizedSVM.predict`` gets
+    from the round's evaluation. Returns ``(x, q, scale, zero, gamma)``,
+    ``rbf_gram_q8``'s arguments."""
+    from repro_torch.comm.wire import _quantize_columns
+    from repro_torch.core.svm import default_gamma
+
+    devices = _emnist_devices(seed, scale)
+    xp, _ = _cg_proxy(devices, seed, l)
+    q, sc, ze = _quantize_columns(xp)
+    x = np.concatenate([dev.splits["test"].x for dev in devices])[:b]
+    return np.ascontiguousarray(x, np.float32), q, sc, ze, default_gamma(xp)
 
 
 def _mk_sdca(rng):
@@ -313,7 +347,7 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
         KernelSpec("rbf_gram_q8", _q8.rbf_gram_q8_cuda, _q8.rbf_gram_q8_plain,
                    rbf_gram_q8, _mk_rbf_gram_q8, _ragged_rbf_gram_q8, _q8.LAUNCHES,
                    replaces="src/repro/kernels/rbf_gram_q8.py:53",
-                   source="src/repro_torch/kernels/csrc/gram.cu"),
+                   source="src/repro_torch/kernels/csrc/gram_q8.cu"),
         KernelSpec("ensemble_score_q8", _ens_q8.ensemble_score_q8_cuda,
                    _ens_q8.ensemble_score_q8_plain, ensemble_score_q8,
                    _mk_ensemble_score_q8, _ragged_ensemble_score_q8, _ens_q8.LAUNCHES,

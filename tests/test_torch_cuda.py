@@ -160,10 +160,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert ops.rbf_gram_q8(xq, q, sc, ze, 0.5).shape == (8, 5)
     with pytest.raises(TypeError, match="int8"):
         ops.rbf_gram_q8(xq, q.float(), sc, ze, 0.5)
+    wide = torch.zeros(5, 129, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="d <= 128"):
+        ops.rbf_gram_q8(torch.randn(8, 129, device=cuda_device), wide,
+                        torch.ones(129, device=cuda_device), torch.zeros(129, device=cuda_device),
+                        0.5)
     K = torch.zeros(1, 30, 30, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 4"):
         ops.sdca(K, torch.ones(1, 30, device=cuda_device),
                  torch.tensor([30], dtype=torch.int32, device=cuda_device), 0.01)
+
+
+def test_rbf_gram_q8_student(cuda_device):
+    """The round's own int8 student (``ops.make_q8_student_problem``: 8,192
+    pooled test rows against 4,096 proxy supports as the codec sends them)
+    within the registry's 1e-5 of the plain version; two launches equal bit
+    for bit, and the first 1,000 rows of the 8,192-row call equal to a
+    1,000-row call (``QuantizedSVM.predict``'s last chunk is shorter)."""
+    spec = ops.KERNEL_REGISTRY["rbf_gram_q8"]
+    x, q, scale, zero, gamma = _on(ops.make_q8_student_problem(seed=0), cuda_device)
+    got = ops.rbf_gram_q8(x, q, scale, zero, gamma)
+    want = spec.plain(x, q, scale, zero, gamma)
+    assert got.shape == (8192, 4096)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+    assert torch.equal(got, ops.rbf_gram_q8(x, q, scale, zero, gamma))
+    head = ops.rbf_gram_q8(x[:1000].contiguous(), q, scale, zero, gamma)
+    assert torch.equal(got[:1000], head)
 
 
 def test_train_population_matches_cpu(cuda_device):

@@ -23,7 +23,17 @@ What can be held here is the plan and the arithmetic they follow:
   (fp32 FMA chains over ascending features, expf, fp64 sums thread by
   thread, then group by group, then split by split), stay within the registry's 1e-5
   of the plain version on the CG's l = 4096 inputs: random normals and the
-  round's own validation-pool proxy rows.
+  round's own validation-pool proxy rows;
+- the ``rbf_gram_q8`` kernel (``csrc/gram_q8.cu``): int8 values are exact
+  in bf16, three bf16 planes carry x * scale to fp32 accuracy, its split
+  plan covers every support tile once, its tile constants mirror the
+  source, and its arithmetic, emulated in plain PyTorch (the planes times q
+  as exact products summed into an fp32 accumulator one 16-feature mma at a
+  time, hi, mid, lo, then x . zero, the fp32 norms and the epilogue), stays
+  within the registry's 1e-5 of the plain version on the registry's two
+  cases, normal data and the round's own int8 student
+  (``ops.make_q8_student_problem``), with the accumulator rounded to
+  nearest or truncated toward zero.
 """
 import functools
 import importlib.util
@@ -40,6 +50,7 @@ from repro.utils.seeds import derive_stream_seed
 from repro_torch.kernels import ensemble_score as ens
 from repro_torch.kernels import gram_matvec as gmv
 from repro_torch.kernels import ops
+from repro_torch.kernels import rbf_gram_q8 as q8
 from repro_torch.kernels import sdca as sdca_mod
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 
@@ -454,3 +465,179 @@ def test_gram_matvec_order_holds_the_tolerance(label):
     want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (x1, x2, v)), gamma)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["gram_matvec"].tol
+
+
+# ----------------------------------------------------------------------
+# the rbf_gram_q8 kernel's planes, plan, constants and arithmetic
+# ----------------------------------------------------------------------
+
+Q8_KSTEP, Q8_PLANES = 16, 3   # features per mma, bf16 planes of x * scale
+
+
+def q8_planes(xs: torch.Tensor) -> tuple:
+    """x * scale as the kernel splits it: hi = bf16(xs), mid = bf16(xs -
+    hi), lo = bf16(xs - hi - mid), each difference exact in fp32."""
+    hi = xs.bfloat16().float()
+    r1 = xs - hi
+    mid = r1.bfloat16().float()
+    return hi, mid, (r1 - mid).bfloat16().float()
+
+
+def _round_fp32(v: torch.Tensor, rounding: str) -> torch.Tensor:
+    """fp64 -> fp32, to nearest or toward zero (the worst a tensor core's
+    fp32 adder does)."""
+    f = v.float()
+    if rounding == "truncate":
+        f = torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+    return f
+
+
+def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row_chunk=512):
+    """``csrc/gram_q8.cu`` in plain PyTorch. The feature dim is padded with
+    zeros to a multiple of 16. Per k step of 16 features, the hi, mid and
+    lo planes of x * scale each meet q in one mma: 16 exact products (a
+    bf16 times an int8 needs 16 bits) summed exactly, added to the fp32
+    accumulator and rounded. Then cross = acc + x . zero; |x|^2 and
+    x . zero are fmaf chains over ascending features, |s|^2 two fmaf chains
+    over the halves of the padded range, added; d2 = max((|x|^2 + |s|^2) -
+    2 cross, 0) in fp32 and exp(-gamma d2) (the kernel's ex2.approx is
+    within ~2^-22 of it)."""
+    x, q, scale, zero = (torch.as_tensor(a) for a in (x, q, scale, zero))
+    m, d = x.shape
+    n = q.shape[0]
+    kp = -(-d // Q8_KSTEP) * Q8_KSTEP
+    xs = torch.zeros((m, kp), dtype=torch.float32)
+    xs[:, :d] = x * scale
+    planes = [p.double() for p in q8_planes(xs)]
+    qd = torch.zeros((n, kp), dtype=torch.float64)
+    qd[:, :d] = q.double()
+
+    s = q8.dequantize(q, scale, zero)
+    halves = [torch.zeros(n, dtype=torch.float32) for _ in range(2)]
+    for c in range(d):
+        h = int(c >= kp // 2)
+        halves[h] = _fma32(s[:, c], s[:, c], halves[h])
+    sqs = halves[0] + halves[1]
+    sqx = torch.zeros(m, dtype=torch.float32)
+    xz = torch.zeros(m, dtype=torch.float32)
+    for c in range(d):
+        sqx = _fma32(x[:, c], x[:, c], sqx)
+        xz = _fma32(x[:, c], zero[c].expand(m), xz)
+
+    out = torch.empty((m, n), dtype=torch.float32)
+    for lo in range(0, m, row_chunk):
+        rows = slice(lo, lo + row_chunk)
+        acc = torch.zeros((len(xs[rows]), n), dtype=torch.float32)
+        for k in range(0, kp, Q8_KSTEP):
+            qk = qd[:, k:k + Q8_KSTEP].T
+            for plane in planes:
+                acc = _round_fp32(acc.double() + plane[rows, k:k + Q8_KSTEP] @ qk, rounding)
+        cross = acc + xz[rows, None]
+        d2 = torch.clamp((sqx[rows, None] + sqs[None, :]) - 2.0 * cross, min=0.0)
+        out[rows] = torch.exp(-float(gamma) * d2.double()).float()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _q8_student():
+    return ops.make_q8_student_problem(seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _q8_case(label):
+    from repro_torch.comm.wire import _quantize_columns
+
+    spec = ops.KERNEL_REGISTRY["rbf_gram_q8"]
+    if label == "normal":   # as chip_smoke.py's gram_q8 cases draw them, at 1,024 x 1,024
+        rng = _rng("q8-normal")
+        x = rng.normal(size=(1024, 32)).astype(np.float32)
+        q, scale, zero = _quantize_columns(rng.normal(size=(1024, 32)).astype(np.float32))
+        return x, q, scale, zero, 1.0 / 32
+    if label == "student 2048":
+        x, q, scale, zero, gamma = _q8_student()
+        return x[:2048], q, scale, zero, gamma
+    return (spec.make_inputs if label == "registry" else spec.make_ragged)(_rng("q8-" + label))
+
+
+Q8_CASES = ["registry", "ragged", "normal", "student 2048"]
+
+
+def test_q8_student_problem_is_the_rounds_input():
+    """The CG problem's 4,096 proxy rows as the int8 codec sends them, at
+    their default_gamma, against the first 8,192 pooled test rows."""
+    from repro_torch.comm.wire import decode, encode
+    from repro_torch.core.svm import SVMModel
+
+    x, q, scale, zero, gamma = _q8_student()
+    xp, _, _, cg_gamma = _cg_case("cg emnist l4096 d32")
+    assert x.shape == (8192, 32) and x.dtype == np.float32
+    assert q.shape == (4096, 32) and q.dtype == np.int8
+    assert scale.shape == zero.shape == (32,) and gamma == cg_gamma
+    student = SVMModel(support_x=xp, coef=np.ones(len(xp), np.float32), gamma=gamma,
+                       device="cpu")
+    sent = decode(encode(student, "int8"), device="cpu")
+    assert np.array_equal(sent.q, q) and sent.gamma == gamma
+    assert np.array_equal(sent.scale, scale) and np.array_equal(sent.zero, zero)
+    devices = ops._emnist_devices(0, 0.15)
+    pooled = np.concatenate([dev.splits["test"].x for dev in devices])
+    assert len(pooled) > 8192 and np.array_equal(x, pooled[:8192])
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("label", Q8_CASES, ids=[c.replace(" ", "-") for c in Q8_CASES])
+def test_rbf_gram_q8_split_holds_the_tolerance(label, rounding):
+    x, q, scale, zero, gamma = _q8_case(label)
+    got = rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding)
+    want = q8.rbf_gram_q8_plain(*(torch.from_numpy(a) for a in (x, q, scale, zero)), gamma)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["rbf_gram_q8"].tol
+
+
+def test_int8_values_are_exact_in_bf16():
+    v = torch.arange(-127, 128, dtype=torch.int8)
+    assert len(v) == 255
+    assert torch.equal(v.float().bfloat16().float(), v.float())
+    assert torch.equal(v.to(torch.bfloat16).to(torch.int8), v)
+
+
+def test_three_planes_carry_x_scale_to_fp32():
+    x, q, scale, zero, gamma = _q8_student()
+    rng = _rng("q8-planes")
+    wide = (rng.normal(size=4096) * 2.0 ** rng.integers(-60, 60, size=4096)).astype(np.float32)
+    for xs in (torch.from_numpy(x) * torch.from_numpy(scale), torch.from_numpy(wide)):
+        hi, mid, lo = q8_planes(xs)
+        err = ((hi.double() + mid.double() + lo.double()) - xs.double()).abs()
+        assert bool((err <= 2.0 ** -24 * xs.double().abs()).all())
+        # each difference the kernel takes is exact in fp32
+        assert torch.equal((xs - hi).double(), xs.double() - hi.double())
+
+
+def test_gram_q8_constants_match_the_kernel():
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram_q8.cu").read_text()
+    for line in (f"constexpr int BM = {q8.ROWS};", f"constexpr int BN = {q8.TILE};",
+                 "constexpr int THREADS = 256;", "constexpr int WM = 32;",
+                 "constexpr int WN = 32;", "constexpr int BLOCKS_PER_SM = 3;",
+                 f"constexpr int PLANES = {Q8_PLANES};",
+                 f"constexpr int KSTEP = {Q8_KSTEP};",
+                 f"constexpr int MAX_KSTEPS = {q8.MAX_D // Q8_KSTEP};"):
+        assert line in src, line
+    # hi, mid, lo into one accumulator, k step after k step
+    assert "for (int ks = 0; ks < KSTEPS; ++ks)" in src
+    assert src.index("for (int ks = 0; ks < KSTEPS; ++ks)") < src.index(
+        "for (int p = 0; p < PLANES; ++p)")
+    # one wave of three resident blocks an SM, as __launch_bounds__ promises
+    assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src and q8.TARGET_BLOCKS == 3 * 132
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (48, 40), (130, 67), (8192, 4096), (1000, 4096),
+                                 (8192, 4097), (100, 10_000), (40_000, 200)])
+def test_gram_q8_split_plan_covers_every_support_once(m, n):
+    per_split, splits = q8.split_plan(m, n)
+    tiles = -(-n // q8.TILE)
+    owned = [list(range(s * per_split, min((s + 1) * per_split, tiles))) for s in range(splits)]
+    assert all(owned) and [t for ts in owned for t in ts] == list(range(tiles))
+    stripes = -(-m // q8.ROWS)
+    want = max(1, q8.TARGET_BLOCKS // stripes)
+    assert splits <= want
+    assert per_split == 1 or -(-tiles // (per_split - 1)) > want
+
