@@ -12,8 +12,9 @@ It imports the port and nothing of JAX or of the reference package
            for sm_90a, one ``nvcc`` per source, all started together; count
            the tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
            instructions in the compiled code (``cuobjdump -sass``): the
-           bf16 flash kernel and ``rbf_gram_q8``'s ``gram_q8`` must have
-           all three, the scorers and ``gram_matvec`` LDGSTS;
+           bf16 flash kernel, ``rbf_gram_q8``'s ``gram_q8`` and the fp32
+           Grams' ``gram`` must have all three, the scorers and
+           ``gram_matvec`` LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
@@ -27,14 +28,21 @@ It imports the port and nothing of JAX or of the reference package
            round's own validation-pool proxy rows
            (``ops.make_cg_matvec_problem``); ``rbf_gram_q8`` on normal data
            and on the round's own int8 student
-           (``ops.make_q8_student_problem``). Then determinism, bit for bit:
+           (``ops.make_q8_student_problem``); ``batched_rbf_gram`` at the
+           round's fit and score shapes (fits pass x1 as x2) and on the
+           round's own first fit group (``ops.make_fit_group_problem``:
+           zero-padded rows, per-device gammas). Then determinism, bit for bit:
            two launches of bf16 flash (serve shape), of both scorers (full
            shape), of SDCA (emnist ideal, g256 b64), of ``gram_matvec``
-           (both l 4,096 cases) and of ``rbf_gram_q8`` (the student) equal,
+           (both l 4,096 cases), of ``rbf_gram_q8`` (the student), of
+           ``batched_rbf_gram`` (the emnist fit group) and of ``rbf_gram``
+           (the ideal) equal,
            the first 1,000 rows of an 8,192-row call of each scorer and of
            ``rbf_gram_q8`` equal to a 1,000-row call (the split plan never
-           depends on b), and one SDCA group member solved alone equal to
-           its alpha in the group;
+           depends on b), one SDCA group member solved alone equal to its
+           alpha in the group, device 17 of the fit group alone equal to
+           its Gram in the group, and ``rbf_gram`` equal to
+           ``batched_rbf_gram`` of the same rows with g = 1;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -46,7 +54,9 @@ It imports the port and nothing of JAX or of the reference package
            ``round.*`` span, the AUCs, and each kernel's launches in that
            run, all four of the fp32 round's kernels > 0; then the same
            round once more under ``torch.profiler`` for the device's busy
-           share;
+           share and the device time of ``batched_rbf_gram`` (its 39
+           launches) and ``rbf_gram`` beside the bound of the round's own
+           launch shapes (``ops.round_gram_launches``);
   main_q8  the same federation with the int8 codec and CG distillation on
            4,096 validation-pool proxy rows: spans (``distill.round``
            included), AUCs (the distilled student's included), the
@@ -66,7 +76,11 @@ It imports the port and nothing of JAX or of the reference package
            and tokens/s of it (cold) and of a second serve (warm); then
            the same serve once more under the profiler;
   timing   each kernel and its plain version, in turns (plain, kernel,
-           kernel, plain) with CUDA events, at main-path shapes, beside a
+           kernel, plain) with CUDA events (``ms``; for a kernel of a few
+           microseconds mostly the wrapper's host time), and the kernel's
+           own device time a call from ``torch.profiler`` over a run of
+           back-to-back calls (``device_ms``), at main-path shapes
+           (``batched_rbf_gram`` at six of the round's 15), beside a
            ``fill_`` of the output (the card's own write rate) and the
            analytic bound: the larger of operations over the card's peak
            for the inputs' type (67 TFLOP/s fp32 outside the tensor cores,
@@ -149,11 +163,30 @@ def nvidia_smi() -> str:
 # inputs at the main path's shapes
 # ----------------------------------------------------------------------
 
-def _gram_inputs(rng, g, m, n, d):
+def _gram_inputs(rng, g, m, n, d, fit=False):
+    """Normal rows and gammas 1 / (d u), u in [0.5, 2]; a fit passes x1 as
+    x2 (the same array), as the engine's fit does."""
     x1 = rng.normal(size=(g, m, d)).astype("float32")
-    x2 = rng.normal(size=(g, n, d)).astype("float32")
+    x2 = x1 if fit else rng.normal(size=(g, n, d)).astype("float32")
     gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=g))).astype("float32")
     return x1, x2, gam
+
+
+class Lazy:
+    """A case's arguments built at first use (the cases made from a whole
+    federation take seconds, and a run that never reads them skips them)."""
+
+    def __init__(self, make):
+        self.make, self.args = make, None
+
+    def __call__(self):
+        if self.args is None:
+            self.args = self.make()
+        return self.args
+
+
+def case_args(args):
+    return args() if isinstance(args, Lazy) else args
 
 
 def kernel_cases(rng, ops):
@@ -165,7 +198,8 @@ def kernel_cases(rng, ops):
     its int8 + distillation leg (CG on 4,096 proxy rows; the 4,096-support
     int8 student scored in 8192-row chunks). int8 supports are quantised
     from normal data by the port's own codec, so scale and zero are what
-    the wire gives."""
+    the wire gives. The cases made from a federation are ``Lazy``
+    (``case_args`` builds them)."""
     import numpy as np
     import torch
 
@@ -215,10 +249,15 @@ def kernel_cases(rng, ops):
 
     cases = {
         "batched_rbf_gram": [
-            ("fit g256 b64", _gram_inputs(rng, 256, 64, 64, 32)),
-            ("fit g128 b256", _gram_inputs(rng, 128, 256, 256, 32)),
+            ("fit g256 b64", _gram_inputs(rng, 256, 64, 64, 32, fit=True)),
+            ("fit g256 b128", _gram_inputs(rng, 256, 128, 128, 32, fit=True)),
+            ("fit g128 b256", _gram_inputs(rng, 128, 256, 256, 32, fit=True)),
+            ("score g256 q16 b64", _gram_inputs(rng, 256, 16, 64, 32)),
             ("score g256 q56 b64", _gram_inputs(rng, 256, 56, 64, 32)),
             ("score g128 q184 b256", _gram_inputs(rng, 128, 184, 256, 32)),
+            # the round's own first fit: 256 emnist devices' train rows
+            # zero-padded to 64, each at its default_gamma
+            ("fit emnist g256 b64", Lazy(lambda: ops.make_fit_group_problem(seed=0))),
         ],
         "rbf_gram": [
             ("ideal 2000x2000x32", gram1(2000, 2000, 32)),
@@ -237,19 +276,20 @@ def kernel_cases(rng, ops):
             # order of summation agrees here; kept for timing only
             ("ideal g1 b2048 n2000", sdca(1, 2048, 2000, 2000)),
             # the round's own ideal: 64 of its 2,000 alphas end inside (0, 1)
-            ("ideal emnist g1 b2048 n2000", ops.make_ideal_sdca_problem(seed=0)),
+            ("ideal emnist g1 b2048 n2000", Lazy(lambda: ops.make_ideal_sdca_problem(seed=0))),
         ],
         "gram_matvec": [
             ("cg l4096 d32", matvec(4096, 32)),
             # the round's own CG input: 4,096 pooled validation rows at
             # default_gamma (gamma |x|^2 ~ 1)
-            ("cg emnist l4096 d32", ops.make_cg_matvec_problem(seed=0)),
+            ("cg emnist l4096 d32", Lazy(lambda: ops.make_cg_matvec_problem(seed=0))),
         ],
         "rbf_gram_q8": [
             ("student predict b8192 n4096 d32", gram_q8(8192, 4096, 32)),
             # the round's own int8 student: 4,096 proxy supports as the codec
             # sends them, the first 8,192 pooled test rows, default_gamma
-            ("student emnist b8192 n4096 d32", ops.make_q8_student_problem(seed=0)),
+            ("student emnist b8192 n4096 d32",
+             Lazy(lambda: ops.make_q8_student_problem(seed=0))),
         ],
         "ensemble_score_q8": [
             ("full b8192 k2821 n230", ens_q8(8192, 2821, 230, 32)),
@@ -271,12 +311,22 @@ def kernel_cases(rng, ops):
 
 
 def to_device(args, device):
+    """The arguments on ``device``; an array passed twice (a fit's x1 and
+    x2) becomes one tensor passed twice."""
     import numpy as np
     import torch
 
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 if isinstance(a, np.ndarray)
-                 else a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+    moved = {}
+
+    def move(a):
+        if not isinstance(a, (np.ndarray, torch.Tensor)):
+            return a
+        if id(a) not in moved:
+            moved[id(a)] = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                            if isinstance(a, np.ndarray) else a.to(device))
+        return moved[id(a)]
+
+    return tuple(move(a) for a in case_args(args))
 
 
 def agreement(spec, got, want):
@@ -321,11 +371,7 @@ def work_of(name, args):
         x1, x2 = args[0], args[1]
         g = x1.shape[0] if x1.ndim == 3 else 1
         m, d = x1.shape[-2:]
-        n = x2.shape[-2]
-        # norms 2d per row; per pair: 2d cross, 3 combine, clamp, scale, exp
-        ops = g * (m * n * (2 * d + 6) + 2 * d * (m + n))
-        nbytes = 4 * (g * (m + n) * d + g * m * n + (g if x1.ndim == 3 else 0))
-        return ops, nbytes
+        return gram_work(g, m, x2.shape[-2], d, same=x2 is x1, gammas=x1.ndim == 3)
     if name == "ensemble_score":
         x, sup = args[0], args[1]
         b, d = x.shape
@@ -377,11 +423,26 @@ def work_of(name, args):
     raise KeyError(name)
 
 
-def bound_of(name, args):
-    ops, nbytes = work_of(name, args)
-    bf16 = str(getattr(args[0], "dtype", "")) == "torch.bfloat16"
+def gram_work(g, m, n, d, same=False, gammas=True):
+    """(operations, bytes) of g RBF Grams (m, n, d): norms 2d a row; per
+    pair 2d for the cross term, 3 to combine, clamp, scale, exp. An operand
+    passed as both x1 and x2 (a fit) is read once; per-device gammas add g
+    floats."""
+    ops = g * (m * n * (2 * d + 6) + 2 * d * (m + (0 if same else n)))
+    nbytes = 4 * (g * (m + (0 if same else n)) * d + g * m * n + (g if gammas else 0))
+    return ops, nbytes
+
+
+def bound_ms(ops, nbytes, bf16=False):
+    """(ms, "operations" or "bytes"): the larger of ops over the peak for
+    the type and bytes over the memory rate."""
     t_ops, t_bytes = ops / (PEAK_BF16_OPS if bf16 else PEAK_FP32_OPS), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_of(name, args):
+    ops, nbytes = work_of(name, args)
+    return bound_ms(ops, nbytes, bf16=str(getattr(args[0], "dtype", "")) == "torch.bfloat16")
 
 
 # ----------------------------------------------------------------------
@@ -391,7 +452,8 @@ def bound_of(name, args):
 # SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
 SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
-                 "gram_matvec": ("LDGSTS",), "gram_q8": ("HMMA", "LDSM", "LDGSTS")}
+                 "gram_matvec": ("LDGSTS",), "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
+                 "gram": ("HMMA", "LDSM", "LDGSTS")}
 
 
 def sass_counts(native, name):
@@ -455,16 +517,21 @@ def phase_kernels(ops, device, rng, names):
 
 
 SDCA_MEMBER = 17   # the group member solved alone in the determinism check
+GRAM_MEMBER = 17   # the fit group's device whose Gram is taken alone
 
 
 def determinism(ops, device, cases):
     """Bit-for-bit checks of the kernels in ``cases``: two launches of
     bf16 flash attention (serve shape), of both scorers (full shape), of
     SDCA (the emnist ideal and group g256 b64), of ``gram_matvec`` (both
-    l 4,096 CG cases) and of ``rbf_gram_q8`` (the emnist student) are
-    equal; the first 1,000 rows of an 8,192-row call of each scorer and of
-    ``rbf_gram_q8`` equal a 1,000-row call; member 17 of the g256 b64 SDCA
-    group solved alone (g = 1) equals its alpha in the group."""
+    l 4,096 CG cases), of ``rbf_gram_q8`` (the emnist student), of
+    ``batched_rbf_gram`` (the emnist fit group) and of ``rbf_gram`` (the
+    ideal) are equal; the first 1,000 rows of an 8,192-row call of each
+    scorer and of ``rbf_gram_q8`` equal a 1,000-row call; member 17 of the
+    g256 b64 SDCA group solved alone (g = 1) equals its alpha in the group;
+    device 17 of the emnist fit group alone (g = 1) gives its Gram in the
+    group; ``rbf_gram`` of the ideal equals ``batched_rbf_gram`` of the same
+    rows with g = 1 and the same gamma."""
     import torch
 
     twice = {"flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",),
@@ -472,7 +539,9 @@ def determinism(ops, device, cases):
              "ensemble_score_q8": ("full b8192 k2821 n230",),
              "sdca": ("ideal emnist g1 b2048 n2000", "group g256 b64"),
              "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
-             "rbf_gram_q8": ("student emnist b8192 n4096 d32",)}
+             "rbf_gram_q8": ("student emnist b8192 n4096 d32",),
+             "batched_rbf_gram": ("fit emnist g256 b64",),
+             "rbf_gram": ("ideal 2000x2000x32",)}
     by_rows = ("ensemble_score", "ensemble_score_q8", "rbf_gram_q8")
     out = {}
     for name, labels in twice.items():
@@ -492,6 +561,18 @@ def determinism(ops, device, cases):
                 alone = kernel(K, y, n_real, *args[3:])
                 checks[f"member {SDCA_MEMBER} alone equals in group [{label}]"] = bool(
                     torch.equal(alone[0], first[SDCA_MEMBER]))
+            if label == "fit emnist g256 b64":
+                one = args[0][GRAM_MEMBER:GRAM_MEMBER + 1].contiguous()
+                alone = kernel(one, one, args[2][GRAM_MEMBER:GRAM_MEMBER + 1].contiguous())
+                checks[f"device {GRAM_MEMBER} alone equals in group [{label}]"] = bool(
+                    torch.equal(alone[0], first[GRAM_MEMBER]))
+            if name == "rbf_gram":
+                x1, x2, gamma = args
+                batched = ops.KERNEL_REGISTRY["batched_rbf_gram"].kernel(
+                    x1[None], x2[None], torch.tensor([gamma], dtype=torch.float32,
+                                                     device=device))
+                checks[f"equals batched_rbf_gram with g = 1 [{label}]"] = bool(
+                    torch.equal(first, batched[0]))
             del args, first
         out[name] = checks
     torch.cuda.empty_cache()
@@ -555,10 +636,12 @@ def phase_parity(make_dataset, run_protocol, DistillConfig):
     return out
 
 
-def phase_main(make_dataset, run_protocol, ops, trace, must_launch, **kw):
+def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False, **kw):
     """One full-scale emnist round on cuda with ``kw`` (codec, distill),
     then the same round under the profiler. ``must_launch`` names the
-    kernels that must have launched at least once in the measured round."""
+    kernels that must have launched at least once in the measured round;
+    with ``gram``, rows 1 and 3's device time in the profiled round beside
+    the bound of its launches (``gram_round``)."""
     import numpy as np
     import torch
 
@@ -609,16 +692,57 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, **kw):
             raise AssertionError(f"main: gram_matvec launched {counts['gram_matvec']} "
                                  f"times for {sum(cg)} CG iterations")
     out["profile"], _ = profile_call(lambda: run_protocol(ds, ks=MAIN_KS, random_trials=3,
-                                                          device="cuda", **kw))
+                                                          device="cuda", **kw),
+                                     functions=tuple(DEVICE_FUNCTIONS) if gram else ())
+    if gram:
+        out["gram_device"] = gram_round(ops, ds, out["profile"]["by_function"], counts)
     return out
 
 
-def profile_call(fn, top=20):
+IDEAL_ROWS = 2000   # run_protocol's ideal_cap: the ideal's Gram is 2,000 x 2,000
+
+
+def gram_round(ops, ds, by_function, counts):
+    """Rows 1 and 3 in the profiled round: their launches (and the
+    measured round's), device seconds, and the bound of those launches:
+    ``batched_rbf_gram``'s from the round's own launch shapes
+    (``ops.round_gram_launches``: fits with x2 = x1, val and test scores),
+    ``rbf_gram``'s the ideal's one 2,000 x 2,000 x d Gram (x2 = x1)."""
+    shapes = ops.round_gram_launches(ds)
+    d = shapes[0][4]
+    bounds = {
+        "batched_rbf_gram": sum(bound_ms(*gram_work(g, m, n, d_, same=kind == "fit"))[0]
+                                for kind, g, m, n, d_ in shapes),
+        "rbf_gram": bound_ms(*gram_work(1, IDEAL_ROWS, IDEAL_ROWS, d, same=True,
+                                        gammas=False))[0],
+    }
+    out = {}
+    for name, prof in by_function.items():
+        out[name] = {"launches": counts[name], "profiled_launches": prof["count"],
+                     "device_ms": 1e3 * prof["seconds"], "bound_ms": bounds[name]}
+    out["batched_rbf_gram"]["shapes"] = len({sh[1:] for sh in shapes})
+    if out["batched_rbf_gram"]["launches"] != len(shapes):
+        raise AssertionError(f"main: batched_rbf_gram launched "
+                             f"{out['batched_rbf_gram']['launches']} times, the round's "
+                             f"groups give {len(shapes)}")
+    return out
+
+
+# the device functions of a kernel wrapper, as the profiler names them
+# (rows 1 and 3 run one tile body as two kernels, so a profile tells them apart)
+DEVICE_FUNCTIONS = {"batched_rbf_gram": "batched_rbf_gram_kernel", "rbf_gram": "rbf_gram_kernel"}
+
+
+def profile_call(fn, top=20, functions=()):
     """``fn()`` under ``torch.profiler``: the device's busy seconds (the
     sum of every kernel and copy on the card; one stream, so they do not
     overlap) against the call's wall seconds, and the device time by
-    kernel. The profiler slows the host, so this wall is longer than an
-    unprofiled one's; the busy share is that of the profiled call."""
+    kernel; with ``functions`` (names of ``DEVICE_FUNCTIONS``), each one's
+    launches and device seconds, summed over its instantiations. The
+    profiler slows the host, so this wall is longer than an unprofiled
+    one's; the busy share is that of the profiled call."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -637,7 +761,35 @@ def profile_call(fn, top=20):
         "by_kernel": [{"name": e.key[:100], "count": e.count,
                        "seconds": e.self_device_time_total / 1e6} for e in ranked],
     }
+    if functions:
+        out["by_function"] = {}
+        for name in functions:
+            own = [e for e in on_card
+                   if re.search(rf"(?<!\w){DEVICE_FUNCTIONS[name]}\b", e.key)]
+            out["by_function"][name] = {
+                "count": sum(e.count for e in own),
+                "seconds": sum(e.self_device_time_total for e in own) / 1e6}
     return out, result
+
+
+DEVICE_CALLS = 20   # at least this many calls in a device-time window
+
+
+def device_time(fn, args, reps):
+    """At least ``reps`` back-to-back calls of ``fn(*args)`` (warm) under
+    the profiler, read as ``profile_call`` reads it: (device ms a call,
+    the kernels' launches the profiler recorded, their names). Nothing else
+    runs on the card in the window; each kernel's device time over its own
+    count, summed over the call's kernels, is the call's device time (the
+    profiler does not record the window's first few launches, so the
+    calls made are no divisor)."""
+    calls = max(reps, DEVICE_CALLS)
+    prof, _ = profile_call(lambda: [fn(*args) for _ in range(calls)], top=8)
+    kernels = prof["by_kernel"]
+    if not kernels:
+        raise AssertionError("timing: the profiler recorded no kernel of the call")
+    ms = 1e3 * sum(k["seconds"] / k["count"] for k in kernels)
+    return ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels)
 
 
 def phase_lm_parity(ops, device):
@@ -835,7 +987,8 @@ def sdpa_library(q, k, v, causal, window):
 
 TIMING_CASES = {
     # first case of each kernel is the one the summary line reports
-    "batched_rbf_gram": ("fit g256 b64", "fit g128 b256", "score g128 q184 b256"),
+    "batched_rbf_gram": ("fit g256 b64", "fit g256 b128", "fit g128 b256", "score g256 q16 b64",
+                         "score g256 q56 b64", "score g128 q184 b256"),
     "rbf_gram": ("ideal 2000x2000x32",),
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
                        "ideal predict b8192 k1 n2000"),
@@ -860,15 +1013,18 @@ def phase_timing(ops, device, rng, names):
             continue
         spec = ops.KERNEL_REGISTRY[name]
         for label in labels:
-            args = cases[name][label]
+            args = case_args(cases[name][label])
             targs = to_device(args, device)
             library = LIBRARY.get(name)
             turns, reps = time_pair(spec.kernel, spec.plain, targs, library=library)
+            dev_ms, dev_launches, dev_names = device_time(spec.kernel, targs, reps["kernel"])
             bound_ms, bound_by = bound_of(name, args)
             ops_n, bytes_n = work_of(name, args)
             row = {
                 "kernel": name, "case": label,
-                "ms": sum(turns["kernel"]) / 2, "plain_ms": sum(turns["plain"]) / 2,
+                "ms": sum(turns["kernel"]) / 2, "device_ms": dev_ms,
+                "device_launches_recorded": dev_launches, "device_kernels": dev_names,
+                "plain_ms": sum(turns["plain"]) / 2,
                 "library_ms": sum(turns["library"]) / 2 if library else None,
                 "turns": turns, "reps": reps, "bound_ms": bound_ms,
                 "bound_by": bound_by, "ops": ops_n, "bytes": bytes_n,
@@ -967,7 +1123,7 @@ def main(argv=None) -> int:
             elif phase == "parity":
                 out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
-                out = phase_main(make_dataset, run_protocol, ops, trace, FP32_KERNELS)
+                out = phase_main(make_dataset, run_protocol, ops, trace, FP32_KERNELS, gram=True)
                 counts[phase] = out["kernels"]
             elif phase == "main_q8":
                 out = phase_main(make_dataset, run_protocol, ops, trace,
@@ -988,8 +1144,8 @@ def main(argv=None) -> int:
         out = {"phase": phase, "ok": True, "phase_seconds": time.perf_counter() - t0, **out}
         detail[phase] = out
         if phase == "timing":   # the turns and counts go to --out only
-            keep = ("kernel", "case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "fill_ms", "ns_per_step", "chain_ms")
+            keep = ("kernel", "case", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "fill_ms", "ns_per_step", "chain_ms")
             out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
         emit(out)
 
@@ -1005,7 +1161,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
             "launches_path": path,
-            "max_abs_err": errs.get(name), "ms": row.get("ms"),
+            "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
         }

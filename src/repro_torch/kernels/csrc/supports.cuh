@@ -1,9 +1,9 @@
-// Support loaders of gram.cu (fp32) and ensemble_score.cu (fp32 and int8):
-// element (j, c) of a row-major support matrix with d columns, as fp32, read
-// while a tile is staged in shared memory. The tiles are written once, as
-// templates over the loader, so the fp32 and the int8 scorers run the same
-// device code up to this one load. (The int8 Gram, gram_q8.cu, keeps its
-// supports as int8 in shared memory and has no use for a loader.)
+// Support loaders of ensemble_score.cu (fp32 and int8): element (j, c) of a
+// row-major support matrix with d columns, as fp32, read while a tile is
+// staged in shared memory. The tiles are written once, as templates over the
+// loader, so the fp32 and the int8 scorers run the same device code up to
+// this one load. (The Grams, gram.cu and gram_q8.cu, copy their operands
+// into shared memory by cp.async and have no use for a loader.)
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -42,10 +42,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gram": {
-        # x1, x2, gammas, out, g, m, n, d, stream
-        "batched_rbf_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # x1, x2, gamma, out, m, n, d, stream
-        "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _P],
+        # x1, x2, gammas, out, g, m, n, d, rows, staged, stream
+        "batched_rbf_gram_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x1, x2, gamma, out, m, n, d, rows, staged, stream
+        "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
     },
     "gram_q8": {
         # x, q, scale, zero, gamma, out, m, n, d, per_split, splits, stream

@@ -9,9 +9,10 @@ inputs. There is no fallback from one to the other.
 the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
 positional numpy argument tuple the reference's dispatcher of the same
 name also accepts, SDCA aside), ``make_ragged(rng)`` (the same on shapes
-off every tile multiple of the CUDA kernels: 64-row tiles, 32-wide
-feature chunks, 128-row blocks and 128-query blocks over 64-support tiles,
-64- and 128-row query tiles over 64-key tiles) and the
+off every tile multiple of the CUDA kernels: the Grams' 16-, 32- and
+64-row by 64-column tiles and 32-feature staging, 128-row blocks and
+128-query blocks over 64-support tiles, 64- and 128-row query tiles over
+64-key tiles) and the
 tolerance the parity tests and ``chip_smoke.py`` hold the pair to. ``replaces`` names the TPU kernel
 (or, for SDCA, the XLA loop) each entry ports.
 """
@@ -172,16 +173,12 @@ def make_sdca_problem(rng, g: int, b: int, d: int, n_real, lam: float = 0.01,
     return K.astype(np.float32), y, n_real, lam, epochs
 
 
-def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
-                            lam: float = 0.01, epochs: int = 20) -> tuple:
-    """The pooled-data ideal's SDCA problem as ``run_protocol``'s
-    ``round.ideal`` builds it on ``make_dataset("emnist", seed, scale)``:
+def ideal_rows(seed: int = 0, scale: float = 0.05, cap: int = 2000) -> tuple:
+    """(x, y): the pooled-data ideal's training rows as ``run_protocol``'s
+    ``round.ideal`` draws them on ``make_dataset("emnist", seed, scale)``:
     every device's train split pooled, ``cap`` rows drawn by
-    ``default_rng(seed)``, the RBF Gram at ``default_gamma`` (its plain
-    version, on the host), padded as ``train_svm`` pads it (2,000 rows
-    to a bucket of 2,048). Unlike ``make_sdca_problem``'s random data,
-    many of its alphas end strictly inside (0, 1)."""
-    from repro_torch.core.svm import SDCA_BUCKET, default_gamma
+    ``default_rng(seed)``. ``train_svm`` takes their RBF Gram at
+    ``default_gamma(x)`` with one ``rbf_gram`` launch."""
     from repro_torch.data import make_dataset
     from repro_torch.data.partition import derive_device_seed, split_train_test_val
 
@@ -193,14 +190,92 @@ def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
     if len(y) > cap:
         idx = np.random.default_rng(seed).choice(len(y), cap, replace=False)
         x, y = x[idx], y[idx]
+    return np.ascontiguousarray(x, np.float32), y
+
+
+def make_ideal_sdca_problem(seed: int = 0, scale: float = 0.05, cap: int = 2000,
+                            lam: float = 0.01, epochs: int = 20) -> tuple:
+    """The pooled-data ideal's SDCA problem as ``run_protocol``'s
+    ``round.ideal`` builds it on ``make_dataset("emnist", seed, scale)``:
+    ``ideal_rows``' rows, the RBF Gram at ``default_gamma`` (its plain
+    version, on the host), padded as ``train_svm`` pads it (2,000 rows
+    to a bucket of 2,048). Unlike ``make_sdca_problem``'s random data,
+    many of its alphas end strictly inside (0, 1)."""
+    from repro_torch.core.svm import SDCA_BUCKET, default_gamma
+
+    x, y = ideal_rows(seed, scale, cap)
     n = len(y)
     b = max(-(-n // SDCA_BUCKET) * SDCA_BUCKET, SDCA_BUCKET)
-    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    xt = torch.from_numpy(x)
     K = np.zeros((1, b, b), np.float32)
     K[0, :n, :n] = _rbf.rbf_gram_plain(xt, xt, default_gamma(x)).numpy()
     yp = np.ones((1, b), np.float32)
     yp[0, :n] = y
     return K, yp, np.asarray([n], np.int32), lam, epochs
+
+
+def bucket_groups(dataset, seed: int = 0, group_cap: int = 256) -> list:
+    """The bucketed engine's groups on ``dataset``, in the order it trains
+    them (``sim/engine.py::iter_population``): ``[(bucket, members,
+    pad_floor)]`` with members ``[(dev_id, splits)]``."""
+    from repro_torch.sim.engine import _bucket_group_caps, _classify_device
+
+    by_bucket: Dict[int, list] = {}
+    for i, dev in enumerate(dataset.devices):
+        bucket, payload = _classify_device(i, dev, dataset.min_samples, seed=seed)
+        if bucket is not None:
+            by_bucket.setdefault(bucket, []).append((i, payload))
+    groups = []
+    for bucket in sorted(by_bucket):
+        members = by_bucket[bucket]
+        cap = _bucket_group_caps(bucket, group_cap)
+        groups += [(bucket, members[lo:lo + cap], min(8, cap))
+                   for lo in range(0, len(members), cap)]
+    return groups
+
+
+def round_gram_launches(dataset, seed: int = 0, group_cap: int = 256) -> list:
+    """The bucketed round's ``batched_rbf_gram`` launches on ``dataset``,
+    in order: per group a fit ``(g, b, b)`` with x2 = x1, then the val
+    and test scores ``(g, q, b)`` (``_train_bucket_group``'s padding).
+    Returns ``[(kind, g, m, n, d)]`` with kind "fit", "val" or "test"."""
+    from repro_torch.sim.engine import QUERY_PAD, _pad_pow2
+
+    out = []
+    for bucket, members, pad_floor in bucket_groups(dataset, seed, group_cap):
+        g = _pad_pow2(len(members), lo=pad_floor)
+        d = members[0][1]["train"].x.shape[1]
+        out.append(("fit", g, bucket, bucket, d))
+        for split in ("val", "test"):
+            q = -(-max(sp[split].n for _, sp in members) // QUERY_PAD) * QUERY_PAD
+            out.append((split, g, q, bucket, d))
+    return out
+
+
+def make_fit_group_problem(seed: int = 0, scale: float = 1.0) -> tuple:
+    """The first bucket-64 group's fit Gram input of the bucketed round on
+    ``make_dataset("emnist", seed, scale)``, packed as
+    ``sim/engine.py::_train_bucket_group`` packs it: each member's train
+    rows zero-padded to 64 rows, the group padded with zero devices to a
+    power of two, gammas each member's ``default_gamma`` (1 for a padding
+    device). At scale 1.0 that is g 256 x b 64 x d 32 of real emnist-like
+    rows with padded rows, which random normals never have. Returns
+    ``(xp, xp, gammas)``, ``batched_rbf_gram``'s arguments, x2 the same
+    array as x1 as the fit passes it."""
+    from repro_torch.core.svm import default_gamma
+    from repro_torch.data import make_dataset
+    from repro_torch.sim.engine import _pad_pow2
+
+    groups = bucket_groups(make_dataset("emnist", seed=seed, scale=scale), seed)
+    bucket, members, pad_floor = next(grp for grp in groups if grp[0] == 64)
+    trains = [sp["train"] for _, sp in members]
+    g = _pad_pow2(len(members), lo=pad_floor)
+    xp = np.zeros((g, bucket, trains[0].x.shape[1]), np.float32)
+    gammas = np.ones(g, np.float32)
+    for i, t in enumerate(trains):
+        xp[i, :t.n] = t.x
+        gammas[i] = default_gamma(t.x)
+    return xp, xp, gammas
 
 
 def _emnist_devices(seed: int, scale: float) -> list:

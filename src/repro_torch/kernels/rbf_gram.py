@@ -1,21 +1,27 @@
 """RBF Gram matrix for one bandwidth: ``train_svm``'s kernel.
 
 Replaces ``repro/kernels/rbf_gram.py::rbf_gram_pallas`` (the TPU kernel,
-grid (M/128, N/128) over VMEM tiles). It runs the device code of
-``csrc/gram.cu`` with one device and a scalar gamma, through its own C
-launcher, wrapper and launch counter; see ``batched_gram.py`` for the
-tile design.
+grid (M/128, N/128) over VMEM tiles). It runs the tile body of
+``csrc/gram.cu`` with one device and a scalar gamma, as its own kernel
+(``rbf_gram_kernel``), through its own C launcher, wrapper and launch
+counter, with the tiles of ``batched_gram.tile_plan``; see
+``batched_gram.py`` for the design (the cross term on bf16 tensor cores
+from three bf16 planes of each fp32 operand, fp32 norms, the epilogue
+on the fragments). ``rbf_gram(x1, x2, gamma)`` gives the same bits as
+``batched_rbf_gram`` of the same rows with g = 1 and the same gamma.
 
-Bound on the H100: bytes at small d; at the pooled-data ideal's
-2000 x 2000 x 32 the output write (16 MB) and the 2d + 5 operations per
-element come within a factor of four of each other, and the kernel is
-far from both.
+Bound on the H100: bytes. At the pooled-data ideal's 2000 x 2000 x 32
+(x2 is x1, as ``train_svm`` passes it) the 16 MB output and one read of
+the rows take 0.0049 ms at 3.35 TB/s, more than the operations (2d + 6
+a pair, 2d of them on the tensor cores); instruction issue holds the
+kernel (``PERF.md`` section 6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.kernels.batched_gram import launch_plan
 
 LAUNCHES = native.LaunchCounter("rbf_gram")
 
@@ -41,7 +47,9 @@ def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor, gamma: float) -> torch.Ten
     out = torch.empty((m, n), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:
         return out
+    rows, staged = launch_plan("rbf_gram", m, n, d)
     lib = native.library("gram")
     native.launch(LAUNCHES, x1.device, lib.rbf_gram_launch,
-                  x1.data_ptr(), x2.data_ptr(), float(gamma), out.data_ptr(), m, n, d)
+                  x1.data_ptr(), x2.data_ptr(), float(gamma), out.data_ptr(), m, n, d,
+                  rows, staged)
     return out

@@ -188,6 +188,75 @@ def test_rbf_gram_q8_student(cuda_device):
     assert torch.equal(got[:1000], head)
 
 
+GRAM_MEMBER = 17   # chip_smoke.py's device of the fit group taken alone
+
+
+def _fit_group(device):
+    """The round's first bucket-64 fit input on ``device``, x2 the same
+    tensor as x1 as the engine's fit passes it."""
+    xp, _, gammas = ops.make_fit_group_problem(seed=0)
+    x = torch.from_numpy(xp).to(device)
+    return x, x, torch.from_numpy(gammas).to(device)
+
+
+def test_batched_rbf_gram_emnist_fit_group(cuda_device):
+    """The round's own fit group (256 emnist devices, train rows
+    zero-padded to 64, each at its default_gamma) within the registry's
+    1e-5 of the plain version."""
+    spec = ops.KERNEL_REGISTRY["batched_rbf_gram"]
+    args = _fit_group(cuda_device)
+    got = ops.batched_rbf_gram(*args)
+    assert got.shape == (256, 64, 64)
+    np.testing.assert_allclose(got.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                               atol=spec.tol, rtol=0)
+
+
+def test_batched_rbf_gram_device_does_not_depend_on_its_group(cuda_device):
+    """A device's Gram is the same bits alone (g = 1) and in the g256 group,
+    and two launches of the group give the same bits."""
+    x, _, gammas = _fit_group(cuda_device)
+    group = ops.batched_rbf_gram(x, x, gammas)
+    one = x[GRAM_MEMBER:GRAM_MEMBER + 1].contiguous()
+    alone = ops.batched_rbf_gram(one, one, gammas[GRAM_MEMBER:GRAM_MEMBER + 1].contiguous())
+    assert torch.equal(alone[0], group[GRAM_MEMBER])
+    assert torch.equal(group, ops.batched_rbf_gram(x, x, gammas))
+
+
+def test_rbf_gram_equals_batched_with_one_device(cuda_device):
+    """``rbf_gram(x1, x2, gamma)`` is ``batched_rbf_gram`` of the same rows
+    with g = 1 and the same gamma, bit for bit, at the ideal's shape."""
+    x, _ = ops.ideal_rows(seed=0)
+    x1 = torch.from_numpy(x).to(cuda_device)
+    x2 = torch.from_numpy(np.ascontiguousarray(x[::-1])).to(cuda_device)
+    gamma = 1.0 / (32 * float(x.var()))
+    single = ops.rbf_gram(x1, x2, gamma)
+    batched = ops.batched_rbf_gram(x1[None], x2[None],
+                                   torch.tensor([gamma], dtype=torch.float32, device=cuda_device))
+    assert torch.equal(single, batched[0])
+
+
+# shapes off every tile multiple (64 columns; 16, 32 and 64 rows; 64 staged
+# features; d > 128 in chunks of 128), with 16-byte copies (d % 4 == 0) and
+# 4-byte ones
+OFF_TILE = [("batched_rbf_gram", (5, 41, 71, 140)), ("rbf_gram", (133, 70, 150)),
+            ("batched_rbf_gram", (3, 120, 130, 48)), ("rbf_gram", (60, 200, 61))]
+
+
+@pytest.mark.parametrize("name,shape", OFF_TILE,
+                         ids=[f"{n}-{'x'.join(map(str, s))}" for n, s in OFF_TILE])
+def test_rbf_grams_off_every_tile_multiple(cuda_device, name, shape):
+    spec = ops.KERNEL_REGISTRY[name]
+    rng = _rng("off-tile-" + name, len(shape))
+    *lead, m, n, d = shape
+    x1 = rng.normal(size=(*lead, m, d)).astype(np.float32)
+    x2 = rng.normal(size=(*lead, n, d)).astype(np.float32)
+    gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=lead))).astype(np.float32) if lead else 1.0 / d
+    args = _on((x1, x2, gam), cuda_device)
+    got = spec.dispatch(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                               atol=spec.tol, rtol=0)
+
+
 def test_train_population_matches_cpu(cuda_device):
     from repro_torch.data import make_dataset
     from repro_torch.sim.engine import train_population

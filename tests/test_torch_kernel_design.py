@@ -33,7 +33,18 @@ What can be held here is the plan and the arithmetic they follow:
   within the registry's 1e-5 of the plain version on the registry's two
   cases, normal data and the round's own int8 student
   (``ops.make_q8_student_problem``), with the accumulator rounded to
-  nearest or truncated toward zero.
+  nearest or truncated toward zero;
+- the fp32 RBF Gram kernel (``csrc/gram.cu``, ``batched_rbf_gram`` and
+  ``rbf_gram``): its host plan (``kernels/batched_gram.py::tile_plan``)
+  takes (m, n, d) alone, covers every output once and computes at most a
+  fifth of rows or columns past m or n at the round's 15 launch shapes, its
+  constants mirror the source, and its arithmetic, emulated in plain
+  PyTorch (both operands in three bf16 planes, the six products in the
+  kernel's order into an fp32 accumulator rounded to nearest or truncated,
+  the norms as four fmaf chains a row), stays within the registry's 1e-5 of
+  the plain version on the round's own fit group
+  (``ops.make_fit_group_problem``, whose first call in the bucketed round
+  it is), the ideal's 2,000 rows, normals and the registry's cases.
 """
 import functools
 import importlib.util
@@ -47,6 +58,7 @@ import torch
 
 from repro.kernels import ref
 from repro.utils.seeds import derive_stream_seed
+from repro_torch.kernels import batched_gram as bg
 from repro_torch.kernels import ensemble_score as ens
 from repro_torch.kernels import gram_matvec as gmv
 from repro_torch.kernels import ops
@@ -641,3 +653,213 @@ def test_gram_q8_split_plan_covers_every_support_once(m, n):
     assert splits <= want
     assert per_split == 1 or -(-tiles // (per_split - 1)) > want
 
+
+
+# ----------------------------------------------------------------------
+# the fp32 RBF Gram kernel's planes, plan, constants and arithmetic
+# ----------------------------------------------------------------------
+
+GRAM_PRODUCTS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))  # (a plane, b plane), 0 = hi
+
+
+def gram_norms(x: torch.Tensor, staged: int) -> torch.Tensor:
+    """|x|^2 of each row as the kernel takes it: for each chunk of `staged`
+    features, four fmaf chains over its quarters (ascending features, the
+    real ones), added as (q0 + q1) + (q2 + q3); chunk sums added in order."""
+    d = x.shape[-1]
+    qw = staged // 4
+    total = None
+    for k0 in range(0, d, staged):
+        quarters = []
+        for h in range(4):
+            q = torch.zeros(x.shape[:-1], dtype=torch.float32)
+            for c in range(k0 + h * qw, min(k0 + (h + 1) * qw, d)):
+                q = _fma32(x[..., c], x[..., c], q)
+            quarters.append(q)
+        chunk = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
+        total = chunk if total is None else total + chunk
+    return total
+
+
+def rbf_gram_split_emulated(x1, x2, gammas, rounding="nearest"):
+    """``csrc/gram.cu`` in plain PyTorch, for x1 (g, m, d), x2 (g, n, d),
+    gammas (g,). Both operands are padded with zeros to a multiple of 16
+    features and split into three bf16 planes; per k step of 16 features
+    the six products (lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi), each
+    16 exact products summed exactly, are added to one fp32 accumulator and
+    rounded (to nearest, or toward zero). The norms are ``gram_norms``;
+    d2 = max((|a|^2 + |b|^2) - 2 a.b, 0) in fp32 and exp(-gamma d2) (the
+    kernel's ex2.approx is within ~2^-22 of it)."""
+    x1, x2, gammas = (torch.as_tensor(a) for a in (x1, x2, gammas))
+    g, m, d = x1.shape
+    n = x2.shape[1]
+    staged = bg.tile_plan(m, n, d)[2]
+    kp = -(-d // Q8_KSTEP) * Q8_KSTEP
+    a = torch.zeros((g, m, kp), dtype=torch.float32)
+    b = torch.zeros((g, n, kp), dtype=torch.float32)
+    a[..., :d], b[..., :d] = x1, x2
+    pa = [p.double() for p in q8_planes(a)]
+    pb = [p.double() for p in q8_planes(b)]
+    acc = torch.zeros((g, m, n), dtype=torch.float32)
+    for k in range(0, kp, Q8_KSTEP):
+        for i, j in GRAM_PRODUCTS:
+            part = pa[i][..., k:k + Q8_KSTEP] @ pb[j][..., k:k + Q8_KSTEP].transpose(1, 2)
+            acc = _round_fp32(acc.double() + part, rounding)
+    s = gram_norms(x1, staged)[:, :, None] + gram_norms(x2, staged)[:, None, :]
+    d2 = torch.clamp(s - 2.0 * acc, min=0.0)
+    return torch.exp(-gammas.double()[:, None, None] * d2.double()).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _emnist_full():
+    from repro_torch.data import make_dataset
+
+    return make_dataset("emnist", seed=0, scale=1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_group():
+    return ops.make_fit_group_problem(seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_case(label):
+    spec = ops.KERNEL_REGISTRY["batched_rbf_gram"]
+    if label == "fit emnist g256 b64":
+        return _fit_group()
+    if label == "ideal 2000":
+        from repro_torch.core.svm import default_gamma
+
+        x, _ = ops.ideal_rows(seed=0)
+        return x[None], x[None], np.asarray([default_gamma(x)], np.float32)
+    if label == "normal fit g32 b64":   # as chip_smoke.py's fit cases draw them
+        rng = _rng("gram-normal")
+        x = rng.normal(size=(32, 64, 32)).astype(np.float32)
+        return x, x, (1.0 / (32 * rng.uniform(0.5, 2.0, size=32))).astype(np.float32)
+    return (spec.make_inputs if label == "registry" else spec.make_ragged)(_rng("gram-" + label))
+
+
+GRAM_CASES = ["registry", "ragged", "normal fit g32 b64", "fit emnist g256 b64", "ideal 2000"]
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("label", GRAM_CASES, ids=[c.replace(" ", "-") for c in GRAM_CASES])
+def test_rbf_gram_split_holds_the_tolerance(label, rounding):
+    x1, x2, gammas = _gram_case(label)
+    got = rbf_gram_split_emulated(x1, x2, gammas, rounding)
+    want = bg.batched_rbf_gram_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                       for a in (x1, x2, gammas)))
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["batched_rbf_gram"].tol
+
+
+def test_fit_group_problem_is_the_rounds_input(monkeypatch):
+    """The first ``batched_rbf_gram`` call of the bucketed round (the first
+    bucket-64 group's fit) gets exactly ``make_fit_group_problem``'s
+    arrays: 256 devices' train rows zero-padded to 64, x2 the same tensor
+    as x1, each device at its default_gamma."""
+    from repro_torch.sim import engine
+
+    class Captured(Exception):
+        pass
+
+    seen = {}
+
+    def capture(x1, x2, gammas):
+        seen["args"] = (x1, x2, gammas)
+        raise Captured
+
+    monkeypatch.setattr(engine.kops, "batched_rbf_gram", capture)
+    with pytest.raises(Captured):
+        for _ in engine.iter_population(_emnist_full(), device="cpu"):
+            pass
+    x1, x2, gammas = seen["args"]
+    xp, xp2, want_gammas = _fit_group()
+    assert xp2 is xp and x2 is x1
+    assert xp.shape == (256, 64, 32) and np.array_equal(x1.numpy(), xp)
+    assert np.array_equal(gammas.numpy(), want_gammas)
+    padded = (xp == 0).all(-1)
+    assert padded.any() and (~padded).any()   # the padding contract is exercised
+
+
+# the round's Gram launches (ISSUE table: groups x (g, bucket, val q, test q), d 32)
+ROUND_GROUPS = [(7, 256, 64, 16, 56), (1, 128, 64, 16, 56), (3, 256, 128, 32, 104),
+                (1, 256, 192, 40, 160), (1, 128, 256, 48, 184)]
+
+
+def _round_shapes():
+    return [(kind, g, m, n, 32) for count, g, b, qv, qt in ROUND_GROUPS for _ in range(count)
+            for kind, m, n in (("fit", b, b), ("val", qv, b), ("test", qt, b))]
+
+
+def test_round_gram_launches_are_the_rounds():
+    """``ops.round_gram_launches`` on the full-scale emnist federation: 39
+    launches at 15 distinct shapes, a fit and two scores per group."""
+    launches = ops.round_gram_launches(_emnist_full())
+    assert sorted(launches) == sorted(_round_shapes())
+    assert len(launches) == 39 and len({sh[1:] for sh in launches}) == 15
+
+
+def _covered(g, m, n, d):
+    """How often the kernel's grid writes each output: tiles of the plan's
+    rows x cols, rows past m and columns past n never stored."""
+    rows, cols, _ = bg.tile_plan(m, n, d)
+    hits = np.zeros((g, m, n), np.int64)
+    for t in range(g):
+        for r0 in range(0, -(-m // rows) * rows, rows):
+            for c0 in range(0, -(-n // cols) * cols, cols):
+                hits[t, r0:r0 + rows, c0:c0 + cols] += 1
+    return hits
+
+
+GRAM_PLAN_SHAPES = sorted({sh[1:] for sh in _round_shapes()}) + [
+    (3, 77, 45, 24), (4, 48, 40, 12), (1, 130, 67, 37), (1, 2000, 2000, 32), (1, 1, 1, 1),
+    (5, 41, 71, 140), (1, 133, 70, 150), (1, 17, 200, 61)]
+
+
+@pytest.mark.parametrize("g,m,n,d", GRAM_PLAN_SHAPES)
+def test_gram_tile_plan_covers_every_output_once(g, m, n, d):
+    assert int(_covered(min(g, 2), m, n, d).min()) == 1
+    assert int(_covered(min(g, 2), m, n, d).max()) == 1
+
+
+def test_gram_tile_plan_wastes_at_most_a_fifth_at_the_rounds_shapes():
+    assert list(inspect.signature(bg.tile_plan).parameters) == ["m", "n", "d"]
+    for _, g, m, n, d in _round_shapes():
+        rows, cols, staged = bg.tile_plan(m, n, d)
+        computed_rows, computed_cols = -(-m // rows) * rows, -(-n // cols) * cols
+        assert computed_rows - m <= computed_rows / 5, (m, rows)
+        assert computed_cols - n <= computed_cols / 5, (n, cols)
+        assert staged == 32
+    # a val batch of 16 queries against 64 supports is one 16 x 64 tile
+    assert bg.tile_plan(16, 64, 32)[:2] == (16, 64)
+
+
+def _gram_smem_bytes(rows, staged):
+    """Shared memory of one block (gram.cu's Tile::BYTES)."""
+    staged_rows = rows + bg.COLS
+    return 4 * staged_rows * (staged + 4) + 2 * 3 * staged_rows * (staged + 8) + 4 * staged_rows
+
+
+def test_gram_constants_match_the_kernel():
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram.cu").read_text()
+    for line in (f"constexpr int BN = {bg.COLS};", "constexpr int WN = 32;",
+                 f"constexpr int PLANES = {Q8_PLANES};", f"constexpr int PRODUCTS = {len(GRAM_PRODUCTS)};",
+                 f"constexpr int KSTEP = {Q8_KSTEP};",
+                 f"constexpr int MAX_KSTEPS = {bg.STAGED[-1] // Q8_KSTEP};",
+                 "constexpr int QUARTERS = 4;"):
+        assert line in src, line
+    # the products in the emulation's order
+    assert "constexpr int PA[PRODUCTS] = {" + ", ".join(str(i) for i, _ in GRAM_PRODUCTS) + "};" in src
+    assert "constexpr int PB[PRODUCTS] = {" + ", ".join(str(j) for _, j in GRAM_PRODUCTS) + "};" in src
+    assert src.index("for (int ks = 0; ks < KSTEPS; ++ks)") < src.index(
+        "for (int q = 0; q < PRODUCTS; ++q)")
+    # every tile height and staged width the plan picks has a launch
+    for rows in bg.ROW_TILES:
+        assert f"case {rows}: return launch_staged<{rows}>" in src
+    for staged in bg.STAGED:
+        assert f"case {staged}: return launch<BM, " in src
+    # each instantiation fits an SM's shared memory
+    for rows in bg.ROW_TILES:
+        for staged in bg.STAGED:
+            assert _gram_smem_bytes(rows, staged) + 1024 <= 232448
