@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs eight phases, each printing one JSON line on stdout:
+``repro``, and runs nine phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -22,8 +22,10 @@ It imports the port and nothing of JAX or of the reference package
            32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
            causal with a window, non-causal, ragged lengths and the serve
            shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
-           and feature dims 12, 24, 32 and 37; SDCA at the group shapes and
-           on the pooled emnist ideal, whose alphas are not all 0 or 1;
+           and feature dims 12, 24, 32 and 37; SDCA at the group shapes, on
+           the pooled emnist ideal, whose alphas are not all 0 or 1, and on
+           the population round's first group
+           (``ops.make_population_sdca_problem``);
            ``gram_matvec`` at the CG's l 4,096 on random normals and on the
            round's own validation-pool proxy rows
            (``ops.make_cg_matvec_problem``); ``rbf_gram_q8`` on normal data
@@ -31,18 +33,29 @@ It imports the port and nothing of JAX or of the reference package
            (``ops.make_q8_student_problem``); ``batched_rbf_gram`` at the
            round's fit and score shapes (fits pass x1 as x2) and on the
            round's own first fit group (``ops.make_fit_group_problem``:
-           zero-padded rows, per-device gammas). Then determinism, bit for bit:
+           zero-padded rows, per-device gammas); at the population round's
+           d 16: ``batched_rbf_gram`` on its first fit group
+           (``ops.make_population_fit_group_problem``, g 256 b 64),
+           ``ensemble_score`` at b 4,096 k 50 n 40 and ``gram_matvec`` at
+           l 4,096. Then determinism, bit for bit:
            two launches of bf16 flash (serve shape), of both scorers (full
-           shape), of SDCA (emnist ideal, g256 b64), of ``gram_matvec``
-           (both l 4,096 cases), of ``rbf_gram_q8`` (the student), of
-           ``batched_rbf_gram`` (the emnist fit group) and of ``rbf_gram``
-           (the ideal) equal,
-           the first 1,000 rows of an 8,192-row call of each scorer and of
-           ``rbf_gram_q8`` equal to a 1,000-row call (the split plan never
-           depends on b), one SDCA group member solved alone equal to its
-           alpha in the group, device 17 of the fit group alone equal to
-           its Gram in the group, and ``rbf_gram`` equal to
-           ``batched_rbf_gram`` of the same rows with g = 1;
+           shape; ``ensemble_score`` also at d 16), of SDCA (emnist ideal,
+           g256 b64), of ``gram_matvec`` (both l 4,096 d 32 cases and d 16),
+           of ``rbf_gram_q8`` (the student), of ``batched_rbf_gram`` (the
+           emnist and the dirichlet fit groups) and of ``rbf_gram`` (the
+           ideal) equal,
+           the first 1,000 rows of an 8,192-row (at d 16 a 4,096-row) call
+           of each scorer and of ``rbf_gram_q8`` equal to a 1,000-row call
+           (the split plan never depends on b), one SDCA group member
+           solved alone equal to its alpha in the group, device 17 of each
+           fit group alone equal to its Gram in the group, and ``rbf_gram``
+           equal to ``batched_rbf_gram`` of the same rows with g = 1; and
+           ``population_identity``: on the population's first
+           fit group, SDCA's alphas of 8 members fitted as a group of 8
+           equal to theirs in the group of 256, and one device's val and
+           test score rows in groups whose query pad selects the Gram's
+           16-, 32- and 64-row tiles equal to its rows scored alone (the
+           Gram's rows and the engine's ``_score_group``);
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -63,6 +76,27 @@ It imports the port and nothing of JAX or of the reference package
            student's support count and codec, and each kernel's launches,
            all seven > 0, ``gram_matvec``'s equal to the CG iterations;
            then once more under the profiler;
+  population  ``run_population`` (``sim/population.py``) at d 16: (a)
+           parity on 2,048 devices, an availability federation (base
+           dirichlet) in int8 under a binding 30,000-byte budget and a
+           quantity-skew one in fp32, both with CG distillation on 1,024
+           validation-pool rows, each bucketed on cuda, streamed on cuda in
+           chunks of 300 and bucketed on cpu: streamed equal to bucketed in
+           every report field (the student's coefficients bit for bit),
+           cuda and cpu equal in ``comm``, picked ids and headcounts, AUCs
+           within 1e-4 (the distilled one reported beside the CG's
+           iterations where the CG stopped unconverged); (b) the streamed
+           round on 100,000 dirichlet devices (alpha 0.3, 80 samples, chunks
+           of 1,024, ks 10 and 50, cv/data/random, 128 evaluation devices,
+           CG distillation on 4,096 ``scenario`` proxy rows): wall seconds,
+           devices a second, ``round.*`` and ``distill.round`` spans, the
+           ``engine.chunk`` count, headcounts, AUCs, ``comm``, the card's
+           peak allocated bytes and each kernel's launches
+           (``batched_rbf_gram``, ``sdca``, ``ensemble_score`` and
+           ``gram_matvec`` > 0, ``gram_matvec``'s equal to the CG
+           iterations); then once more under the profiler; (c) the traced
+           host peak (``tracemalloc``) of the streamed pass alone at 25,000
+           and 100,000 devices: under 64 MiB and flat;
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32, with the
            flash kernel (``use_pallas``): 2 prompts of 200 tokens and 8
            greedy tokens through ``launch/serve.py``'s ``serve_prompts`` on
@@ -96,7 +130,8 @@ It imports the port and nothing of JAX or of the reference package
 The last three lines are the per-kernel summary ``{"kernels": [...]}``
 (each kernel's launches read from the run it was ported for: ``main``
 for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
-``serve`` for flash attention, named in ``launches_path``), the card's
+``serve`` for flash attention, named in ``launches_path``; the
+``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
@@ -116,7 +151,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "main_q8", "lm_parity", "serve", "timing")
+PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "lm_parity", "serve",
+          "timing")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_OPS = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -258,6 +294,10 @@ def kernel_cases(rng, ops):
             # the round's own first fit: 256 emnist devices' train rows
             # zero-padded to 64, each at its default_gamma
             ("fit emnist g256 b64", Lazy(lambda: ops.make_fit_group_problem(seed=0))),
+            # the population round's first fit group: 256 dirichlet devices
+            # at d 16 (``ops.make_population_fit_group_problem``)
+            ("fit dirichlet g256 b64 d16",
+             Lazy(lambda: ops.make_population_fit_group_problem(seed=0))),
         ],
         "rbf_gram": [
             ("ideal 2000x2000x32", gram1(2000, 2000, 32)),
@@ -268,6 +308,9 @@ def kernel_cases(rng, ops):
             ("ideal predict b8192 k1 n2000", ens(8192, 1, 2000, 32)),
             ("k10 b8 n230", ens(8, 10, 230, 32)),
             ("d37 b300 k7 n77", ens(300, 7, 77, 37)),
+            # the population round's evaluation: 128 devices' test rows
+            # (4,096 padded) against up to 50 members of 40 supports at d 16
+            ("population b4096 k50 n40 d16", ens(4096, 50, 40, 16)),
         ],
         "sdca": [
             ("group g256 b64", sdca(256, 64, 33, 64)),
@@ -277,12 +320,17 @@ def kernel_cases(rng, ops):
             ("ideal g1 b2048 n2000", sdca(1, 2048, 2000, 2000)),
             # the round's own ideal: 64 of its 2,000 alphas end inside (0, 1)
             ("ideal emnist g1 b2048 n2000", Lazy(lambda: ops.make_ideal_sdca_problem(seed=0))),
+            # the population round's first group: 256 dirichlet devices' fit
+            # Grams (d 16), masked as the engine masks them
+            ("group dirichlet g256 b64", Lazy(lambda: ops.make_population_sdca_problem(seed=0))),
         ],
         "gram_matvec": [
             ("cg l4096 d32", matvec(4096, 32)),
             # the round's own CG input: 4,096 pooled validation rows at
             # default_gamma (gamma |x|^2 ~ 1)
             ("cg emnist l4096 d32", Lazy(lambda: ops.make_cg_matvec_problem(seed=0))),
+            # the population round's CG on 4,096 proxy rows at d 16
+            ("cg l4096 d16", matvec(4096, 16)),
         ],
         "rbf_gram_q8": [
             ("student predict b8192 n4096 d32", gram_q8(8192, 4096, 32)),
@@ -513,7 +561,10 @@ def phase_kernels(ops, device, rng, names):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
-    return {"cases": results, "determinism": determinism(ops, device, all_cases)}, errs
+    out = {"cases": results, "determinism": determinism(ops, device, all_cases)}
+    if {"batched_rbf_gram", "sdca"} <= set(names):
+        out["population_identity"] = population_identity(ops, device)
+    return out, errs
 
 
 SDCA_MEMBER = 17   # the group member solved alone in the determinism check
@@ -522,25 +573,27 @@ GRAM_MEMBER = 17   # the fit group's device whose Gram is taken alone
 
 def determinism(ops, device, cases):
     """Bit-for-bit checks of the kernels in ``cases``: two launches of
-    bf16 flash attention (serve shape), of both scorers (full shape), of
-    SDCA (the emnist ideal and group g256 b64), of ``gram_matvec`` (both
-    l 4,096 CG cases), of ``rbf_gram_q8`` (the emnist student), of
-    ``batched_rbf_gram`` (the emnist fit group) and of ``rbf_gram`` (the
-    ideal) are equal; the first 1,000 rows of an 8,192-row call of each
-    scorer and of ``rbf_gram_q8`` equal a 1,000-row call; member 17 of the
-    g256 b64 SDCA group solved alone (g = 1) equals its alpha in the group;
-    device 17 of the emnist fit group alone (g = 1) gives its Gram in the
-    group; ``rbf_gram`` of the ideal equals ``batched_rbf_gram`` of the same
-    rows with g = 1 and the same gamma."""
+    bf16 flash attention (serve shape), of both scorers (full shape;
+    ``ensemble_score`` also at the population's d 16), of SDCA (the emnist
+    ideal and group g256 b64), of ``gram_matvec`` (the l 4,096 CG cases at
+    d 32 and d 16), of ``rbf_gram_q8`` (the emnist student), of
+    ``batched_rbf_gram`` (the emnist and dirichlet fit groups) and of
+    ``rbf_gram`` (the ideal) are equal; the first 1,000 rows of a call of
+    each scorer and of ``rbf_gram_q8`` equal a 1,000-row call; member 17
+    of the g256 b64 SDCA group solved alone (g = 1) equals its alpha in
+    the group; device 17 of each fit group alone (g = 1) gives its Gram in
+    the group; ``rbf_gram`` of the ideal equals ``batched_rbf_gram`` of the
+    same rows with g = 1 and the same gamma."""
     import torch
 
     twice = {"flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",),
-             "ensemble_score": ("full b8192 k2821 n230",),
+             "ensemble_score": ("full b8192 k2821 n230", "population b4096 k50 n40 d16"),
              "ensemble_score_q8": ("full b8192 k2821 n230",),
-             "sdca": ("ideal emnist g1 b2048 n2000", "group g256 b64"),
-             "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
+             "sdca": ("ideal emnist g1 b2048 n2000", "group g256 b64",
+                      "group dirichlet g256 b64"),
+             "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32", "cg l4096 d16"),
              "rbf_gram_q8": ("student emnist b8192 n4096 d32",),
-             "batched_rbf_gram": ("fit emnist g256 b64",),
+             "batched_rbf_gram": ("fit emnist g256 b64", "fit dirichlet g256 b64 d16"),
              "rbf_gram": ("ideal 2000x2000x32",)}
     by_rows = ("ensemble_score", "ensemble_score_q8", "rbf_gram_q8")
     out = {}
@@ -554,14 +607,14 @@ def determinism(ops, device, cases):
             checks[f"two_launches_equal [{label}]"] = bool(torch.equal(first, kernel(*args)))
             if name in by_rows:   # x is the first argument
                 head = kernel(args[0][:1000].contiguous(), *args[1:])
-                checks[f"rows_1000_of_8192_equal [{label}]"] = bool(
+                checks[f"rows_1000_of_{args[0].shape[0]}_equal [{label}]"] = bool(
                     torch.equal(first[:1000], head))
-            if label == "group g256 b64":
+            if label.startswith("group ") and "g256 b64" in label:
                 K, y, n_real = (a[SDCA_MEMBER:SDCA_MEMBER + 1].contiguous() for a in args[:3])
                 alone = kernel(K, y, n_real, *args[3:])
                 checks[f"member {SDCA_MEMBER} alone equals in group [{label}]"] = bool(
                     torch.equal(alone[0], first[SDCA_MEMBER]))
-            if label == "fit emnist g256 b64":
+            if label.startswith("fit ") and "g256 b64" in label:
                 one = args[0][GRAM_MEMBER:GRAM_MEMBER + 1].contiguous()
                 alone = kernel(one, one, args[2][GRAM_MEMBER:GRAM_MEMBER + 1].contiguous())
                 checks[f"device {GRAM_MEMBER} alone equals in group [{label}]"] = bool(
@@ -581,6 +634,98 @@ def determinism(ops, device, cases):
     if failed:
         raise AssertionError(f"determinism: {failed}")
     return out
+
+
+IDENTITY_MEMBER = 3   # the group position of the device scored alone and in groups
+IDENTITY_QUERIES = {"val": (8, 32, 64), "test": (32, 48, 64)}   # q: 16-, 32-, 64-row tiles
+
+
+def population_identity(ops, device):
+    """Bit identity of one device's numbers across the group shapes the
+    streamed tier gives it, on the population round's own first fit group
+    (``ops.population_fit_group``: 256 dirichlet devices, bucket 64, d 16):
+    - SDCA: the first 8 members fitted as a group of 8 (Gram and solve, as
+      ``sim/engine.py::_fit_group`` runs them) equal their alphas in the
+      group of 256;
+    - scores: member ``IDENTITY_MEMBER``'s val rows (8) and test rows (32),
+      in a group of 8 padded to each q of ``IDENTITY_QUERIES`` (q selects
+      the Gram's 16-, 32- and 64-row tiles, ``batched_gram.tile_plan``)
+      and in the whole group of 256 at its own q, give the bits they give
+      alone (g 1, q its own rows rounded up to 8):
+      the Gram rows and the scores of ``_score_group`` (whose contraction
+      ``_row_dot`` sums in an order fixed by the bucket). Whether the
+      reference's einsum would have kept them equal is recorded beside
+      (``einsum_*``), not required."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.batched_gram import tile_plan
+    from repro_torch.sim import engine
+
+    lam, epochs = 0.01, 20
+    bucket, members, pad_floor = ops.population_fit_group(seed=0)
+
+    def packed(group):
+        xp, _, gam = ops.pack_fit_group(bucket, group, min(pad_floor, len(group)))
+        g = len(xp)
+        n_real = np.zeros(g, np.int32)
+        n_real[:len(group)] = [sp["train"].n for _, sp in group]
+        yp = np.ones((g, bucket), np.float32)
+        for i, (_, sp) in enumerate(group):
+            yp[i, :sp["train"].n] = sp["train"].y
+        alpha = engine._fit_group(*(torch.from_numpy(a).to(device) for a in (xp, yp, n_real, gam)),
+                                  lam, epochs).cpu().numpy()
+        y0 = np.where(np.arange(bucket)[None, :] < n_real[:, None], yp, 0.0)
+        coef = (alpha * y0 / (lam * np.maximum(n_real, 1)[:, None])).astype(np.float32)
+        return xp, gam, alpha, coef
+
+    xp256, gam256, alpha256, coef256 = packed(members)
+    xp8, gam8, alpha8, coef8 = packed(members[:8])
+    checks = {"sdca g8 alphas equal in g256 [b64 d16]": bool(
+        np.array_equal(alpha8, alpha256[:8]))}
+
+    gram = ops.KERNEL_REGISTRY["batched_rbf_gram"].kernel
+    j = IDENTITY_MEMBER
+    tiles = set()
+
+    def run(xq, sup, coef, gam):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (xq, sup, coef, gam)]
+        kq = gram(t[0], t[1], t[3])
+        return (kq.cpu().numpy(), engine._score_group(*t).cpu().numpy(),
+                torch.einsum("gqb,gb->gq", kq, t[2]).cpu().numpy())
+
+    for split, qs in IDENTITY_QUERIES.items():
+        rows = [sp[split].x for _, sp in members]
+        n = len(rows[j])
+        q1 = -(-n // engine.QUERY_PAD) * engine.QUERY_PAD
+        alone = np.zeros((1, q1, xp8.shape[2]), np.float32)
+        alone[0, :n] = rows[j]
+        k1, s1, e1 = run(alone, xp8[j:j + 1], coef8[j:j + 1], gam8[j:j + 1])
+        tiles.add(tile_plan(q1, bucket, xp8.shape[2])[0])
+        # g 8 at each q, then the whole group of 256 at the round's own q
+        einsums = {}
+        for g, q, sup, coef, gam in [(8, q, xp8, coef8, gam8) for q in qs] + [
+                (len(xp256), q1, xp256, coef256, gam256)]:
+            xq = np.zeros((g, q, xp8.shape[2]), np.float32)
+            for i, a in enumerate(rows[:g]):
+                xq[i, :len(a)] = a
+            kq, sc, ein = run(xq, sup, coef, gam)
+            rows_tile = tile_plan(q, bucket, xp8.shape[2])[0]
+            tiles.add(rows_tile)
+            key = f"{split} {n} rows g{g} q{q} ({rows_tile}-row tiles) vs alone q{q1}"
+            checks[f"gram {key}"] = bool(np.array_equal(kq[j, :n], k1[0, :n]))
+            checks[f"scores {key}"] = bool(np.array_equal(sc[j, :n], s1[0, :n]))
+            checks[f"einsum_{key}"] = bool(np.array_equal(ein[j, :n], e1[0, :n]))
+            einsums[g, q] = ein[j, :n]
+        checks[f"einsum_{split} g8 vs g256 q{q1}"] = bool(
+            np.array_equal(einsums[8, q1], einsums[len(xp256), q1]))
+    if tiles != {16, 32, 64}:
+        raise AssertionError(f"population identity: the queries reached tiles {sorted(tiles)}, "
+                             "want 16, 32 and 64")
+    failed = [c for c, ok in checks.items() if not ok and not c.startswith("einsum_")]
+    if failed:
+        raise AssertionError(f"population identity: {failed}")
+    return checks
 
 
 def round_signature(res):
@@ -699,6 +844,235 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False, 
     return out
 
 
+# the population phase: the streamed round at scale (``POP_SCALE``), the
+# parity runs (``POP_PARITY``) and the streamed pass's memory
+POP_KERNELS = ("batched_rbf_gram", "sdca", "ensemble_score", "gram_matvec")
+POP_SCALE = dict(scenario="dirichlet", n_devices=100_000, seed=0, mean_samples=80, dim=16,
+                 scenario_params={"alpha": 0.3}, engine="streamed", chunk_devices=1024,
+                 ks=(10, 50), strategies=("cv", "data", "random"), eval_device_cap=128,
+                 codec="fp32")
+POP_PARITY = {   # name -> (config fields, budget); chunk 300 divides neither 2,048 nor a group
+    "availability_int8": dict(scenario="availability", scenario_params={"base": "dirichlet"},
+                              codec="int8", budget_bytes=30_000),
+    "quantity_skew_fp32": dict(scenario="quantity_skew", scenario_params={"sigma": 1.2},
+                               codec="fp32"),
+}
+POP_PARITY_COMMON = dict(n_devices=2048, seed=3, mean_samples=80, dim=16, ks=(10, 50),
+                         eval_device_cap=128)
+POP_PARITY_CHUNK = 300
+POP_MEMORY_DEVICES = (25_000, 100_000)
+POP_MEMORY_BUDGET = 64 * 2**20   # the reference's bar (tests/test_stream.py)
+
+
+def population_fields(rep):
+    """Every ``PopulationReport`` field that must be exactly equal between
+    the streamed and the bucketed tier, the student's coefficients as bytes."""
+    import numpy as np
+
+    student = (None if rep.student is None
+               else np.asarray(rep.student.coef, np.float32).tobytes())
+    return {"n_available": rep.n_available, "n_eligible": rep.n_eligible,
+            "mean_val_auc": rep.mean_val_auc, "mean_local_auc": rep.mean_local_auc,
+            "ensemble_auc": rep.ensemble_auc, "comm": rep.comm,
+            "time_to_aggregate": rep.time_to_aggregate, "student_coef": student}
+
+
+def population_aucs(rep, distilled=True):
+    import numpy as np
+
+    vals = [rep.mean_val_auc, rep.mean_local_auc]
+    for s in sorted(rep.ensemble_auc):
+        if s != "distilled" or distilled:
+            vals += [rep.ensemble_auc[s][k] for k in sorted(rep.ensemble_auc[s])]
+    return np.asarray(vals, np.float64)
+
+
+def upload_ids(rep):
+    """(tag, device id) of every model upload on a materialised round's ledger."""
+    return [(e.tag, e.device_id) for e in rep.ledger.events if e.kind == "model_upload"]
+
+
+def population_parity(sim, trace, DistillConfig):
+    """(a): each ``POP_PARITY`` config bucketed on cuda, streamed on cuda in
+    chunks of ``POP_PARITY_CHUNK`` and bucketed on cpu (the plain versions),
+    with CG distillation on 1,024 validation-pool rows (the lazy pool on the
+    streamed run). Streamed equals bucketed in every report field, the
+    student's coefficients included; cuda and cpu have equal ``comm``,
+    picked ids and headcounts, and AUCs within AUC_TOL. The distilled
+    student's AUC is held to AUC_TOL only where the CG converged on both
+    devices: a CG stopped at ``maxiter`` returns an iterate that follows
+    the rounding of its matvec (on these configs its AUC moves ~1e-4 when
+    only the CPU matvec's precision changes), so there the difference is
+    reported beside the iterations."""
+    import numpy as np
+
+    distill = DistillConfig(proxy_size=1024, solver="cg", proxy="validation")
+    out = {}
+    for name, fields in POP_PARITY.items():
+        base = {**POP_PARITY_COMMON, **fields, "distill": distill}
+        runs, seconds, cg = {}, {}, {}
+        for label, engine, dev, extra in (
+                ("bucketed_cuda", "bucketed", "cuda", {}),
+                ("streamed_cuda", "streamed", "cuda", {"chunk_devices": POP_PARITY_CHUNK}),
+                ("bucketed_cpu", "bucketed", "cpu", {})):
+            tracer = trace.Tracer()
+            t0 = time.perf_counter()
+            with trace.use_tracer(tracer):
+                runs[label] = sim.run_population(
+                    sim.PopulationConfig(engine=engine, **base, **extra), device=dev)
+            seconds[label] = time.perf_counter() - t0
+            cg[label] = [ev["args"]["iterations"] for ev in tracer.events
+                         if ev["name"] == "distill.cg"]
+        card, strm, cpu = runs["bucketed_cuda"], runs["streamed_cuda"], runs["bucketed_cpu"]
+        a, b = population_fields(strm), population_fields(card)
+        unequal = sorted(k for k in a if a[k] != b[k])
+        converged = all(it < distill.maxiter for its in cg.values() for it in its)
+        diff = float(np.abs(population_aucs(card, converged)
+                            - population_aucs(cpu, converged)).max())
+        student_diff = float(np.abs(population_aucs(card) - population_aucs(cpu)).max())
+        ids_equal = upload_ids(card) == upload_ids(cpu)
+        budget = fields.get("budget_bytes")
+        k50 = {tag: sum(1 for t, _ in upload_ids(card) if t == tag)
+               for tag in sorted({t for t, _ in upload_ids(card)}) if tag.endswith("_k50")}
+        out[name] = {
+            "seconds": seconds, "n_available": card.n_available, "n_eligible": card.n_eligible,
+            "ensemble_auc": {s: {str(k): v for k, v in d.items()}
+                             for s, d in card.ensemble_auc.items()},
+            "student_supports": len(card.student.coef), "student_codec": card.student_codec,
+            "streamed_equals_bucketed": not unequal, "unequal_fields": unequal,
+            "cg_iterations": cg, "cg_converged": converged,
+            "cuda_vs_cpu": {"comm_equal": card.comm == cpu.comm, "ids_equal": ids_equal,
+                            "headcounts_equal": (card.n_available, card.n_eligible)
+                            == (cpu.n_available, cpu.n_eligible),
+                            "max_auc_diff_held": diff,
+                            "max_auc_diff_with_student": student_diff},
+            "budget_bytes": budget, "k50_uploads": k50,
+        }
+        if unequal:
+            raise AssertionError(f"population parity [{name}]: streamed differs from bucketed "
+                                 f"on cuda in {unequal}")
+        if not (card.comm == cpu.comm and ids_equal and card.n_eligible == cpu.n_eligible
+                and card.n_available == cpu.n_available):
+            raise AssertionError(f"population parity [{name}]: cuda and cpu differ in comm, "
+                                 "picked ids or headcounts")
+        if not diff <= AUC_TOL:
+            raise AssertionError(f"population parity [{name}]: cuda and cpu AUCs differ by "
+                                 f"{diff} > {AUC_TOL}")
+        if budget is not None and not (k50 and min(k50.values()) < 50):
+            raise AssertionError(f"population parity [{name}]: the budget of {budget} bytes "
+                                 f"does not bind at k 50 ({k50})")
+    return out
+
+
+def population_memory(sim, device, n_devices, chunk):
+    """(c): the peak traced host memory (``tracemalloc``) of the streamed
+    pass alone (``iter_population(mode="streamed")``) on ``POP_SCALE``'s
+    dirichlet population of ``n_devices``, beside the card's peak
+    allocated bytes and the pass's seconds."""
+    import tracemalloc
+
+    import torch
+
+    cfg = POP_SCALE
+    stream = sim.device_stream(cfg["scenario"], n_devices=n_devices, seed=cfg["seed"],
+                               mean_samples=cfg["mean_samples"], dim=cfg["dim"],
+                               **cfg["scenario_params"])
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tracemalloc.start()
+    count = 0
+    for update in sim.iter_population(stream, mode="streamed", seed=cfg["seed"],
+                                      chunk_devices=chunk, device=device):
+        count += len(update.outcomes)
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    torch.cuda.synchronize()
+    if count != n_devices:
+        raise AssertionError(f"population memory: {count} outcomes for {n_devices} devices")
+    return {"devices": n_devices, "host_peak_bytes": peak,
+            "card_peak_allocated_bytes": torch.cuda.max_memory_allocated(device),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMORY_DEVICES):
+    """(a) parity, (b) the 100,000-device streamed dirichlet round at full
+    width (d 16) on cuda with CG distillation on 4,096 ``scenario`` proxy
+    rows, then once more under the profiler, (c) the streamed pass's
+    traced host memory at ``memory_devices``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+
+    out = {"parity": population_parity(sim, trace, DistillConfig)}
+
+    cfg = sim.PopulationConfig(**POP_SCALE, distill=DistillConfig(
+        proxy_size=4096, solver="cg", proxy="scenario"))
+    tracer = trace.Tracer()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        rep = sim.run_population(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    spans = tracer.span_seconds()
+    chunks = sum(1 for ev in tracer.events if ev["name"] == "engine.chunk" and ev["ph"] == "B")
+    groups = sum(1 for ev in tracer.events if ev["name"] == "engine.group" and ev["ph"] == "B")
+    cg = [ev["args"]["iterations"] for ev in tracer.events if ev["name"] == "distill.cg"]
+    aucs = population_aucs(rep)
+    scale = {
+        "config": {k: v for k, v in POP_SCALE.items()}, "distill": "cg, 4096 scenario rows",
+        "wall_seconds": wall, "train_seconds": rep.train_seconds,
+        "devices_per_second": cfg.n_devices / wall,
+        "trained_devices_per_second": rep.devices_per_second,
+        "spans": {k: v for k, v in sorted(spans.items())
+                  if k.startswith(("round.", "distill.round"))},
+        "engine_chunks": chunks, "engine_groups": groups, "cg_iterations": cg,
+        "n_available": rep.n_available, "n_eligible": rep.n_eligible,
+        "mean_local_auc": rep.mean_local_auc, "mean_val_auc": rep.mean_val_auc,
+        "ensemble_auc": {s: {str(k): v for k, v in d.items()}
+                         for s, d in rep.ensemble_auc.items()},
+        "comm": rep.comm, "student_supports": len(rep.student.coef),
+        "card_peak_allocated_bytes": torch.cuda.max_memory_allocated(device),
+        "kernels": counts,
+    }
+    want_chunks = -(-cfg.n_devices // cfg.chunk_devices)
+    if chunks != want_chunks:
+        raise AssertionError(f"population: {chunks} engine.chunk spans, want {want_chunks}")
+    if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
+        raise AssertionError("population: AUCs not finite or outside [0, 1]")
+    if rep.n_available != cfg.n_devices or not 0 < rep.n_eligible <= rep.n_available:
+        raise AssertionError(f"population: {rep.n_available} available and "
+                             f"{rep.n_eligible} eligible of {cfg.n_devices}")
+    cells = {s: sorted(v) for s, v in rep.ensemble_auc.items()}
+    if any(cells.get(s) != sorted(cfg.ks) for s in cfg.strategies) or "distilled" not in cells:
+        raise AssertionError(f"population: ensemble cells {cells}")
+    missing = [k for k in POP_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"population: kernels never launched on the path: {missing}")
+    if sum(cg) != counts["gram_matvec"]:
+        raise AssertionError(f"population: gram_matvec launched {counts['gram_matvec']} "
+                             f"times for {sum(cg)} CG iterations")
+    scale["profile"], _ = profile_call(lambda: sim.run_population(cfg, device="cuda"))
+    out["scale"] = scale
+
+    memory = [population_memory(sim, device, n, POP_SCALE["chunk_devices"])
+              for n in memory_devices]
+    small, large = (m["host_peak_bytes"] for m in memory)
+    out["memory"] = {"runs": memory, "budget_bytes": POP_MEMORY_BUDGET,
+                     "flat": large < max(1.5 * small, small + 8 * 2**20)}
+    if not large < POP_MEMORY_BUDGET:
+        raise AssertionError(f"population memory: peak {large} bytes over the "
+                             f"{POP_MEMORY_BUDGET}-byte budget")
+    if not out["memory"]["flat"]:
+        raise AssertionError(f"population memory: the peak grew with the population: "
+                             f"{small} -> {large} bytes")
+    out["kernels"] = counts
+    return out
+
+
 IDEAL_ROWS = 2000   # run_protocol's ideal_cap: the ideal's Gram is 2,000 x 2,000
 
 
@@ -773,6 +1147,7 @@ def profile_call(fn, top=20, functions=()):
 
 
 DEVICE_CALLS = 20   # at least this many calls in a device-time window
+DEVICE_WINDOWS = 3  # windows tried before a call counts as recorded by no kernel
 
 
 def device_time(fn, args, reps):
@@ -784,12 +1159,19 @@ def device_time(fn, args, reps):
     profiler does not record the window's first few launches, so the
     calls made are no divisor)."""
     calls = max(reps, DEVICE_CALLS)
-    prof, _ = profile_call(lambda: [fn(*args) for _ in range(calls)], top=8)
-    kernels = prof["by_kernel"]
-    if not kernels:
-        raise AssertionError("timing: the profiler recorded no kernel of the call")
+    windows = []
+    for _ in range(DEVICE_WINDOWS):   # a window the profiler missed whole: 4x longer
+        prof, _ = profile_call(lambda: [fn(*args) for _ in range(calls)], top=8)
+        kernels = prof["by_kernel"]
+        windows.append(calls)
+        if kernels:
+            break
+        calls *= 4
+    else:
+        raise AssertionError(f"timing: the profiler recorded no kernel in windows of "
+                             f"{windows} calls")
     ms = 1e3 * sum(k["seconds"] / k["count"] for k in kernels)
-    return ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels)
+    return ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels), windows
 
 
 def phase_lm_parity(ops, device):
@@ -988,13 +1370,14 @@ def sdpa_library(q, k, v, causal, window):
 TIMING_CASES = {
     # first case of each kernel is the one the summary line reports
     "batched_rbf_gram": ("fit g256 b64", "fit g256 b128", "fit g128 b256", "score g256 q16 b64",
-                         "score g256 q56 b64", "score g128 q184 b256"),
+                         "score g256 q56 b64", "score g128 q184 b256",
+                         "fit dirichlet g256 b64 d16"),
     "rbf_gram": ("ideal 2000x2000x32",),
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
-                       "ideal predict b8192 k1 n2000"),
+                       "ideal predict b8192 k1 n2000", "population b4096 k50 n40 d16"),
     "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
-             "group g128 b256"),
-    "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32"),
+             "group g128 b256", "group dirichlet g256 b64"),
+    "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32", "cg l4096 d16"),
     "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32"),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
@@ -1017,13 +1400,18 @@ def phase_timing(ops, device, rng, names):
             targs = to_device(args, device)
             library = LIBRARY.get(name)
             turns, reps = time_pair(spec.kernel, spec.plain, targs, library=library)
-            dev_ms, dev_launches, dev_names = device_time(spec.kernel, targs, reps["kernel"])
+            try:
+                dev_ms, dev_launches, dev_names, windows = device_time(spec.kernel, targs,
+                                                                       reps["kernel"])
+            except AssertionError as e:
+                raise AssertionError(f"{name} [{label}]: {e}") from e
             bound_ms, bound_by = bound_of(name, args)
             ops_n, bytes_n = work_of(name, args)
             row = {
                 "kernel": name, "case": label,
                 "ms": sum(turns["kernel"]) / 2, "device_ms": dev_ms,
                 "device_launches_recorded": dev_launches, "device_kernels": dev_names,
+                "device_windows": windows,
                 "plain_ms": sum(turns["plain"]) / 2,
                 "library_ms": sum(turns["library"]) / 2 if library else None,
                 "turns": turns, "reps": reps, "bound_ms": bound_ms,
@@ -1129,6 +1517,9 @@ def main(argv=None) -> int:
                 out = phase_main(make_dataset, run_protocol, ops, trace,
                                  FP32_KERNELS + Q8_KERNELS, codec="int8",
                                  distill=DistillConfig(proxy_size=4096, solver="cg"))
+                counts[phase] = out["kernels"]
+            elif phase == "population":
+                out = phase_population(ops, trace, DistillConfig, device)
                 counts[phase] = out["kernels"]
             elif phase == "lm_parity":
                 out = phase_lm_parity(ops, device)

@@ -22,10 +22,11 @@ scoring kernel in ``eval_chunk``-row blocks, folding scores into
 per-device AUC accumulators.
 
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
-kernels' plain versions). Options outside the ported slice (the
-streamed and sharded engines, aggregators other than mean, the
-``scenario`` proxy source) raise ``NotImplementedError`` naming their
-ROADMAP item.
+kernels' plain versions). ``engine="streamed"`` trains the materialised
+dataset through the streamed tier (``train_population`` wraps it as a
+stream), with the bucketed tier's results. Options outside the ported
+slice (the sharded engine, aggregators other than mean) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -106,11 +107,10 @@ def _mean_auc_over_devices(devices: Sequence, scores_fn, chunk: int = 8192) -> t
 
 
 def _check_engine(engine) -> None:
-    if engine in ("sharded", "streamed"):
-        item = 15 if engine == "sharded" else 9
+    if engine == "sharded":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP queue 1 item {item})")
-    if engine not in ("bucketed", "loop"):
+            "engine='sharded' is not ported yet (ROADMAP queue 1 item 15)")
+    if engine not in ("bucketed", "loop", "streamed"):
         raise ValueError(f"unknown engine mode {engine!r}")
 
 

@@ -3,7 +3,7 @@ ensemble into one kernel expansion on proxy data (the paper's Eq. 3).
 
 solvers.py  kernel-ridge solver registry: dense, CG (its matvec the
             ``gram_matvec`` kernel), Nystrom, auto
-proxy.py    proxy-data registry: validation, public, gaussian
+proxy.py    proxy-data registry: validation, public, gaussian, scenario
 sweep.py    batched multi-l distillation (the fig-3 sweep in one solve)
 round.py    the round's distillation leg: proxy, solve, wire, ledger
 config.py   ``DistillConfig``, the knob object ``run_protocol`` takes
@@ -12,6 +12,7 @@ from repro_torch.distill.config import DistillConfig
 from repro_torch.distill.proxy import (
     PROXIES,
     ProxyContext,
+    list_proxies,
     make_proxy,
     register_proxy,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "distill_sweep",
     "distill_teacher",
     "get_solver",
+    "list_proxies",
     "make_proxy",
     "register_proxy",
     "register_solver",

@@ -9,7 +9,7 @@ and hand back the DECODED student for evaluation, all inside one
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -38,17 +38,29 @@ def distill_round(
     round_codec: str,
     ledger,
     dim: Optional[int] = None,
+    default_proxy_params: Optional[Mapping] = None,
+    split_counts=None,
+    fetch_split=None,
     device="cuda",
 ) -> DistilledRound:
     """Proxy draw -> solve on ``device`` -> wire -> ledger, for one round.
 
-    The student download codec defaults to the round's upload codec.
+    ``default_proxy_params`` backstop the config's ``proxy_params``
+    (the population runner defaults the ``scenario`` source to its own
+    federation); the student download codec defaults to the round's
+    upload codec. Streamed rounds pass ``devices=None`` plus the lazy
+    ``split_counts``/``fetch_split`` pair (see ``proxy.ProxyContext``).
     """
     with current_tracer().span("distill.round", cat="distill",
                                solver=cfg.solver, proxy=cfg.proxy,
                                proxy_size=cfg.proxy_size):
+        params = dict(cfg.proxy_params)
+        for key, val in dict(default_proxy_params or {}).items():
+            params.setdefault(key, val)
         proxy = make_proxy(cfg.proxy, n=cfg.proxy_size, rng=distill_rng(seed),
-                           devices=devices, dim=dim, **cfg.proxy_params)
+                           devices=devices, dim=dim,
+                           split_counts=split_counts, fetch_split=fetch_split,
+                           **params)
         student = distill_teacher(teacher_predict, proxy, cfg=cfg, seed=seed,
                                   device=device)
         codec = cfg.codec or round_codec

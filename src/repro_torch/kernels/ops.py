@@ -252,22 +252,17 @@ def round_gram_launches(dataset, seed: int = 0, group_cap: int = 256) -> list:
     return out
 
 
-def make_fit_group_problem(seed: int = 0, scale: float = 1.0) -> tuple:
-    """The first bucket-64 group's fit Gram input of the bucketed round on
-    ``make_dataset("emnist", seed, scale)``, packed as
+def pack_fit_group(bucket: int, members: list, pad_floor: int) -> tuple:
+    """One group's fit Gram input packed as
     ``sim/engine.py::_train_bucket_group`` packs it: each member's train
-    rows zero-padded to 64 rows, the group padded with zero devices to a
-    power of two, gammas each member's ``default_gamma`` (1 for a padding
-    device). At scale 1.0 that is g 256 x b 64 x d 32 of real emnist-like
-    rows with padded rows, which random normals never have. Returns
-    ``(xp, xp, gammas)``, ``batched_rbf_gram``'s arguments, x2 the same
-    array as x1 as the fit passes it."""
+    rows zero-padded to ``bucket`` rows, the group padded with zero
+    devices to a power of two, gammas each member's ``default_gamma``
+    (1 for a padding device). Returns ``(xp, xp, gammas)``,
+    ``batched_rbf_gram``'s arguments, x2 the same array as x1 as the fit
+    passes it."""
     from repro_torch.core.svm import default_gamma
-    from repro_torch.data import make_dataset
     from repro_torch.sim.engine import _pad_pow2
 
-    groups = bucket_groups(make_dataset("emnist", seed=seed, scale=scale), seed)
-    bucket, members, pad_floor = next(grp for grp in groups if grp[0] == 64)
     trains = [sp["train"] for _, sp in members]
     g = _pad_pow2(len(members), lo=pad_floor)
     xp = np.zeros((g, bucket, trains[0].x.shape[1]), np.float32)
@@ -276,6 +271,57 @@ def make_fit_group_problem(seed: int = 0, scale: float = 1.0) -> tuple:
         xp[i, :t.n] = t.x
         gammas[i] = default_gamma(t.x)
     return xp, xp, gammas
+
+
+def make_fit_group_problem(seed: int = 0, scale: float = 1.0) -> tuple:
+    """The first bucket-64 group's fit Gram input of the bucketed round on
+    ``make_dataset("emnist", seed, scale)``, packed by ``pack_fit_group``.
+    At scale 1.0 that is g 256 x b 64 x d 32 of real emnist-like rows
+    with padded rows, which random normals never have."""
+    from repro_torch.data import make_dataset
+
+    groups = bucket_groups(make_dataset("emnist", seed=seed, scale=scale), seed)
+    return pack_fit_group(*next(grp for grp in groups if grp[0] == 64))
+
+
+def population_fit_group(seed: int = 0, chunk_devices: int = 1024) -> tuple:
+    """``(bucket, members, pad_floor)`` of the first group the streamed
+    round trains on the dirichlet population (alpha 0.3, 80 samples a
+    device, d 16): the first bucket-64 group of its first chunk of
+    ``chunk_devices`` devices (device i does not depend on the
+    population's size, so a stream of one chunk holds it)."""
+    from repro_torch.sim.scenarios import device_stream
+
+    fed = device_stream("dirichlet", n_devices=chunk_devices, seed=seed, mean_samples=80,
+                        dim=16, alpha=0.3).materialize()
+    return next(grp for grp in bucket_groups(fed.dataset, seed) if grp[0] == 64)
+
+
+def make_population_fit_group_problem(seed: int = 0) -> tuple:
+    """``population_fit_group``'s fit Gram input (g 256 x b 64 x d 16),
+    packed by ``pack_fit_group``."""
+    return pack_fit_group(*population_fit_group(seed))
+
+
+def make_population_sdca_problem(seed: int = 0, lam: float = 0.01,
+                                 epochs: int = 20) -> tuple:
+    """``population_fit_group``'s SDCA problem as ``sim/engine.py::_fit_group``
+    builds it: the fit Gram (its plain version, on the host) with padded
+    rows and columns zeroed, labels padded with +1, int32 counts. Returns
+    ``sdca``'s arguments ``(K, y, n_real, lam, epochs)``, g 256 x b 64."""
+    bucket, members, pad_floor = population_fit_group(seed)
+    xp, _, gammas = pack_fit_group(bucket, members, pad_floor)
+    g = len(xp)
+    n_real = np.zeros(g, np.int32)
+    n_real[:len(members)] = [sp["train"].n for _, sp in members]
+    yp = np.ones((g, bucket), np.float32)
+    for i, (_, sp) in enumerate(members):
+        yp[i, :sp["train"].n] = sp["train"].y
+    x = torch.from_numpy(xp)
+    K = batched_gram.batched_rbf_gram_plain(x, x, torch.from_numpy(gammas)).numpy()
+    valid = np.arange(bucket)[None, :] < n_real[:, None]
+    K = K * (valid[:, :, None] & valid[:, None, :])
+    return np.ascontiguousarray(K, np.float32), yp, n_real, lam, epochs
 
 
 def _emnist_devices(seed: int, scale: float) -> list:

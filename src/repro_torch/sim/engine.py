@@ -1,10 +1,18 @@
-"""Device-parallel local training engine: the loop and bucketed tiers.
+"""Device-parallel local training engine: the loop, bucketed and
+streamed tiers.
 
-Port of ``repro.sim.engine``'s materialised tiers:
+Port of ``repro.sim.engine``:
 
   mode="loop"      sequential per-device oracle: one Gram, one SDCA
                    solve, one scoring pass per device
   mode="bucketed"  whole cohorts per batched pass on one card
+  mode="streamed"  the bucketed passes over BOUNDED CHUNKS of a lazy
+                   ``DeviceStream``: devices are generated, trained and
+                   released chunk by chunk, so peak host memory is
+                   O(chunk_devices), not O(population)
+
+(``mode="sharded"`` raises: the multi-GPU tier is ROADMAP queue 1 item
+15.)
 
 The bucketed tier fits whole cohorts of devices at once:
 
@@ -24,6 +32,18 @@ byte for byte the reference's; only the Gram, the solve and the score
 contraction run on ``device``. Padded Gram rows/cols are masked to zero
 and padded labels are +1, as in ``train_svm``, so per-device results
 match the loop tier to float-accumulation noise (the bar is 1e-4).
+
+The streamed tier runs the same classification, bucketing, padding and
+fit/score math as the bucketed tier; only the group COMPOSITION differs
+(chunk-local buckets instead of population-wide ones). A device's
+numbers must not depend on its group: each kernel's output depends on
+its own rows alone (the Gram's tile plan, SDCA's per-device solve), and
+the score contraction ``_row_dot`` sums in an order fixed by the bucket
+alone, where a batched matrix product's order may follow g and q. So
+the streamed tier is bitwise the bucketed tier, on the card and on the
+CPU. ``train_selected`` regenerates only a chosen id set through the
+same math: the server-side rebuild of the k selected models after a
+streamed selection pass.
 """
 from __future__ import annotations
 
@@ -46,6 +66,7 @@ from repro_torch.data.partition import derive_device_seed, split_train_test_val
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import current_tracer, stopwatch
+from repro_torch.sim.scenarios import DeviceStream, ScenarioSpec
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.metrics import roc_auc
@@ -152,12 +173,30 @@ def _fit_group(xp, yp, n_real, gammas, lam: float, epochs: int) -> torch.Tensor:
     return kops.sdca(K, yp, n_real, lam, epochs)
 
 
+def _row_dot(kq: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """sum_b kq[g, q, b] * coef[g, b] -> (g, q), in an order fixed by b
+    alone: the products, then the two halves of the columns added
+    elementwise until one is left (an odd column out is added to the
+    first). Every step is one IEEE operation an element, so the result
+    is the same bits for any g and q, on the card and on the CPU; a
+    batched matrix product (the reference's einsum) may pick its
+    reduction order from the shapes."""
+    t = kq * coef[:, None, :]
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        head = t[..., :h] + t[..., h:2 * h]
+        if t.shape[-1] % 2:
+            head[..., :1] += t[..., 2 * h:]
+        t = head
+    return t[..., 0]
+
+
 def _score_group(xq, sup, coef, gammas) -> torch.Tensor:
     """Batched decision scores: (g, q, d) queries against (g, b, d)
     supports. Zero-padded supports contribute nothing via zero coefs;
     padded query rows are sliced off by the caller."""
     Kq = kops.batched_rbf_gram(xq, sup, gammas)  # (g, q, b)
-    return torch.einsum("gqb,gb->gq", Kq, coef)
+    return _row_dot(Kq, coef)
 
 
 def _pad_pow2(n: int, lo: int = 8) -> int:
@@ -266,7 +305,7 @@ def _train_buckets(by_bucket, lam, epochs, group_cap, device):
 
 
 def iter_population(
-    dataset: FederatedDataset,
+    dataset,
     *,
     lam: float = 0.01,
     seed: int = 0,
@@ -274,18 +313,55 @@ def iter_population(
     mode: str = "bucketed",
     epochs: int = 20,
     group_cap: int = 256,
+    available: Optional[np.ndarray] = None,
+    chunk_devices: int = 1024,
     device="cuda",
 ) -> Iterator[GroupUpdate]:
-    """Train a device population, streaming one GroupUpdate per batch."""
-    if mode in ("sharded", "streamed"):
+    """Train a device population, streaming one GroupUpdate per batch.
+
+    ``dataset`` is a materialised ``FederatedDataset`` or a lazy
+    ``scenarios.DeviceStream``. Passing a stream to a materialising mode
+    realises it first; passing a dataset to the streamed mode wraps it
+    (the streamed tier then bounds the card's batches, but host memory
+    is already O(population)).
+
+    ``available`` (optional bool mask, len n_devices) drops absent
+    devices entirely — they neither train nor report. A stream's own
+    lazy availability mask composes with it (logical AND).
+
+    ``mode="streamed"`` generates, trains and releases devices in
+    ``chunk_devices``-sized chunks: peak host memory is O(chunk), and
+    per-device results equal the bucketed tier's.
+    """
+    if mode == "sharded":
         raise NotImplementedError(
-            f"engine mode {mode!r} is not ported yet (ROADMAP queue 1, "
-            f"item {15 if mode == 'sharded' else 9})")
-    if mode not in ("bucketed", "loop"):
+            "engine mode 'sharded' is not ported yet (ROADMAP queue 1, item 15)")
+    if mode not in ("bucketed", "loop", "streamed"):
         raise ValueError(f"unknown engine mode {mode!r}")
     dev = resolve_device(device)
+
+    if mode == "streamed":
+        stream = dataset if isinstance(dataset, DeviceStream) else _dataset_as_stream(dataset)
+        yield from _iter_streamed(
+            stream, lam=lam, seed=seed,
+            min_samples=stream.min_samples if min_samples is None else min_samples,
+            epochs=epochs, group_cap=group_cap, available=available,
+            chunk_devices=chunk_devices, device=dev,
+        )
+        return
+
+    if isinstance(dataset, DeviceStream):
+        fed = dataset.materialize()
+        mask = np.asarray(fed.available)
+        if available is not None:
+            mask = mask & np.asarray(available, bool)
+        dataset, available = fed.dataset, mask
+
     min_samples = dataset.min_samples if min_samples is None else min_samples
-    ids = list(range(dataset.n_devices))
+    ids = [
+        i for i in range(dataset.n_devices)
+        if available is None or bool(available[i])
+    ]
     total = len(ids)
     done = 0
 
@@ -320,8 +396,101 @@ def iter_population(
         yield GroupUpdate(bucket, outs, secs, done, total)
 
 
+def _dataset_as_stream(dataset: FederatedDataset) -> DeviceStream:
+    """View a materialised dataset through the stream interface."""
+    spec = ScenarioSpec(
+        name=dataset.name, n_devices=dataset.n_devices,
+        dim=dataset.dim, min_samples=dataset.min_samples,
+    )
+    return DeviceStream(spec=spec, gen=lambda i: dataset.devices[i])
+
+
+def _iter_streamed(
+    stream: DeviceStream, *, lam, seed, min_samples, epochs, group_cap, available,
+    chunk_devices, device,
+) -> Iterator[GroupUpdate]:
+    if chunk_devices < 1:
+        raise ValueError(f"chunk_devices must be >= 1, got {chunk_devices}")
+
+    def admitted(i: int) -> bool:
+        if available is not None and not bool(available[i]):
+            return False
+        return stream.available(i)
+
+    if available is None:
+        total = stream.count_available()
+    else:
+        total = sum(1 for i in range(stream.n_devices) if admitted(i))
+    done = 0
+
+    tracer = current_tracer()
+    reg = default_registry()
+    for lo in range(0, stream.n_devices, chunk_devices):
+        hi = min(lo + chunk_devices, stream.n_devices)
+        with tracer.span("engine.chunk", cat="engine", lo=lo, hi=hi):
+            elapsed = stopwatch()
+            fallback: List[DeviceOutcome] = []
+            by_bucket: Dict[int, List[tuple]] = {}
+            for i in range(lo, hi):
+                if not admitted(i):
+                    continue
+                bucket, payload = _classify_device(i, stream.device(i),
+                                                   min_samples, seed=seed)
+                if bucket is None:
+                    fallback.append(payload)
+                else:
+                    by_bucket.setdefault(bucket, []).append((i, payload))
+            if fallback:
+                done += len(fallback)
+                yield GroupUpdate(0, fallback, elapsed(), done, total)
+            for bucket, outs, secs in _train_buckets(by_bucket, lam, epochs,
+                                                     group_cap, device):
+                done += len(outs)
+                yield GroupUpdate(bucket, outs, secs, done, total)
+        reg.counter("engine.chunks").inc()
+        # the chunk's devices die with these locals on the next pass —
+        # nothing population-sized is ever retained here
+
+
+def train_selected(
+    stream: DeviceStream,
+    ids,
+    *,
+    lam: float = 0.01,
+    seed: int = 0,
+    min_samples: Optional[int] = None,
+    epochs: int = 20,
+    group_cap: int = 256,
+    device="cuda",
+) -> Dict[int, DeviceOutcome]:
+    """Regenerate and train ONLY the given device ids from a stream.
+
+    The server-side rebuild after a streamed selection pass: with k
+    winners out of a 10^6-device population, this touches k devices
+    instead of re-streaming everyone. Same classification, bucketing
+    and fit/score math as every other tier, so the outcomes equal what
+    the full pass produced for those ids (group-composition invariance
+    again).
+    """
+    dev = resolve_device(device)
+    min_samples = stream.min_samples if min_samples is None else min_samples
+    out: Dict[int, DeviceOutcome] = {}
+    by_bucket: Dict[int, List[tuple]] = {}
+    for i in sorted(set(int(i) for i in ids)):
+        bucket, payload = _classify_device(i, stream.device(i), min_samples,
+                                           seed=seed)
+        if bucket is None:
+            out[payload.device_id] = payload
+        else:
+            by_bucket.setdefault(bucket, []).append((i, payload))
+    for _, outs, _ in _train_buckets(by_bucket, lam, epochs, group_cap, dev):
+        for o in outs:
+            out[o.device_id] = o
+    return out
+
+
 def train_population(
-    dataset: FederatedDataset, on_update=None, **kw
+    dataset, on_update=None, **kw
 ) -> PopulationResult:
     """Drain ``iter_population`` into a result sorted by device id,
     invoking ``on_update(GroupUpdate)`` after each streamed group."""

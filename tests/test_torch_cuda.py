@@ -270,6 +270,82 @@ def test_train_population_matches_cpu(cuda_device):
         np.testing.assert_allclose(a.local_test_scores, b.local_test_scores, atol=1e-4)
 
 
+def test_streamed_tier_equals_bucketed_on_the_card(cuda_device):
+    """A quantity-skew population (device sizes vary, so chunk-local
+    groups differ from the population-wide ones in bucket, g and q): the
+    streamed tier in chunks of 1, 5 and 13 devices gives the bucketed
+    tier's outcomes bit for bit on the card, and ``train_selected`` the
+    full pass's."""
+    from repro_torch.sim import device_stream, train_population, train_selected
+
+    stream = device_stream("quantity_skew", n_devices=40, seed=3, mean_samples=60,
+                           min_samples=40, dim=16, sigma=1.2)
+    want = train_population(stream, mode="bucketed", seed=3, device=cuda_device).outcomes
+    assert sum(o.report.eligible for o in want) >= 10
+    picked = train_selected(stream, [2, 7, 19, 31], seed=3, device=cuda_device)
+    for chunk in (1, 5, 13):
+        got = train_population(stream, mode="streamed", seed=3, chunk_devices=chunk,
+                               device=cuda_device).outcomes
+        for a, b in zip(got, want):
+            assert a.report == b.report
+            assert a.val_scores.tobytes() == b.val_scores.tobytes()
+            assert a.local_test_scores.tobytes() == b.local_test_scores.tobytes()
+            if a.report.eligible:
+                assert a.model.coef.tobytes() == b.model.coef.tobytes()
+    for i, o in picked.items():
+        assert o.val_scores.tobytes() == want[i].val_scores.tobytes()
+
+
+def test_a_querys_score_is_the_same_at_every_tile_height(cuda_device):
+    """One device's val rows scored in groups whose query pad q selects
+    the Gram's 16-, 32- and 64-row tiles give the bits they give alone
+    (``chip_smoke.py``'s ``population_identity`` at a test's size)."""
+    from repro_torch.kernels.batched_gram import tile_plan
+    from repro_torch.sim import engine
+
+    rng = _rng("tile-heights")
+    d, b, n = 16, 64, 8
+    sup = rng.normal(size=(8, b, d)).astype(np.float32)
+    coef = (rng.normal(size=(8, b)) / b).astype(np.float32)
+    gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=8))).astype(np.float32)
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    alone = engine._score_group(*_on((rows[None], sup[3:4].copy(), coef[3:4].copy(),
+                                      gam[3:4].copy()), cuda_device))
+    tiles = set()
+    for q in (8, 32, 48, 64):
+        xq = rng.normal(size=(8, q, d)).astype(np.float32)
+        xq[3] = 0.0
+        xq[3, :n] = rows
+        tiles.add(tile_plan(q, b, d)[0])
+        got = engine._score_group(*_on((xq, sup, coef, gam), cuda_device))
+        assert torch.equal(got[3, :n], alone[0]), q
+    assert tiles == {16, 32, 64}
+
+
+def test_population_round_matches_cpu(cuda_device):
+    """A small streamed population round on the card: equal to the
+    bucketed round on the card in every field, and to the CPU round in
+    ``comm``, ids and headcounts with AUCs within 1e-4."""
+    from repro_torch.sim import PopulationConfig, run_population
+
+    base = dict(scenario="availability", n_devices=64, seed=3, mean_samples=60,
+                min_samples=40, dim=16, ks=(3, 8), codec="int8", eval_device_cap=24)
+    card = run_population(PopulationConfig(engine="bucketed", **base), device=cuda_device)
+    strm = run_population(PopulationConfig(engine="streamed", chunk_devices=9, **base),
+                          device=cuda_device)
+    cpu = run_population(PopulationConfig(engine="bucketed", **base), device="cpu")
+    for field in ("n_available", "n_eligible", "mean_val_auc", "mean_local_auc",
+                  "ensemble_auc", "comm", "time_to_aggregate"):
+        assert getattr(strm, field) == getattr(card, field), field
+    assert card.comm == cpu.comm and (card.n_available, card.n_eligible) == \
+        (cpu.n_available, cpu.n_eligible)
+    assert ([(e.tag, e.device_id) for e in card.ledger.events]
+            == [(e.tag, e.device_id) for e in cpu.ledger.events])
+    for s in card.ensemble_auc:
+        for k in card.ensemble_auc[s]:
+            assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
+
+
 def test_round_matches_cpu(cuda_device):
     from repro_torch.core.protocol import run_protocol
     from repro_torch.data import make_dataset

@@ -107,11 +107,23 @@ def test_proxy_draws_are_bit_identical(name, n):
     assert pt.tobytes() == ref.tobytes()
 
 
-def test_scenario_proxy_waits_for_the_streamed_tier():
+@pytest.mark.parametrize("scenario,params", [
+    ("dirichlet", {}), ("quantity_skew", {"sigma": 1.2}),
+    ("availability", {"base": "feature_shift"}), ("temporal_drift", {"n_devices": 5}),
+])
+def test_scenario_proxy_draws_are_bit_identical(scenario, params):
+    """The ``scenario`` source redraws a federation from the scenario
+    registry under a seed from the distillation stream: all numpy, so the
+    port's rows are the reference's bits."""
     assert set(pt_proxy.PROXIES) == set(ref_proxy.PROXIES)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        pt_proxy.make_proxy("scenario", n=10, rng=pt_solvers.distill_rng(0), dim=4,
-                            scenario="iid")
+    assert pt_proxy.list_proxies() == ref_proxy.list_proxies()
+    kw = dict(n=150, dim=6, scenario=scenario, mean_samples=30, **params)
+    ref = ref_proxy.make_proxy("scenario", rng=ref_solvers.distill_rng(2), **kw)
+    pt = pt_proxy.make_proxy("scenario", rng=pt_solvers.distill_rng(2), **kw)
+    assert pt.dtype == np.float32 and pt.shape == ref.shape
+    assert pt.tobytes() == ref.tobytes()
+    with pytest.raises(ValueError, match="params\\['scenario'\\]"):
+        pt_proxy.make_proxy("scenario", n=10, rng=pt_solvers.distill_rng(0), dim=4)
 
 
 def test_sweep_matches_reference():

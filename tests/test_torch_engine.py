@@ -78,7 +78,7 @@ def test_bucketed_groups_follow_the_reference_caps():
     assert pt_engine.GRAM_ELEM_BUDGET == ref_engine.GRAM_ELEM_BUDGET
 
 
-@pytest.mark.parametrize("mode", ["sharded", "streamed"])
+@pytest.mark.parametrize("mode", ["sharded"])
 def test_unported_engine_tiers_raise(mode):
     ds = pt_make("gleam", seed=0, scale=0.2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

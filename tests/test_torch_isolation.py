@@ -77,7 +77,8 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.distill import distill_teacher
     from repro_torch.core.svm import SVMModel, train_svm
     from repro_torch.data import make_dataset
-    from repro_torch.sim.engine import train_population
+    from repro_torch.sim import PopulationConfig, device_stream, run_population
+    from repro_torch.sim.engine import train_population, train_selected
     from repro_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -88,6 +89,10 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: resolve_device("cuda"),
         lambda: run_protocol(ds, ks=(1,)),
         lambda: train_population(ds),
+        lambda: train_population(ds, mode="streamed"),
+        lambda: train_selected(device_stream("iid", n_devices=4), [0]),
+        lambda: run_population(PopulationConfig(n_devices=8)),
+        lambda: run_population(PopulationConfig(n_devices=8, engine="streamed")),
         lambda: train_svm(x, y),
         lambda: SVMModel(x, y * 0.1, 0.5).predict(x),
         lambda: StackedEnsemble.from_members([SVMModel(x, y * 0.1, 0.5)]),

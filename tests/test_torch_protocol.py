@@ -141,15 +141,43 @@ def test_loop_tier_round_equals_bucketed():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(distill=PtDistill(proxy_size=30, proxy="scenario")), "item 9"),
     (dict(aggregator="reweight"), "item 10"),
     (dict(aggregator="feature_stats"), "item 10"),
     (dict(engine="sharded", codec="int8"), "item 15"),
     (dict(aggregator="fisher"), "item 10"),
-    (dict(engine="streamed"), "item 9"),
     (dict(engine="sharded"), "item 15"),
 ])
 def test_options_outside_the_slice_raise(kw, item):
     ds = pt_make("gleam", seed=0, scale=0.2)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         pt_run(ds, ks=(1,), device="cpu", **kw)
+
+
+def test_scenario_proxy_without_a_scenario_raises_as_the_reference_does():
+    """``run_protocol`` gives the proxy source no ``params['scenario']``
+    (only ``run_population`` defaults it to its own federation): both
+    packages refuse with a ValueError before any solve."""
+    kw = dict(ks=(1,), random_trials=1)
+    with pytest.raises(ValueError, match="params\\['scenario'\\]"):
+        ref_run(ref_make("gleam", seed=0, scale=0.2),
+                distill=RefDistill(proxy_size=30, proxy="scenario"), **kw)
+    with pytest.raises(ValueError, match="params\\['scenario'\\]"):
+        pt_run(pt_make("gleam", seed=0, scale=0.2),
+               distill=PtDistill(proxy_size=30, proxy="scenario"), device="cpu", **kw)
+
+
+def test_streamed_engine_round_equals_bucketed():
+    """``engine="streamed"`` trains the materialised dataset through the
+    streamed tier: the round is the bucketed round, field for field."""
+    c = CASES["gleam"]
+    ds = pt_make(c["data"], seed=0, scale=0.2)
+    kw = dict(ks=c["ks"], random_trials=c["random_trials"], device="cpu")
+    bucketed = pt_run(ds, **kw)
+    streamed = pt_run(ds, engine="streamed", **kw)
+    assert _ids(streamed) == _ids(bucketed)
+    assert streamed.ensemble_auc == bucketed.ensemble_auc
+    assert streamed.best == bucketed.best
+    assert (streamed.local_mean_auc, streamed.ideal_mean_auc, streamed.full_ensemble_auc) \
+        == (bucketed.local_mean_auc, bucketed.ideal_mean_auc, bucketed.full_ensemble_auc)
+    for key in bucketed.per_device:
+        np.testing.assert_array_equal(streamed.per_device[key], bucketed.per_device[key])
