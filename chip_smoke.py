@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs nine phases, each printing one JSON line on stdout:
+``repro``, and runs ten phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -97,6 +97,24 @@ It imports the port and nothing of JAX or of the reference package
            iterations); then once more under the profiler; (c) the traced
            host peak (``tracemalloc``) of the streamed pass alone at 25,000
            and 100,000 devices: under 64 MiB and flat;
+  agg      the aggregator zoo (``repro_torch.agg``): (a) ``main``'s emnist
+           round at full width with ``fisher``, ``reweight`` and
+           ``feature_stats`` in fp32 (``fisher`` once more under the
+           profiler for the device's busy share), then with ``reweight:10``
+           in int8 with CG distillation on 4,096 proxy rows (a weighted
+           int8 teacher): wall seconds, ``round.*`` spans, the extras' and
+           uploads' bytes and each kernel's launches, the fp32 round's four
+           kernels (and the int8 round's seven) > 0; (b) ``population``'s
+           streamed 100,000-device round with ``reweight``: wall seconds,
+           devices a second, the extras' bytes and ``train_selected``'s
+           groups; (c) ``benchmarks/agg_bench.py``'s full sweep (3 scenarios
+           x 3 codecs x 4 aggregators, 48 devices, cv, k 5) on cuda and on
+           cpu: equal ledgers and picked ids, AUCs within 1e-4; and for
+           each aggregator the streamed round equal to the bucketed round in
+           every report field on cuda (2,048 int8 dirichlet devices); then
+           the baselines: the Pegasos fit (128 rows, d 32, 5 epochs) timed
+           on cuda and within 1e-5 of its cpu fit, and cohort labels from
+           card-scored embeddings equal to the cpu's;
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32, with the
            flash kernel (``use_pallas``): 2 prompts of 200 tokens and 8
            greedy tokens through ``launch/serve.py``'s ``serve_prompts`` on
@@ -151,8 +169,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "lm_parity", "serve",
-          "timing")
+PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
+          "serve", "timing")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_OPS = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -1073,6 +1091,238 @@ def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMOR
     return out
 
 
+# the agg phase: the aggregator zoo at full width (``main``'s setting; mean
+# is ``main`` itself), the streamed population round with ``reweight``, and
+# parity (``agg_bench.py``'s full sweep on cuda and cpu, then streamed =
+# bucketed at 2,048 int8 devices for every aggregator)
+AGG_FP32 = ("fisher", "reweight", "feature_stats")
+AGG_PROFILED = "fisher"
+AGG_Q8 = "reweight:10"
+AGG_ALL = ("mean", "fisher", "reweight", "feature_stats")
+AGG_BENCH = dict(scenarios=("iid", "dirichlet", "quantity_skew"), codecs=("fp32", "fp16", "int8"),
+                 n_devices=48, mean_samples=60, ks=(5,), seed=3)   # agg_bench.py's FULL sweep
+AGG_TIERS = dict(POP_PARITY_COMMON, scenario="dirichlet", codec="int8")
+PEGASOS = dict(rows=128, d=32, epochs=5, seed=0)
+
+
+def agg_round(run_protocol, ds, ops, trace, must_launch, **kw):
+    """One full-width emnist round on cuda with an aggregator (``kw``):
+    wall seconds, ``round.*`` spans, the extras' and uploads' bytes and
+    each kernel's launches in that round."""
+    import numpy as np
+    import torch
+
+    tracer = trace.Tracer()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    summary = res.ledger.summary()
+    spans = tracer.span_seconds()
+    out = {"aggregator": res.aggregator, "codec": res.codec, "round_seconds": wall,
+           "spans": {k: v for k, v in sorted(spans.items())
+                     if k.startswith(("round.", "distill.round"))},
+           "best": res.best, "full_ensemble_auc": res.full_ensemble_auc,
+           "total_agg_extra": summary["total_agg_extra"], "total_up": summary["total_up"],
+           "server_scorer": type(res.server_scorer).__name__, "kernels": counts}
+    aucs = auc_values(res)
+    label = f"agg [{res.aggregator}, {res.codec}]"
+    if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
+        raise AssertionError(f"{label}: AUCs not finite or outside [0, 1]")
+    if not summary["total_agg_extra"] > 0:
+        raise AssertionError(f"{label}: no aggregator extra on the ledger")
+    missing = [k for k in must_launch if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+    if res.student is not None:
+        cg = [ev["args"]["iterations"] for ev in tracer.events if ev["name"] == "distill.cg"]
+        out["student"] = {"codec": res.student_codec, "type": type(res.student).__name__,
+                          "supports": len(res.student.coef), "cg_iterations": cg,
+                          "distilled_auc": res.ensemble_auc["distilled"]}
+        if sum(cg) != counts["gram_matvec"]:
+            raise AssertionError(f"{label}: gram_matvec launched {counts['gram_matvec']} "
+                                 f"times for {sum(cg)} CG iterations")
+    return out
+
+
+def train_selected_groups(tracer):
+    """``engine.group`` spans outside every ``engine.chunk`` span: the
+    groups ``train_selected`` trained after the streamed pass."""
+    depth, groups = 0, 0
+    for ev in tracer.events:
+        if ev["name"] == "engine.chunk":
+            depth += 1 if ev["ph"] == "B" else -1
+        elif ev["name"] == "engine.group" and ev["ph"] == "B" and depth == 0:
+            groups += 1
+    return groups
+
+
+def agg_population(sim, ops, trace, DistillConfig, device):
+    """(b): ``population``'s streamed round (100,000 dirichlet devices, CG
+    distillation on 4,096 ``scenario`` rows) with ``reweight``."""
+    import numpy as np
+    import torch
+
+    cfg = sim.PopulationConfig(**POP_SCALE, aggregator="reweight",
+                               distill=DistillConfig(proxy_size=4096, solver="cg",
+                                                     proxy="scenario"))
+    tracer = trace.Tracer()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        rep = sim.run_population(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    aucs = population_aucs(rep)
+    out = {"devices": cfg.n_devices, "aggregator": rep.aggregator, "wall_seconds": wall,
+           "devices_per_second": cfg.n_devices / wall,
+           "spans": {k: v for k, v in sorted(tracer.span_seconds().items())
+                     if k.startswith(("round.", "distill.round"))},
+           "train_selected_groups": train_selected_groups(tracer),
+           "total_agg_extra": rep.comm["total_agg_extra"], "total_up": rep.comm["total_up"],
+           "ensemble_auc": {s: {str(k): v for k, v in d.items()}
+                            for s, d in rep.ensemble_auc.items()},
+           "card_peak_allocated_bytes": torch.cuda.max_memory_allocated(device),
+           "kernels": counts}
+    if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
+        raise AssertionError("agg population: AUCs not finite or outside [0, 1]")
+    if not rep.comm["total_agg_extra"] > 0 or rep.aggregator != "reweight":
+        raise AssertionError(f"agg population: {rep.aggregator} round with "
+                             f"{rep.comm['total_agg_extra']} extra bytes")
+    missing = [k for k in POP_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"agg population: kernels never launched on the path: {missing}")
+    return out
+
+
+def agg_parity(sim):
+    """(c): ``agg_bench.py``'s full sweep (3 scenarios x 3 codecs x 4
+    aggregators, cv, k 5, bucketed) on cuda and on cpu: ledgers and picked
+    ids equal, AUCs within AUC_TOL; then, for each aggregator, the streamed
+    round (chunks of ``POP_PARITY_CHUNK``) equal to the bucketed round in
+    every report field on cuda at 2,048 int8 dirichlet devices."""
+    import numpy as np
+
+    b = AGG_BENCH
+    cells, worst, t0 = 0, 0.0, time.perf_counter()
+    for scenario in b["scenarios"]:
+        fed = sim.make_federation(scenario, n_devices=b["n_devices"], seed=b["seed"],
+                                  mean_samples=b["mean_samples"], min_samples=40)
+        for codec in b["codecs"]:
+            for name in AGG_ALL:
+                reps = {dev: sim.run_population(sim.PopulationConfig(
+                    scenario=scenario, n_devices=b["n_devices"], seed=b["seed"],
+                    mean_samples=b["mean_samples"], min_samples=40, engine="bucketed",
+                    codec=codec, ks=b["ks"], strategies=("cv",), aggregator=name),
+                    federation=fed, device=dev) for dev in ("cuda", "cpu")}
+                card, cpu = reps["cuda"], reps["cpu"]
+                diff = float(np.abs(population_aucs(card) - population_aucs(cpu)).max())
+                worst = max(worst, diff)
+                cells += 1
+                label = f"agg parity [{scenario}, {codec}, {name}]"
+                if card.comm != cpu.comm or upload_ids(card) != upload_ids(cpu):
+                    raise AssertionError(f"{label}: cuda and cpu differ in ledger or ids")
+                if (name != "mean") != (card.comm["total_agg_extra"] > 0):
+                    raise AssertionError(f"{label}: {card.comm['total_agg_extra']} extra bytes")
+                if not diff <= AUC_TOL:
+                    raise AssertionError(f"{label}: cuda and cpu AUCs differ by {diff}")
+    out = {"bench_cells": cells, "bench_max_auc_diff": worst,
+           "bench_seconds": time.perf_counter() - t0, "tiers": {}}
+    for name in AGG_ALL:
+        t0 = time.perf_counter()
+        reps = {engine: sim.run_population(sim.PopulationConfig(
+            engine=engine, aggregator=name, chunk_devices=POP_PARITY_CHUNK, **AGG_TIERS),
+            device="cuda") for engine in ("bucketed", "streamed")}
+        a, c = population_fields(reps["streamed"]), population_fields(reps["bucketed"])
+        unequal = sorted(k for k in a if a[k] != c[k])
+        out["tiers"][name] = {"streamed_equals_bucketed": not unequal,
+                              "total_agg_extra": reps["bucketed"].comm["total_agg_extra"],
+                              "seconds": time.perf_counter() - t0}
+        if unequal:
+            raise AssertionError(f"agg tiers [{name}]: streamed differs from bucketed on "
+                                 f"cuda in {unequal}")
+    return out
+
+
+def agg_baselines(make_cohort_dataset, device):
+    """The one-shot baselines on the card: the Pegasos fit (``PEGASOS``)
+    timed on cuda (host clock to a synchronise, warm) and held to its cpu
+    fit within 1e-5; cohort labels from card-scored embeddings equal to
+    the cpu's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cohorts
+    from repro_torch.core.averaging import train_linear_svm
+    from repro_torch.sim.engine import train_population
+
+    p = PEGASOS
+    rng = np.random.default_rng(p["seed"])
+    x = rng.normal(size=(p["rows"], p["d"])).astype(np.float32)
+    y = np.where(x[:, 0] + 0.5 * rng.normal(size=p["rows"]) > 0, 1.0, -1.0).astype(np.float32)
+    fit = lambda dev: train_linear_svm(x, y, epochs=p["epochs"], seed=p["seed"], device=dev)
+    fit("cuda")
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        card = fit("cuda")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    cpu = fit("cpu")
+    w_diff = float(np.abs(card.w - cpu.w).max())
+    b_diff = abs(card.b - cpu.b)
+    out = {"pegasos": {**p, "steps": p["epochs"] * p["rows"], "ms": 1e3 * float(np.median(secs)),
+                       "ms_runs": [1e3 * s for s in secs], "max_w_diff_cuda_cpu": w_diff,
+                       "b_diff_cuda_cpu": b_diff}}
+    if not (w_diff <= 1e-5 and b_diff <= 1e-5):
+        raise AssertionError(f"agg: the Pegasos fit differs on cuda and cpu by {w_diff} (w), "
+                             f"{b_diff} (b)")
+    ds = make_cohort_dataset(seed=0)
+    probe = np.random.default_rng(1).normal(size=(64, ds.dim)).astype(np.float32)
+    labels = {}
+    for dev in ("cuda", "cpu"):
+        outcomes = train_population(ds, seed=0, device=dev).outcomes
+        labels[dev] = cohorts.run_cohort_protocol(outcomes, 3, probe, seed=0)
+    out["cohorts"] = {dev: {"cohort_auc": r.cohort_auc, "global_auc": r.global_auc}
+                      for dev, r in labels.items()}
+    if not np.array_equal(labels["cuda"].labels, labels["cpu"].labels):
+        raise AssertionError("agg: cohort labels differ on cuda and cpu")
+    return out
+
+
+def phase_agg(make_dataset, run_protocol, ops, trace, DistillConfig, device):
+    """(a) the emnist round at full width with each non-mean aggregator in
+    fp32 (one of them once more under the profiler) and with ``reweight:10``
+    in int8 with CG distillation; (b) the streamed population round with
+    ``reweight``; (c) parity; then the baselines."""
+    from repro_torch import sim
+    from repro_torch.data import make_cohort_dataset
+
+    t0 = time.perf_counter()
+    ds = make_dataset("emnist", seed=0, scale=1.0)
+    out = {"dataset": "emnist", "scale": 1.0, "devices": ds.n_devices,
+           "generate_seconds": time.perf_counter() - t0, "rounds": []}
+    for name in AGG_FP32:
+        out["rounds"].append(agg_round(run_protocol, ds, ops, trace, FP32_KERNELS,
+                                       aggregator=name))
+    out["profile"], _ = profile_call(lambda: run_protocol(
+        ds, ks=MAIN_KS, random_trials=3, device="cuda", aggregator=AGG_PROFILED))
+    out["profile"]["aggregator"] = AGG_PROFILED
+    out["rounds"].append(agg_round(
+        run_protocol, ds, ops, trace, FP32_KERNELS + Q8_KERNELS, aggregator=AGG_Q8,
+        codec="int8", distill=DistillConfig(proxy_size=4096, solver="cg")))
+    out["population"] = agg_population(sim, ops, trace, DistillConfig, device)
+    out["parity"] = agg_parity(sim)
+    out.update(agg_baselines(make_cohort_dataset, device))
+    out["kernels"] = out["rounds"][-1]["kernels"]
+    return out
+
+
 IDEAL_ROWS = 2000   # run_protocol's ideal_cap: the ideal's Gram is 2,000 x 2,000
 
 
@@ -1520,6 +1770,9 @@ def main(argv=None) -> int:
                 counts[phase] = out["kernels"]
             elif phase == "population":
                 out = phase_population(ops, trace, DistillConfig, device)
+                counts[phase] = out["kernels"]
+            elif phase == "agg":
+                out = phase_agg(make_dataset, run_protocol, ops, trace, DistillConfig, device)
                 counts[phase] = out["kernels"]
             elif phase == "lm_parity":
                 out = phase_lm_parity(ops, device)

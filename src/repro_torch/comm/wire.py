@@ -10,9 +10,11 @@ identical models encode to identical bytes.
     +-------+---------+------+----------+------------------------+
 
 ``len(encode(obj, codec))`` IS the communication cost. Payload kinds:
-``SVMModel``, ``ConstantModel``, ``Ensemble`` (length-prefixed member
-messages) and ``DeviceReport`` (18 bytes). All multi-byte fields are
-little-endian. Codecs (headers and gamma are codec-independent):
+``SVMModel``, ``LinearSVM`` (the averaging / FedAvg baseline model),
+``ConstantModel``, ``Ensemble`` (length-prefixed member messages),
+``DeviceReport`` (18 bytes) and ``AggExtra`` (an aggregator's named-array
+side payload). All multi-byte fields are little-endian. Codecs (headers
+and gamma are codec-independent):
 
     fp32       lossless float32 round-trip
     fp16       supports + coefs as float16
@@ -21,9 +23,6 @@ little-endian. Codecs (headers and gamma are codec-independent):
                through the ``rbf_gram_q8`` kernel (no fp32 supports)
     topk       keep ceil(ratio * n) supports by |dual coefficient|, fp32;
                ``"topk:0.5"`` selects the ratio, default 0.25
-
-The linear-model and aggregator-extra kinds are not ported yet:
-decoding them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.averaging import LinearSVM
 from repro_torch.core.ensemble import Ensemble, chunked_bucket_predict
 from repro_torch.core.selection import DeviceReport
 from repro_torch.core.svm import ConstantModel, SVMModel
@@ -54,12 +54,12 @@ KIND_REPORT = 5
 KIND_AGG_EXTRA = 6
 
 _SVM_PREFIX = struct.Struct("<IId")     # n, d, gamma
+_LINEAR_PREFIX = struct.Struct("<Id")   # d, bias
 _CONST_BODY = struct.Struct("<d")       # value
 _COUNT = struct.Struct("<I")
 _REPORT_BODY = struct.Struct("<IIfB")   # device_id, n_train, val_auc, eligible
-
-_UNPORTED_KINDS = {KIND_LINEAR: "LinearSVM (ROADMAP queue 1 item 10)",
-                   KIND_AGG_EXTRA: "AggExtra (ROADMAP queue 1 item 10)"}
+_U8 = struct.Struct("<B")
+_DIM = struct.Struct("<I")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +218,29 @@ class QuantizedStackedEnsemble(nn.Module):
         return chunked_bucket_predict(self.score, x, chunk)
 
 
+@dataclasses.dataclass
+class AggExtra:
+    """Named-array side payload of an aggregator strategy (``repro_torch.agg``).
+
+    Fisher diagonals, per-member validation columns, feature moments ride
+    device -> server as one of these, encoded through the round's codec
+    and priced at exactly ``len(encode())`` on the ledger under
+    ``kind="agg_extra"``. Array names are ASCII, <= 255 bytes; arrays are
+    host numpy with ndim >= 1. int8 quantizes per column over the LAST
+    axis (a 1-D array is one column); topk has no sparse meaning for
+    dense statistics and falls back to fp32.
+    """
+
+    arrays: Dict[str, np.ndarray]
+
+    def __post_init__(self) -> None:
+        for name, a in self.arrays.items():
+            if not name or len(name.encode("ascii")) > 255:
+                raise ValueError(f"agg-extra array name {name!r} must be 1..255 ASCII bytes")
+            if np.asarray(a).ndim < 1:
+                raise ValueError(f"agg-extra array {name!r} must have ndim >= 1")
+
+
 def _quantize_columns(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-column affine int8: q = round((x - zero) / scale) in [-127, 127]."""
     lo = x.min(axis=0)
@@ -319,6 +342,90 @@ def _decode_svm(r: WireReader, device):
                         device=str(device))
 
 
+def _encode_linear(model: LinearSVM, codec: Codec) -> bytes:
+    w = np.asarray(model.w, np.float32)
+    d = len(w)
+    parts = [_header(KIND_LINEAR, codec), _LINEAR_PREFIX.pack(d, float(model.b))]
+    if codec.name == "fp32":
+        parts.append(_arr(w, "<f4"))
+    elif codec.name == "fp16":
+        parts.append(_arr(w, "<f2"))
+    elif codec.name == "int8":
+        q, scale, zero = _quantize_columns(w[:, None])
+        parts += [_arr(scale, "<f4"), _arr(zero, "<f4"), q.tobytes()]
+    else:  # topk: keep top-|w| entries with their indices
+        m = max(1, int(np.ceil(codec.param * d)))
+        keep = np.sort(np.argsort(-np.abs(w), kind="stable")[:m])
+        parts += [_COUNT.pack(m), _arr(keep, "<u4"), _arr(w[keep], "<f4")]
+    return b"".join(parts)
+
+
+def _decode_linear(r: WireReader, device) -> LinearSVM:
+    d, b = r.unpack(_LINEAR_PREFIX)
+    if r.codec.name == "fp32":
+        w = r.array(d, "<f4")
+    elif r.codec.name == "fp16":
+        w = r.array(d, "<f2").astype(np.float32)
+    elif r.codec.name == "int8":
+        scale = r.array(1, "<f4")
+        zero = r.array(1, "<f4")
+        q = r.array(d, "i1")
+        w = q.astype(np.float32) * scale[0] + zero[0]
+    else:
+        (m,) = r.unpack(_COUNT)
+        idx = r.array(m, "<u4")
+        vals = r.array(m, "<f4")
+        w = np.zeros(d, np.float32)
+        w[idx] = vals
+    return LinearSVM(w=w, b=b, device=str(device))
+
+
+def _encode_agg_extra(extra: AggExtra, codec: Codec) -> bytes:
+    parts = [_header(KIND_AGG_EXTRA, codec), _U8.pack(len(extra.arrays))]
+    for name, a in extra.arrays.items():
+        a = np.asarray(a, np.float32)
+        nb = name.encode("ascii")
+        parts += [_U8.pack(len(nb)), nb, _U8.pack(a.ndim)]
+        parts += [_DIM.pack(dim) for dim in a.shape]
+        if codec.name == "fp16":
+            parts.append(_arr(a, "<f2"))
+        elif codec.name == "int8":
+            cols = a.shape[-1] if a.ndim > 1 else 1
+            if a.size == 0:  # zero rows OR zero cols: no quantizable body
+                scale = np.ones(cols, np.float32)
+                zero = np.zeros(cols, np.float32)
+                q = np.zeros(0, np.int8)
+            else:
+                q, scale, zero = _quantize_columns(np.ascontiguousarray(a).reshape(-1, cols))
+            parts += [_arr(scale, "<f4"), _arr(zero, "<f4"), q.tobytes()]
+        else:  # fp32; topk has no sparse meaning for dense statistics
+            parts.append(_arr(a, "<f4"))
+    return b"".join(parts)
+
+
+def _decode_agg_extra(r: WireReader) -> AggExtra:
+    (count,) = r.unpack(_U8)
+    arrays: Dict[str, np.ndarray] = {}
+    for _ in range(count):
+        (name_len,) = r.unpack(_U8)
+        name = r.take(name_len).decode("ascii")
+        (ndim,) = r.unpack(_U8)
+        shape = tuple(r.unpack(_DIM)[0] for _ in range(ndim))
+        size = int(np.prod(shape, dtype=np.int64))
+        if r.codec.name == "fp16":
+            arrays[name] = r.array(size, "<f2", shape).astype(np.float32)
+        elif r.codec.name == "int8":
+            cols = shape[-1] if ndim > 1 else 1
+            scale = r.array(cols, "<f4")
+            zero = r.array(cols, "<f4")
+            q = r.array(size, "i1", (-1, cols) if size else (0, cols))
+            deq = q.astype(np.float32) * scale[None, :] + zero[None, :]
+            arrays[name] = deq.reshape(shape)
+        else:
+            arrays[name] = r.array(size, "<f4", shape)
+    return AggExtra(arrays)
+
+
 def encode(obj, codec="fp32") -> bytes:
     """Encode a protocol payload; ``len(...)`` of the result is the
     exact number of bytes the message costs on the wire."""
@@ -332,6 +439,8 @@ def encode(obj, codec="fp32") -> bytes:
                 f"wire representation), not {codec.name!r}; dequantize() first"
             )
         return _encode_quantized(obj)
+    if isinstance(obj, LinearSVM):
+        return _encode_linear(obj, codec)
     if isinstance(obj, ConstantModel):
         return _header(KIND_CONST, codec) + _CONST_BODY.pack(float(obj.value))
     if isinstance(obj, Ensemble):
@@ -344,15 +453,19 @@ def encode(obj, codec="fp32") -> bytes:
         return _header(KIND_REPORT, codec) + _REPORT_BODY.pack(
             obj.device_id, obj.n_train, float(obj.val_auc), int(obj.eligible)
         )
+    if isinstance(obj, AggExtra):
+        return _encode_agg_extra(obj, codec)
     raise TypeError(f"cannot wire-encode {type(obj).__name__}")
 
 
 def decode(blob: bytes, *, device="cuda"):
-    """Decode one wire message; decoded SVMs score on ``device``. int8
+    """Decode one wire message; decoded models score on ``device``. int8
     SVM payloads decode to a ``QuantizedSVM``."""
     r = WireReader(blob)
     if r.kind == KIND_SVM:
         return _decode_svm(r, device)
+    if r.kind == KIND_LINEAR:
+        return _decode_linear(r, device)
     if r.kind == KIND_CONST:
         (value,) = r.unpack(_CONST_BODY)
         return ConstantModel(value)
@@ -366,9 +479,8 @@ def decode(blob: bytes, *, device="cuda"):
     if r.kind == KIND_REPORT:
         device_id, n_train, val_auc, eligible = r.unpack(_REPORT_BODY)
         return DeviceReport(device_id, n_train, float(val_auc), bool(eligible))
-    if r.kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"wire kind {_UNPORTED_KINDS[r.kind]} is not ported yet")
+    if r.kind == KIND_AGG_EXTRA:
+        return _decode_agg_extra(r)
     raise ValueError(f"unknown wire kind {r.kind}")
 
 
@@ -390,6 +502,25 @@ def svm_wire_nbytes(n: int, d: int, codec="fp32") -> int:
         return base + d * 4 + d * 4 + n * d + n * 4
     m = max(1, int(np.ceil(codec.param * n)))  # topk
     return base + m * d * 4 + m * 4
+
+
+def agg_extra_wire_nbytes(shapes: Dict[str, Tuple[int, ...]], codec="fp32") -> int:
+    """Exact ``len(encode(AggExtra, codec))`` from array SHAPES alone, so
+    the streamed round prices extras without regenerating device state."""
+    codec = get_codec(codec)
+    total = _HEADER.size + _U8.size
+    for name, shape in shapes.items():
+        shape = tuple(int(s) for s in shape)
+        size = int(np.prod(shape, dtype=np.int64))
+        total += _U8.size + len(name.encode("ascii")) + _U8.size + _DIM.size * len(shape)
+        if codec.name == "fp16":
+            total += size * 2
+        elif codec.name == "int8":
+            cols = shape[-1] if len(shape) > 1 else 1
+            total += cols * 4 + cols * 4 + size
+        else:  # fp32 / topk (dense-statistics fallback)
+            total += size * 4
+    return total
 
 
 # the pre-round metadata exchange costs exactly this much per device

@@ -4,7 +4,8 @@ The reference keeps a trained ``SVMModel`` as host arrays
 (``support_x``, ``coef``, ``gamma``), a packed ``StackedEnsemble`` as
 ``sup``/``coef``/``gammas`` arrays, and their int8 forms (``QuantizedSVM``,
 ``QuantizedStackedEnsemble``) as ``q``/``scale``/``zero``/``coef`` plus
-gamma(s). These functions take those arrays (as numpy, e.g.
+gamma(s), a ``LinearSVM`` as ``w`` and ``b``, and an aggregator's
+``AggExtra`` as a dict of named arrays. These functions take those arrays (as numpy, e.g.
 ``np.asarray`` of the reference's fields) and return the port's objects,
 so a model trained by either package scores in the other. The wire
 format (``comm.wire``) is the other carrier: a blob of any codec from
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.comm.wire import QuantizedStackedEnsemble, QuantizedSVM
+from repro_torch.comm.wire import AggExtra, QuantizedStackedEnsemble, QuantizedSVM
+from repro_torch.core.averaging import LinearSVM
 from repro_torch.core.ensemble import StackedEnsemble
 from repro_torch.core.svm import SVMModel
 from repro_torch.models.config import ModelConfig
@@ -83,6 +85,21 @@ def quantized_stacked_from_arrays(q, scale, zero, coef, gammas,
                          f"{c.shape}, {g.shape}")
     return QuantizedStackedEnsemble(*(torch.from_numpy(a).to(dev)
                                       for a in (qa, sc, ze, c, g)))
+
+
+def linear_from_arrays(w, b: float, device="cuda") -> LinearSVM:
+    """A reference ``LinearSVM``'s fields -> the port's, scored on ``device``."""
+    dev = resolve_device(device)
+    wa = np.array(w, np.float32)
+    if wa.ndim != 1:
+        raise ValueError(f"w must be (d,), got {wa.shape}")
+    return LinearSVM(w=wa, b=float(b), device=str(dev))
+
+
+def agg_extra_from_arrays(arrays) -> AggExtra:
+    """A reference ``AggExtra``'s named arrays -> the port's (float32
+    host copies, names and order kept)."""
+    return AggExtra({str(k): np.array(v, np.float32) for k, v in arrays.items()})
 
 
 def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda"):

@@ -21,34 +21,39 @@ kernels. Evaluation streams every device's test split through the fused
 scoring kernel in ``eval_chunk``-row blocks, folding scores into
 per-device AUC accumulators.
 
+The server combines each cell's members through the round's
+``aggregator`` (``repro_torch.agg``: mean, fisher, reweight[:T],
+feature_stats). Strategies with device-side extras ship them through the
+codec, priced once per canonical cell under ``agg_extra_{strat}_k{k}``
+(the random trials rebuild without recording); the distillation teacher
+is the best cell's AGGREGATED scorer.
+
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
 kernels' plain versions). ``engine="streamed"`` trains the materialised
 dataset through the streamed tier (``train_population`` wraps it as a
-stream), with the bucketed tier's results. Options outside the ported
-slice (the sharded engine, aggregators other than mean) raise
-``NotImplementedError`` naming their ROADMAP item.
+stream), with the bucketed tier's results. ``engine="sharded"`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.agg import build_cell, get_aggregator
-from repro_torch.comm.exchange import ModelExchange
-from repro_torch.comm.ledger import CommLedger
 from repro_torch.core.ensemble import Ensemble
 from repro_torch.core.svm import train_svm
 from repro_torch.data.federated import DeviceData, FederatedDataset
 from repro_torch.data.partition import pool_devices
-from repro_torch.distill import DistillConfig, distill_round
 from repro_torch.obs.trace import current_tracer
-from repro_torch.sim.engine import train_population
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.metrics import roc_auc, streaming_grouped_auc
+
+if TYPE_CHECKING:  # runtime imports would cycle: comm and agg import core
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.distill import DistillConfig
 
 log = get_logger("protocol")
 
@@ -63,7 +68,7 @@ class ProtocolResult:
     best: Dict[str, float]  # strategy -> best-k mean AUC
     comm_bytes: Dict[str, float]  # ledger per-tag byte totals
     per_device: Dict[str, np.ndarray]
-    ledger: Optional[CommLedger] = None
+    ledger: Optional["CommLedger"] = None
     codec: str = "fp32"
     # the distilled student AS DEVICES RECEIVE IT (decoded from its
     # download wire form) and its download codec
@@ -127,10 +132,17 @@ def run_protocol(
     engine: str = "bucketed",
     codec: str = "fp32",
     budget_bytes: Optional[int] = None,
-    distill: Optional[DistillConfig] = None,
+    distill: Optional["DistillConfig"] = None,
     aggregator: str = "mean",
     device="cuda",
 ) -> ProtocolResult:
+    # deferred: comm, agg, distill and sim import core back at import time
+    from repro_torch.agg import build_cell, get_aggregator
+    from repro_torch.comm.exchange import ModelExchange
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.distill import DistillConfig, distill_round
+    from repro_torch.sim.engine import train_population
+
     _check_engine(engine)
     agg = get_aggregator(aggregator)
     dev = resolve_device(device)
@@ -159,6 +171,13 @@ def run_protocol(
     ledger = CommLedger()
     ex.record_metadata(ledger)
 
+    # extras are computed from the by-id outcomes and recorded once per
+    # canonical cell, beside its uploads
+    by_id = {d.device_id: d for d in devices}
+
+    def outcomes_for(want):
+        return by_id
+
     # --- local baseline (paper Fig. 1 "local") ---
     local_aucs = [
         roc_auc(d.splits["test"].y, d.local_test_scores) for d in devices
@@ -176,20 +195,23 @@ def run_protocol(
         ideal_mean, ideal_aucs = _mean_auc_over_devices(
             devices, ideal_model.predict)
 
-    # --- aggregated cells per strategy and k (DECODED models) ---
+    # --- aggregated cells per strategy and k (DECODED models + DECODED
+    # extras) ---
     ensemble_auc: Dict[str, Dict[int, float]] = {}
     cell_scorers: Dict[tuple, object] = {}
     for strat in strategies:
         ensemble_auc[strat] = {}
         with tracer.span("round.select", cat="round", strategy=strat):
             for k in ks:
+                extra_tag = f"agg_extra_{strat}_k{k}"
                 if strat == "random":
                     trials = []
                     for t in range(random_trials):
                         tids = ex.pick("random", k, seed + 17 * t)
                         if not tids:
                             continue
-                        scorer = build_cell(agg, ex, tids, seed)
+                        scorer = build_cell(agg, ex, tids, outcomes_for, ledger,
+                                            extra_tag, seed, record=False)
                         auc, _ = _mean_auc_over_devices(
                             devices, partial(scorer.predict, chunk=eval_chunk), eval_chunk)
                         trials.append(auc)
@@ -197,12 +219,14 @@ def run_protocol(
                         ensemble_auc[strat][k] = float(np.mean(trials))
                     ids = ex.pick("random", k, seed)
                     if ids:
-                        cell_scorers[(strat, k)] = build_cell(agg, ex, ids, seed)
+                        cell_scorers[(strat, k)] = build_cell(
+                            agg, ex, ids, outcomes_for, ledger, extra_tag, seed)
                 else:
                     ids = ex.pick(strat, k, seed)
                     if not ids:
                         continue
-                    scorer = build_cell(agg, ex, ids, seed)
+                    scorer = build_cell(agg, ex, ids, outcomes_for, ledger,
+                                        extra_tag, seed)
                     cell_scorers[(strat, k)] = scorer
                     auc, _ = _mean_auc_over_devices(
                         devices, partial(scorer.predict, chunk=eval_chunk), eval_chunk)
@@ -228,12 +252,16 @@ def run_protocol(
         bs = max(best, key=best.get)
         bk = max(ensemble_auc[bs], key=ensemble_auc[bs].get)
         server_scorer = cell_scorers.get((bs, bk))
-    # --- optional distillation of the best aggregated cell ---
+    # --- optional distillation of the best aggregated cell: the teacher
+    # is the AGGREGATED scorer, so every strategy distills what it serves ---
     student_recv = None
     student_codec = None
     if distill.proxy_size > 0 and best:
         ids = ex.pick(bs, bk, seed)
-        teacher = server_scorer if server_scorer is not None else build_cell(agg, ex, ids, seed)
+        teacher = server_scorer
+        if teacher is None:
+            teacher = build_cell(agg, ex, ids, outcomes_for, ledger,
+                                 f"agg_extra_{bs}_k{bk}", seed, record=False)
         dr = distill_round(teacher.predict, devices, distill, seed, codec_spec,
                            ledger, dim=dataset.dim, device=dev)
         student_recv, student_codec = dr.student, dr.codec

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.metrics import roc_auc
 
 
 # SDCA problems are padded to multiples of this; the engine buckets
@@ -98,3 +99,6 @@ def train_svm(
     return SVMModel(support_x=np.asarray(x, np.float32), coef=coef.astype(np.float32),
                     gamma=gamma, device=str(dev))
 
+
+def validation_auc(model, x_val: np.ndarray, y_val: np.ndarray) -> float:
+    return roc_auc(y_val, model.predict(x_val))

@@ -26,7 +26,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.utils.seeds import derive_device_seed
+from repro_torch.utils.seeds import derive_device_seed, derive_stream_seed
 
 
 @dataclasses.dataclass
@@ -162,6 +162,32 @@ def make_sent140_like(seed: int = 0, scale: float = 1.0, dim: int = 64) -> Feder
         y = np.where(flip, -y, y).astype(np.float32)
         devices.append(DeviceData(x=x, y=y))
     return FederatedDataset(name="sent140", devices=devices, min_samples=30, dim=dim)
+
+
+def make_cohort_dataset(
+    seed: int = 0, n_cohorts: int = 3, n_devices: int = 45, dim: int = 16,
+    lo: int = 40, hi: int = 120,
+) -> FederatedDataset:
+    """Federated data with LATENT COHORT structure (paper future-work 1):
+    cohorts share input geometry but DISAGREE on label semantics (odd
+    cohorts flip the concept). A single global ensemble therefore mixes
+    contradicting teachers, while per-cohort ensembles do not. Device i
+    belongs to cohort i % n_cohorts (ground truth for tests).
+    """
+    rng = np.random.default_rng(derive_stream_seed(seed, "cohort-concept"))
+    concept = _gaussian_concept(rng, dim, sep=2.5)
+    sizes = _device_sizes(rng, n_devices, lo, hi, n_devices * (lo + hi) // 2)
+    devices = []
+    for t in range(n_devices):
+        drng = np.random.default_rng(derive_device_seed(seed, t))
+        cohort = t % n_cohorts
+        pos_frac = float(np.clip(drng.beta(3.0, 3.0), 0.2, 0.8))
+        shift = 0.2 * drng.normal(0, 1, dim).astype(np.float32)
+        x, y = concept(drng, int(sizes[t]), pos_frac, shift, noise=0.05)
+        if cohort % 2 == 1:  # flipped label semantics for odd cohorts
+            y = -y
+        devices.append(DeviceData(x=x, y=y))
+    return FederatedDataset(name="cohort", devices=devices, min_samples=30, dim=dim)
 
 
 DATASETS: Dict[str, Callable[..., FederatedDataset]] = {

@@ -1,4 +1,5 @@
-"""Partitioning utilities: per-device splits and pooling."""
+"""Partitioning utilities: per-device splits, pooling and Dirichlet
+non-IID sharding."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -44,3 +45,36 @@ def pool_devices(devices: List[DeviceData]) -> DeviceData:
         x=np.concatenate([d.x for d in devices], axis=0),
         y=np.concatenate([d.y for d in devices], axis=0),
     )
+
+
+def dirichlet_partition(
+    x: np.ndarray, y: np.ndarray, n_devices: int, alpha: float = 0.3, seed: int = 0
+) -> List[DeviceData]:
+    """Classic non-IID federated partition: per-class Dirichlet allocation.
+
+    Lower ``alpha`` -> more skewed per-device label distributions.
+    """
+    if len(y) < n_devices:
+        raise ValueError(f"cannot give {n_devices} devices >=1 of {len(y)} samples")
+    rng = np.random.default_rng(seed)
+    classes = np.unique(y)
+    device_indices: List[List[int]] = [[] for _ in range(n_devices)]
+    for c in classes:
+        idx = np.flatnonzero(y == c)
+        rng.shuffle(idx)
+        props = rng.dirichlet(alpha * np.ones(n_devices))
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for dev, chunk in enumerate(np.split(idx, cuts)):
+            device_indices[dev].extend(chunk.tolist())
+    # guarantee non-empty devices WITHOUT duplicating samples: empty
+    # devices steal one sample from the currently largest device, so
+    # every sample is assigned to exactly one device.
+    for dev in range(n_devices):
+        if not device_indices[dev]:
+            donor = max(range(n_devices), key=lambda d: len(device_indices[d]))
+            device_indices[dev].append(device_indices[donor].pop())
+    out = []
+    for dev in range(n_devices):
+        idx = np.array(sorted(device_indices[dev]), dtype=int)
+        out.append(DeviceData(x=x[idx], y=y[idx]))
+    return out

@@ -23,6 +23,7 @@ from repro_torch.distill.solvers import (
     distill_rng,
     distill_teacher,
     get_solver,
+    list_solvers,
     register_solver,
 )
 from repro_torch.distill.sweep import distill_sweep
@@ -40,6 +41,7 @@ __all__ = [
     "distill_teacher",
     "get_solver",
     "list_proxies",
+    "list_solvers",
     "make_proxy",
     "register_proxy",
     "register_solver",

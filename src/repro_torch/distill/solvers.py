@@ -80,6 +80,14 @@ def get_solver(name: str) -> SolverFn:
     return SOLVERS[name]
 
 
+def list_solvers() -> Dict[str, str]:
+    """name -> first docstring line, for --help style listings."""
+    return {
+        name: ((fn.__doc__ or "").strip().splitlines() or ["(undocumented)"])[0]
+        for name, fn in sorted(SOLVERS.items())
+    }
+
+
 def _on(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 

@@ -20,9 +20,11 @@ Everything runs on ``device`` (default the card; ``"cpu"`` runs the
 kernels' plain versions). Host arithmetic — seeds, selection, budget
 packing, channel latency, the ledger — is the reference's, so ``comm``,
 the picked ids, the headcounts and ``time_to_aggregate`` equal the
-reference's exactly. Only the ``mean`` aggregator is ported (the others
-raise, naming ROADMAP queue 1 item 10), so no aggregator extra rides the
-wire here; ``engine="sharded"`` raises, naming item 15.
+reference's exactly. Every aggregator of ``repro_torch.agg`` runs on
+every tier: its extras ride the wire beside each cell's uploads, priced
+at ``len(encode())`` on the materialised paths and at the equal shape
+price ``agg_extra_wire_nbytes`` on the streamed one.
+``engine="sharded"`` raises, naming ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 from repro_torch.agg import build_cell, get_aggregator
 from repro_torch.comm.exchange import ModelExchange, StreamExchange
 from repro_torch.comm.ledger import CommLedger
+from repro_torch.comm.wire import agg_extra_wire_nbytes
 from repro_torch.core.selection import ReportColumns
 from repro_torch.distill import DistillConfig, distill_round
 from repro_torch.obs.trace import current_tracer, stopwatch
@@ -227,6 +230,11 @@ def run_population(
             cfg.eval_chunk,
         )
 
+    # aggregator extras are computed from the by-id outcomes and recorded
+    # per cell next to the uploads
+    def outcomes_for(want):
+        return by_id
+
     ensemble_auc: Dict[str, Dict[int, float]] = {}
     cell_scorers: Dict[tuple, object] = {}
     time_to_aggregate: Dict[str, Dict[int, float]] = {}
@@ -239,7 +247,8 @@ def run_population(
                 if not ids:
                     continue
                 ex.record_uploads(ledger, ids, f"upload_{strat}_k{k}")
-                scorer = build_cell(agg, ex, ids, cfg.seed)
+                scorer = build_cell(agg, ex, ids, outcomes_for, ledger,
+                                    f"agg_extra_{strat}_k{k}", cfg.seed)
                 cell_scorers[(strat, k)] = scorer
                 ensemble_auc[strat][k] = mean_auc(
                     partial(scorer.predict, chunk=cfg.eval_chunk)
@@ -381,22 +390,37 @@ def _run_streamed(
     log.info("streamed %d devices in %.2fs (chunk=%d)",
              len(cols), train_s, cfg.chunk_devices)
 
-    # a selected device is rebuilt once (train_selected) and its model
-    # reused by every cell that picks it
+    # regeneration cache shared by the model provider and the extras: a
+    # selected device is rebuilt once (train_selected) and its full
+    # outcome reused for its upload and its aggregator extra
     regen: Dict[int, DeviceOutcome] = {}
 
-    def provider(want: Sequence[int]) -> Dict[int, object]:
+    def _regenerate(want: Sequence[int]) -> None:
         missing = [int(i) for i in want if int(i) not in regen]
         if missing:
             regen.update(train_selected(stream, missing, lam=cfg.lam,
                                         seed=cfg.seed, device=device))
+
+    def provider(want: Sequence[int]) -> Dict[int, object]:
+        _regenerate(want)
         return {int(i): regen[int(i)].model for i in want}
+
+    def outcomes_for(want: Sequence[int]) -> Dict[int, DeviceOutcome]:
+        _regenerate(want)
+        return regen
 
     with tracer.span("round.encode", cat="round", codec=cfg.codec):
         ex = StreamExchange(cols, provider, dim=stream.dim, codec=cfg.codec,
                             budget_bytes=cfg.budget_bytes, device=device)
     ledger = CommLedger(compact=True)
     ex.record_metadata(ledger)
+
+    # extras are ledgered at the SHAPE price over the scalar columns,
+    # equal to len(encode()), so this ledger equals the materialised one
+    def extra_nbytes(device_id: int) -> int:
+        p = int(np.searchsorted(cols.ids, device_id))
+        shapes = agg.extra_shapes(int(cols.n_train[p]), int(n_val[p]), stream.dim)
+        return agg_extra_wire_nbytes(shapes, ex.codec)
 
     # seeded, capped eval subsample — the same draw as the materialised
     # round; only these <= eval_device_cap devices' splits are rebuilt
@@ -430,7 +454,9 @@ def _run_streamed(
                 if not ids:
                     continue
                 ex.record_uploads(ledger, ids, f"upload_{strat}_k{k}")
-                scorer = build_cell(agg, ex, ids, cfg.seed)
+                scorer = build_cell(agg, ex, ids, outcomes_for, ledger,
+                                    f"agg_extra_{strat}_k{k}", cfg.seed,
+                                    extra_nbytes=extra_nbytes)
                 cell_scorers[(strat, k)] = scorer
                 ensemble_auc[strat][k] = mean_auc(
                     partial(scorer.predict, chunk=cfg.eval_chunk)

@@ -346,6 +346,43 @@ def test_population_round_matches_cpu(cuda_device):
             assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
 
 
+@pytest.mark.parametrize("agg", ["fisher", "reweight", "feature_stats"])
+def test_aggregator_population_rounds_match_cpu(cuda_device, agg):
+    """Each aggregator's small population round on the card: the streamed
+    round equal to the bucketed one in every field, and the card's round
+    equal to the CPU's in ``comm`` (its extras included) and ids, AUCs
+    within 1e-4."""
+    from repro_torch.sim import PopulationConfig, run_population
+
+    base = dict(scenario="dirichlet", n_devices=64, seed=3, mean_samples=60, min_samples=40,
+                dim=16, ks=(3, 8), codec="int8", eval_device_cap=24, aggregator=agg)
+    card = run_population(PopulationConfig(engine="bucketed", **base), device=cuda_device)
+    strm = run_population(PopulationConfig(engine="streamed", chunk_devices=9, **base),
+                          device=cuda_device)
+    cpu = run_population(PopulationConfig(engine="bucketed", **base), device="cpu")
+    for field in ("n_eligible", "mean_val_auc", "mean_local_auc", "ensemble_auc", "comm"):
+        assert getattr(strm, field) == getattr(card, field), field
+    assert card.comm == cpu.comm and card.comm["total_agg_extra"] > 0
+    assert ([(e.tag, e.device_id) for e in card.ledger.events]
+            == [(e.tag, e.device_id) for e in cpu.ledger.events])
+    for s in card.ensemble_auc:
+        for k in card.ensemble_auc[s]:
+            assert abs(card.ensemble_auc[s][k] - cpu.ensemble_auc[s][k]) <= 1e-4
+
+
+def test_pegasos_fit_matches_cpu(cuda_device):
+    from repro_torch.core.averaging import train_linear_svm
+
+    rng = _rng("pegasos")
+    x = rng.normal(size=(128, 32)).astype(np.float32)
+    y = np.where(x[:, 0] > 0, 1.0, -1.0).astype(np.float32)
+    card = train_linear_svm(x, y, seed=4, device=cuda_device)
+    cpu = train_linear_svm(x, y, seed=4, device="cpu")
+    np.testing.assert_allclose(card.w, cpu.w, atol=1e-5, rtol=0)
+    assert abs(card.b - cpu.b) <= 1e-5
+    np.testing.assert_allclose(card.predict(x), cpu.predict(x), atol=1e-4, rtol=0)
+
+
 def test_round_matches_cpu(cuda_device):
     from repro_torch.core.protocol import run_protocol
     from repro_torch.data import make_dataset

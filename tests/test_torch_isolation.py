@@ -72,6 +72,8 @@ def test_default_device_is_the_card(monkeypatch):
     """Without CUDA every entry point called without ``device`` raises;
     nothing quietly moves to the CPU."""
     from repro_torch.comm.wire import QuantizedSVM, _quantize_columns
+    from repro_torch.convert import linear_from_arrays
+    from repro_torch.core.averaging import LinearSVM, StackedLinear, train_linear_svm
     from repro_torch.core.ensemble import StackedEnsemble
     from repro_torch.core.protocol import run_protocol
     from repro_torch.distill import distill_teacher
@@ -98,6 +100,12 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: StackedEnsemble.from_members([SVMModel(x, y * 0.1, 0.5)]),
         lambda: QuantizedSVM(*_quantize_columns(x), y * 0.1, 0.5).predict(x),
         lambda: distill_teacher(lambda q: q[:, 0], x),
+        lambda: run_protocol(ds, ks=(1,), aggregator="reweight"),
+        lambda: run_population(PopulationConfig(n_devices=8, aggregator="fisher")),
+        lambda: train_linear_svm(x, y),
+        lambda: LinearSVM(x[0], 0.5).predict(x),
+        lambda: StackedLinear.from_model(LinearSVM(x[0], 0.5)),
+        lambda: linear_from_arrays(x[0], 0.5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -66,8 +66,9 @@ def test_blobs_cross_decode_both_ways(i):
 
 
 def test_report_size_and_unported_codecs():
-    """Every codec is ported; the linear and aggregator-extra kinds are
-    not, and decoding them names their ROADMAP item."""
+    """Every codec and every kind is ported: the codec table and the
+    report size are the reference's, and the linear and aggregator-extra
+    kinds (once unported) decode in the port to the reference's values."""
     from repro.comm.wire import AggExtra
     from repro.core.averaging import LinearSVM
 
@@ -75,10 +76,13 @@ def test_report_size_and_unported_codecs():
     assert {n: (c.codec_id, c.param) for n, c in pt_wire.CODECS.items()} == \
         {n: (c.codec_id, c.param) for n, c in ref_wire.CODECS.items()}
     w = _rng("codec").normal(size=7).astype(np.float32)
-    for obj in (LinearSVM(w=w, b=0.5), AggExtra({"m": w[None, :]})):
-        for codec in ("fp32", "int8"):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-                pt_wire.decode(ref_wire.encode(obj, codec), device="cpu")
+    for codec in ("fp32", "int8"):
+        lin = pt_wire.decode(ref_wire.encode(LinearSVM(w=w, b=0.5), codec), device="cpu")
+        want = ref_wire.decode(ref_wire.encode(LinearSVM(w=w, b=0.5), codec))
+        assert (lin.w.tobytes(), lin.b) == (np.asarray(want.w).tobytes(), want.b)
+        extra = pt_wire.decode(ref_wire.encode(AggExtra({"m": w[None, :]}), codec), device="cpu")
+        assert extra.arrays["m"].tobytes() == ref_wire.decode(
+            ref_wire.encode(AggExtra({"m": w[None, :]}), codec)).arrays["m"].tobytes()
 
 
 CODECS = ["fp16", "int8", "topk", "topk:0.5"]
