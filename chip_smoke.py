@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs ten phases, each printing one JSON line on stdout:
+``repro``, and runs eleven phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -22,7 +22,8 @@ It imports the port and nothing of JAX or of the reference package
            32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
            causal with a window, non-causal, ragged lengths and the serve
            shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
-           and feature dims 12, 24, 32 and 37; SDCA at the group shapes, on
+           and feature dims 12, 24, 32 and 37, and at the fleet's d 8 (k 4,
+           n 40 at b 8, 32 and 256); SDCA at the group shapes, on
            the pooled emnist ideal, whose alphas are not all 0 or 1, and on
            the population round's first group
            (``ops.make_population_sdca_problem``);
@@ -55,7 +56,10 @@ It imports the port and nothing of JAX or of the reference package
            equal to theirs in the group of 256, and one device's val and
            test score rows in groups whose query pad selects the Gram's
            16-, 32- and 64-row tiles equal to its rows scored alone (the
-           Gram's rows and the engine's ``_score_group``);
+           Gram's rows and the engine's ``_score_group``); and both
+           scorers' rows 0-7 bitwise equal in calls of 8, 32 and 256 rows
+           (the fleet's buckets and ``ServeConfig()``'s largest) at d 8
+           and d 32;
   parity   ``run_protocol`` on the full gleam federation three ways
            (bucketed on cuda, bucketed on cpu through the plain versions,
            the loop tier on cuda), then the int8 round with CG
@@ -127,6 +131,26 @@ It imports the port and nothing of JAX or of the reference package
            and peak memory of that first serve, prefill and decode seconds
            and tokens/s of it (cold) and of a second serve (warm); then
            the same serve once more under the profiler;
+  fleet    the SVM serving path and the multi-tenant fleet
+           (``repro_torch.serve``, ``repro_torch.fleet``): (1) the emnist
+           round's fp32 ``server_scorer`` and ``main_q8``'s int8 student
+           (those phases' rounds, or the rounds run here when they did not
+           run) each deployed through ``serve_round_artifact``'s path
+           (encode, ``save_payload``, ``register_wire``, ``ServeFleet.run``
+           with ``keep_results``): conserved, ``ensemble_score`` (fp32) or
+           ``ensemble_score_q8`` (int8) launched once per scheduler batch,
+           each kept result bitwise a direct cuda score of its row and
+           within AUC_TOL of the cpu plain scorer; (2)
+           ``benchmarks/serve_load_bench.py``'s full sweep and determinism
+           replay and (3) its trace baseline, rebuilt with the scorers on
+           cuda: byte for byte ``benchmarks/serve_load_bench.json`` and
+           ``benchmarks/fleet_trace_baseline.json``, one ``ensemble_score``
+           launch per scheduler batch; (4) ``benchmarks/serve_bench.py``'s
+           comparisons on the card (fused ``predict`` against
+           ``predict_padded`` at k 8 and 32, scheduler batch 256 against
+           batch 1, repeat traffic through the LRU) and the round's server
+           scorer through ``MicroBatchScheduler`` at ``ServeConfig()``'s
+           defaults on 4,096 requests: host seconds, requests/s, device ms;
   timing   each kernel and its plain version, in turns (plain, kernel,
            kernel, plain) with CUDA events (``ms``; for a kernel of a few
            microseconds mostly the wrapper's host time), and the kernel's
@@ -148,8 +172,9 @@ It imports the port and nothing of JAX or of the reference package
 The last three lines are the per-kernel summary ``{"kernels": [...]}``
 (each kernel's launches read from the run it was ported for: ``main``
 for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
-``serve`` for flash attention, named in ``launches_path``; the
-``population`` line carries its own counts), the card's
+``serve`` for flash attention, named in ``launches_path``, and each
+kernel's launches in the ``fleet`` phase's runs (1)-(3) as
+``launches_fleet``; the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
@@ -170,12 +195,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
-          "serve", "timing")
+          "serve", "fleet", "timing")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_OPS = 989e12            # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
+FLEET_BUCKETS = (8, 32, 256)      # the fleet's two buckets and ServeConfig()'s largest
 PARITY_KS = (1, 10, 38)
 FP32_KERNELS = ("batched_rbf_gram", "rbf_gram", "ensemble_score", "sdca")
 Q8_KERNELS = ("gram_matvec", "rbf_gram_q8", "ensemble_score_q8")
@@ -263,17 +289,17 @@ def kernel_cases(rng, ops):
         x1, x2, _ = _gram_inputs(rng, 1, m, n, d)
         return x1[0], x2[0], float(1.0 / d)
 
-    def ens(b, k, n_max, d):
-        x = rng.normal(size=(b, d)).astype(np.float32)
-        sup = rng.normal(size=(k, n_max, d)).astype(np.float32)
+    def ens(b, k, n_max, d, r=rng):
+        x = r.normal(size=(b, d)).astype(np.float32)
+        sup = r.normal(size=(k, n_max, d)).astype(np.float32)
         # trained models' scale: coef = alpha * y / (lam * n), alpha in [0, 1]
-        sign = np.where(rng.random((k, n_max)) < 0.5, -1.0, 1.0)
-        coef = (rng.random((k, n_max)) * sign / (0.01 * n_max)).astype(np.float32)
-        gam = (1.0 / (d * rng.uniform(0.5, 2.0, size=k))).astype(np.float32)
+        sign = np.where(r.random((k, n_max)) < 0.5, -1.0, 1.0)
+        coef = (r.random((k, n_max)) * sign / (0.01 * n_max)).astype(np.float32)
+        gam = (1.0 / (d * r.uniform(0.5, 2.0, size=k))).astype(np.float32)
         return x, sup, coef, gam
 
-    def ens_q8(b, k, n_max, d):
-        x, sup, coef, gam = ens(b, k, n_max, d)
+    def ens_q8(b, k, n_max, d, r=rng):
+        x, sup, coef, gam = ens(b, k, n_max, d, r)
         q = np.empty((k, n_max, d), np.int8)
         scale = np.empty((k, d), np.float32)
         zero = np.empty((k, d), np.float32)
@@ -373,6 +399,14 @@ def kernel_cases(rng, ops):
     for name, spec in ops.KERNEL_REGISTRY.items():
         cases[name].append(("registry", spec.make_inputs(rng)))
         cases[name].append(("ragged", spec.make_ragged(rng)))
+    # the fleet's shapes (serve_load_bench.py's tenants: k 4, 40 supports,
+    # d 8) at its buckets 8 and 32 and ServeConfig's 256, from their own
+    # generator so the cases above keep their data
+    fleet_rng = np.random.default_rng(8)
+    for b in FLEET_BUCKETS:
+        cases["ensemble_score"].append((f"fleet d8 b{b} k4 n40", ens(b, 4, 40, 8, fleet_rng)))
+        cases["ensemble_score_q8"].append((f"fleet d8 b{b} k4 n40",
+                                           ens_q8(b, 4, 40, 8, fleet_rng)))
     return cases
 
 
@@ -646,6 +680,18 @@ def determinism(ops, device, cases):
                     torch.equal(first, batched[0]))
             del args, first
         out[name] = checks
+    # a query's bits whatever bucket the scheduler pads it into (the fleet
+    # scores a row in bucket 8 or 32, ServeConfig's default serves 256)
+    for name in ("ensemble_score", "ensemble_score_q8"):
+        if name not in cases:
+            continue
+        kernel, checks = ops.KERNEL_REGISTRY[name].kernel, out.setdefault(name, {})
+        for label in (f"fleet d8 b{FLEET_BUCKETS[-1]} k4 n40", "k100 b8192 n230"):
+            args = to_device(dict(cases[name])[label], device)
+            calls = [kernel(args[0][:b].contiguous(), *args[1:]) for b in FLEET_BUCKETS]
+            checks[f"rows_0-7_equal_in_buckets_{'_'.join(map(str, FLEET_BUCKETS))} "
+                   f"[{label}]"] = all(torch.equal(calls[0], c[:8]) for c in calls[1:])
+            del args, calls
     torch.cuda.empty_cache()
     failed = [f"{name}: {c}" for name, checks in out.items() for c, ok in checks.items()
               if not ok]
@@ -859,7 +905,7 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False, 
                                      functions=tuple(DEVICE_FUNCTIONS) if gram else ())
     if gram:
         out["gram_device"] = gram_round(ops, ds, out["profile"]["by_function"], counts)
-    return out
+    return out, res
 
 
 # the population phase: the streamed round at scale (``POP_SCALE``), the
@@ -1555,6 +1601,413 @@ def phase_serve(ops, device):
     return out
 
 
+# the fleet phase: the SVM serving path and the multi-tenant fleet
+# (``repro_torch.serve``, ``repro_torch.fleet``) on the card. The cells of
+# ``benchmarks/serve_load_bench.py`` are rebuilt here on the port (its two
+# SLO classes, registry, grids and JSON; ``tests/test_torch_fleet.py``
+# runs the same functions on the cpu), and held byte for byte to the
+# committed ``benchmarks/serve_load_bench.json`` and
+# ``benchmarks/fleet_trace_baseline.json``
+LOAD_CLASS_SLOS = {"premium": dict(deadline_ms=20.0, priority=1),
+                   "batch": dict(deadline_ms=100.0, priority=0)}
+LOAD_FULL = dict(tenant_counts=(2, 4, 8), loads=(0.25, 0.5, 1.0, 1.5, 2.0, 3.0),
+                 horizon_ms=300.0, seed=7, pool_size=2048, quota=256)
+LOAD_SMOKE = dict(tenant_counts=(2, 4), loads=(0.5, 1.0, 2.0), horizon_ms=150.0, seed=7,
+                  pool_size=1024, quota=256)
+LOAD_TRACE = dict(n_tenants=2, load=2.0, horizon_ms=8.0, seed=7, pool_size=256, quota=256)
+LOAD_DIM = 8
+HANDOFF = dict(seed=0, horizon_ms=250.0, load=1.0)   # serve_round_artifact's defaults
+SERVE_BENCH = dict(batch=2048, d=32, n=200, ks=(8, 32), sched_k=16, sched_queries=256,
+                   round_requests=4096, seed=1)   # benchmarks/serve_bench.py's setting
+
+
+def load_setup():
+    """``serve_load_bench.py``'s serve and fleet configs."""
+    from repro_torch.fleet import CostModel, FleetConfig
+    from repro_torch.serve import ServeConfig
+
+    serve = ServeConfig(max_batch=32, max_queue=4096, buckets=(8, 32), cache_size=256)
+    return serve, FleetConfig(n_servers=2, max_global_queue=1024, cost=CostModel())
+
+
+def load_class(index):
+    return "premium" if index % 2 == 0 else "batch"
+
+
+def load_tenants(n_tenants, seed):
+    """The bench's tenants as arrays: (name, SLO class, [(support_x, coef)]
+    for 4 members of 40 normal supports at d 8), tenant i drawn from
+    ``default_rng(seed * 1000 + i)``."""
+    import numpy as np
+
+    out = []
+    for i in range(n_tenants):
+        rng = np.random.default_rng(seed * 1000 + i)
+        members = [(rng.normal(0.0, 1.0, (40, LOAD_DIM)).astype(np.float32),
+                    rng.normal(0.0, 0.1, 40).astype(np.float32)) for _ in range(4)]
+        out.append((f"t{i:02d}", load_class(i), members))
+    return out
+
+
+def load_registry(n_tenants, serve, quota, seed, device):
+    """The bench's registry: each tenant a k 4 ensemble at gamma 0.2 under
+    its class's SLO, with a 2-shard LRU."""
+    from repro_torch.core import Ensemble, SVMModel
+    from repro_torch.fleet import TenantRegistry, TenantSLO
+
+    registry = TenantRegistry(device=device)
+    for name, cls, members in load_tenants(n_tenants, seed):
+        registry.register(name, Ensemble([SVMModel(sx, c, 0.2, device=device)
+                                          for sx, c in members]),
+                          slo=TenantSLO(quota=quota, **LOAD_CLASS_SLOS[cls]),
+                          serve=serve, n_shards=2)
+    return registry
+
+
+def fleet_batches(fleet):
+    """Scheduler batches over every tenant's shards: one scorer call each."""
+    return sum(s.batches for stats in fleet.shard_stats().values() for s in stats)
+
+
+def load_cell(n_tenants, load, *, horizon_ms, seed, pool_size, quota, device, tracer=None):
+    """One (tenant count, offered load) cell: a fresh registry and fleet,
+    the whole open-loop trace, the drained summary; (summary, requests,
+    the fleet's scorer calls)."""
+    from repro_torch.fleet import ServeFleet, nominal_capacity_qps, open_loop_trace
+
+    serve, config = load_setup()
+    registry = load_registry(n_tenants, serve, quota, seed, device)
+    capacity = nominal_capacity_qps(config.n_servers, serve, config.cost)
+    rate = load * capacity / n_tenants
+    trace = open_loop_trace({name: rate for name in registry.names()}, horizon_ms=horizon_ms,
+                            dim=LOAD_DIM, seed=seed, pool_size=pool_size)
+    fleet = ServeFleet(registry, config, tracer=tracer)
+    summary = fleet.run(trace, horizon_ms=horizon_ms)
+    return summary, len(trace), fleet_batches(fleet)
+
+
+def load_classes(tenants):
+    """The per-tenant blocks summed into the two SLO classes (rates from
+    the sums, p99 the worst), as the bench's ``_class_blocks``."""
+    out = {}
+    for cls in LOAD_CLASS_SLOS:
+        blocks = [b for name, b in tenants.items() if load_class(int(name[1:])) == cls]
+        if not blocks:
+            continue
+        submitted = sum(b["submitted"] for b in blocks)
+        completed = sum(b["completed"] for b in blocks)
+        met = sum(b["deadline_met"] for b in blocks)
+        shed = sum(b["shed"] for b in blocks)
+        out[cls] = {
+            "tenants": len(blocks),
+            "submitted": submitted,
+            "goodput_qps": round(sum(b["goodput_qps"] for b in blocks), 3),
+            "p99_ms": max(b["p99_ms"] for b in blocks),
+            "shed_rate": round(shed / submitted, 6) if submitted else 0.0,
+            "deadline_met_rate": round(met / completed, 6) if completed else 0.0,
+        }
+    return out
+
+
+def load_curve(device, tenant_counts, loads, horizon_ms, seed, pool_size, quota):
+    """``serve_load_bench.py``'s ``run`` on the port: its sweep with the
+    in-bench bars (conservation everywhere; goodput at the highest load
+    >= 80 % of the sweep's peak) and its determinism replay; (the JSON
+    text the bench writes, the scorer calls made)."""
+    import dataclasses
+
+    from repro_torch.fleet import nominal_capacity_qps
+
+    serve, config = load_setup()
+    capacity = nominal_capacity_qps(config.n_servers, serve, config.cost)
+    payload = {"config": {
+        "tenant_counts": list(tenant_counts), "loads_x_capacity": list(loads),
+        "horizon_ms": horizon_ms, "seed": seed, "pool_size": pool_size, "quota": quota,
+        "dim": LOAD_DIM, "n_servers": config.n_servers,
+        "max_global_queue": config.max_global_queue,
+        "serve": {"max_batch": serve.max_batch, "buckets": list(serve.buckets),
+                  "cache_size": serve.cache_size},
+        "cost": dataclasses.asdict(config.cost), "slo_classes": LOAD_CLASS_SLOS,
+        "nominal_capacity_qps": round(capacity, 3),
+    }}
+    cell = dict(horizon_ms=horizon_ms, seed=seed, pool_size=pool_size, quota=quota,
+                device=device)
+    sweeps, calls = {}, 0
+    for n_tenants in tenant_counts:
+        curve = []
+        for load in loads:
+            summary, n_req, batches = load_cell(n_tenants, load, **cell)
+            calls += batches
+            g = summary["global"]
+            if not (g["conserved"] and all(b["conserved"] for b in summary["tenants"].values())):
+                raise AssertionError(f"load curve: tenants={n_tenants} load={load}: "
+                                     "conservation violated")
+            curve.append({"n_tenants": n_tenants, "load_x_capacity": load, "requests": n_req,
+                          **{k: g[k] for k in ("offered_qps", "goodput_qps", "p50_ms",
+                                               "p95_ms", "p99_ms", "shed_rate",
+                                               "deadline_met_rate", "batch_occupancy",
+                                               "cache_hit_rate")},
+                          "classes": load_classes(summary["tenants"])})
+        peak = max(c["goodput_qps"] for c in curve)
+        if not curve[-1]["goodput_qps"] >= 0.8 * peak:   # loads ascend: last = most overload
+            raise AssertionError(f"load curve: tenants={n_tenants}: goodput collapsed "
+                                 f"under overload ({curve[-1]['goodput_qps']} vs {peak})")
+        sweeps[f"tenants={n_tenants}"] = curve
+    payload["sweeps"] = sweeps
+    replays = [load_cell(tenant_counts[0], loads[0], **cell) for _ in range(2)]
+    calls += sum(r[2] for r in replays)
+    a, b = (json.dumps(r[0], sort_keys=True) for r in replays)
+    if a != b:
+        raise AssertionError("load curve: fleet summary not byte-identical across replays")
+    payload["determinism"] = {"repeat_identical": True, "n_tenants": tenant_counts[0],
+                              "load_x_capacity": loads[0]}
+    return json.dumps(payload, indent=2) + "\n", calls
+
+
+def load_trace(device):
+    """``serve_load_bench.py``'s ``run_trace`` on the port: one small
+    overloaded cell traced on simulated-ms timestamps, twice; (the JSON
+    text the bench writes, the scorer calls made)."""
+    from repro_torch.obs import Tracer
+
+    c = dict(LOAD_TRACE)
+    n_tenants, load = c.pop("n_tenants"), c.pop("load")
+    texts, calls = [], 0
+    for _ in range(2):
+        tracer = Tracer(process_name="fleet (simulated ms)")
+        calls += load_cell(n_tenants, load, device=device, tracer=tracer, **c)[2]
+        texts.append(tracer.to_json())
+    if texts[0] != texts[1]:
+        raise AssertionError("fleet trace: not byte-identical across replays")
+    return texts[0] + "\n", calls
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fleet_handoff(ops, model, label, total):
+    """``serve_round_artifact``'s path on the card (encode -> checkpoint ->
+    ``register_wire`` -> ``ServeFleet.run``, ``keep_results``): the
+    summary, conservation, the scorer launched once per scheduler batch
+    (and the other scorer never), each kept result bitwise a direct cuda
+    score of its row (one call over all rows: the split plan never depends
+    on b) and within AUC_TOL of the cpu plain scorer on the restored
+    checkpoint."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore_payload
+    from repro_torch.comm.wire import decode
+    from repro_torch.fleet import deploy_round_artifact
+    from repro_torch.serve import EnsembleScorer
+
+    with tempfile.TemporaryDirectory(prefix="fleet_handoff_") as tmp:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet, trace, handoff = deploy_round_artifact(
+            model, seed=HANDOFF["seed"], horizon_ms=HANDOFF["horizon_ms"], load=HANDOFF["load"],
+            checkpoint_dir=tmp, keep_results=True, device="cuda")
+        summary = fleet.run(trace, horizon_ms=HANDOFF["horizon_ms"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        cpu_scorer = EnsembleScorer(decode(restore_payload(tmp), device="cpu"), device="cpu")
+    _add_counts(total, counts)
+    kernel = "ensemble_score_q8" if handoff["codec"] == "int8" else "ensemble_score"
+    other = "ensemble_score" if kernel == "ensemble_score_q8" else "ensemble_score_q8"
+    batches = fleet_batches(fleet)
+    scorer = fleet.registry.get("premium").scorer
+    g = summary["global"]
+    rids = sorted(fleet.results)
+    rows = np.stack([trace[rid].row for rid in rids])
+    kept = np.array([fleet.results[rid] for rid in rids], np.float32)
+    direct = scorer(rows)
+    plain = cpu_scorer(rows)
+    out = {"artifact": label, "handoff": handoff, "global": g,
+           "tenants": {n: {k: t[k] for k in ("submitted", "completed", "shed", "p99_ms",
+                                             "goodput_qps")}
+                       for n, t in summary["tenants"].items()},
+           "k": scorer.k, "n_max": int(scorer.stacked.n_max), "d": int(scorer.stacked.d),
+           "wall_seconds": wall, "scheduler_batches": batches, "kernels": counts,
+           "results": len(rids), "results_bitwise_direct": bool(np.array_equal(kept, direct)),
+           "max_abs_diff_cpu_plain": float(np.abs(kept - plain).max())}
+    name = f"fleet handoff [{label}]"
+    if not (g["conserved"] and all(t["conserved"] for t in summary["tenants"].values())):
+        raise AssertionError(f"{name}: conservation violated")
+    if not g["completed"] > 0 or len(rids) != g["completed"]:
+        raise AssertionError(f"{name}: {len(rids)} kept results for {g['completed']} completed")
+    if counts[kernel] != batches or counts[other] != 0:
+        raise AssertionError(f"{name}: {kernel} launched {counts[kernel]} times ({other} "
+                             f"{counts[other]}) for {batches} scheduler batches")
+    if not out["results_bitwise_direct"]:
+        raise AssertionError(f"{name}: kept results differ from direct cuda scores")
+    if not (np.all(np.isfinite(kept)) and out["max_abs_diff_cpu_plain"] <= AUC_TOL):
+        raise AssertionError(f"{name}: kept results {out['max_abs_diff_cpu_plain']} from "
+                             "the cpu plain scorer")
+    return out
+
+
+def _median_seconds(fn, reps):
+    """Median host seconds of ``reps`` warm calls of ``fn`` (each ends in
+    a device-to-host copy of its scores, so each call is finished)."""
+    import numpy as np
+
+    fn()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs))
+
+
+def serve_bench_ensemble(k, device):
+    """``serve_bench.py``'s ensemble: k members of n/2..n ragged supports
+    at d 32, gammas in [0.05, 0.5]."""
+    import numpy as np
+
+    from repro_torch.core import Ensemble, SVMModel
+
+    c = SERVE_BENCH
+    rng = np.random.default_rng(0)
+    members = []
+    for _ in range(k):
+        ni = int(rng.integers(c["n"] // 2, c["n"] + 1))
+        members.append(SVMModel(support_x=rng.normal(0, 1, (ni, c["d"])).astype(np.float32),
+                                coef=rng.normal(0, 0.1, ni).astype(np.float32),
+                                gamma=float(rng.uniform(0.05, 0.5)), device=device))
+    return Ensemble(members)
+
+
+def serve_bench_card(server_scorer):
+    """``serve_bench.py``'s comparisons timed on the card, plus the round's
+    own server scorer through ``MicroBatchScheduler`` at ``ServeConfig()``'s
+    defaults: host seconds (median of warm calls) and, where a kernel
+    runs, the device ms of one call (``device_time``)."""
+    import numpy as np
+
+    from repro_torch.serve import EnsembleScorer, ServeConfig
+
+    c = SERVE_BENCH
+    rng = np.random.default_rng(c["seed"])
+    x = rng.normal(0, 1, (c["batch"], c["d"])).astype(np.float32)
+    out = {"fused_vs_padded": []}
+    for k in c["ks"]:
+        ens = serve_bench_ensemble(k, "cuda")
+        fused_s = _median_seconds(lambda: ens.predict(x), 5)
+        padded_s = _median_seconds(lambda: ens.predict_padded(x), 5)
+        diff = float(np.abs(ens.predict(x) - ens.predict_padded(x)).max())
+        out["fused_vs_padded"].append({
+            "k": k, "batch": c["batch"], "fused_ms": 1e3 * fused_s,
+            "padded_ms": 1e3 * padded_s, "speedup": padded_s / fused_s,
+            "fused_device_ms": device_time(ens.predict, (x,), 5)[0],
+            "padded_device_ms": device_time(ens.predict_padded, (x,), 5)[0],
+            "max_abs_diff": diff})
+        if not diff <= AUC_TOL:
+            raise AssertionError(f"serve bench k{k}: predict and predict_padded differ by {diff}")
+
+    scorer = EnsembleScorer(serve_bench_ensemble(c["sched_k"], "cuda"), device="cuda")
+    queries = [rng.normal(0, 1, (c["d"],)).astype(np.float32) for _ in range(c["sched_queries"])]
+
+    def rps(config, reqs):
+        return len(reqs) / _median_seconds(lambda: scorer.scheduler(config).run(reqs), 3)
+
+    big = ServeConfig(max_batch=256, buckets=(256,), cache_size=0)
+    one = ServeConfig(max_batch=1, buckets=(1,), cache_size=0)
+    out["scheduler"] = {"k": c["sched_k"], "requests": len(queries),
+                        "batched_256_rps": rps(big, queries), "single_rps": rps(one, queries),
+                        "batch_256_device_ms": device_time(scorer, (np.stack(queries),), 5)[0]}
+    out["scheduler"]["batched_over_single"] = (out["scheduler"]["batched_256_rps"]
+                                               / out["scheduler"]["single_rps"])
+    sched = scorer.scheduler(ServeConfig(max_batch=256, buckets=(256,), cache_size=512))
+    sched.run(queries)   # fills the cache
+    hits = sched.stats.answered_from_cache
+    t0 = time.perf_counter()
+    sched.run(queries)
+    out["cached"] = {"rps": len(queries) / (time.perf_counter() - t0),
+                     "hit_rate": (sched.stats.answered_from_cache - hits) / len(queries)}
+
+    round_scorer = EnsembleScorer(server_scorer, device="cuda")
+    reqs = [rng.normal(0, 1, (round_scorer.stacked.d,)).astype(np.float32)
+            for _ in range(c["round_requests"])]
+    config = ServeConfig()
+    secs = _median_seconds(lambda: round_scorer.scheduler(config).run(reqs), 3)
+    sched = round_scorer.scheduler(config)
+    sched.run(reqs)
+    out["round_server_scorer"] = {
+        "k": round_scorer.k, "n_max": int(round_scorer.stacked.n_max),
+        "d": int(round_scorer.stacked.d), "requests": len(reqs),
+        "serve_config": {"max_batch": config.max_batch, "buckets": list(config.buckets),
+                         "cache_size": config.cache_size},
+        "seconds": secs, "rps": len(reqs) / secs, "batches": sched.stats.batches,
+        "batch_device_ms": device_time(round_scorer, (np.stack(reqs[:config.max_batch]),),
+                                       5)[0]}
+    return out
+
+
+def fleet_artifacts(make_dataset, run_protocol, DistillConfig, artifacts):
+    """The emnist round's fp32 ``server_scorer`` and ``main_q8``'s int8
+    student: ``main``'s and ``main_q8``'s when they ran in this call, else
+    their rounds once more on cuda (no profile)."""
+    missing = [p for p in ("main", "main_q8") if p not in artifacts]
+    rounds = {}
+    if missing:
+        ds = make_dataset("emnist", seed=0, scale=1.0)
+        kw = {"main": {}, "main_q8": {"codec": "int8",
+                                     "distill": DistillConfig(proxy_size=4096, solver="cg")}}
+        for p in missing:
+            t0 = time.perf_counter()
+            artifacts[p] = run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda",
+                                        **kw[p])
+            rounds[p] = time.perf_counter() - t0
+    return artifacts["main"].server_scorer, artifacts["main_q8"].student, rounds
+
+
+def phase_fleet(make_dataset, run_protocol, DistillConfig, ops, artifacts):
+    """The serving path on the card: (1) the emnist round's fp32 server
+    scorer and int8 student deployed through ``serve_round_artifact``'s
+    path; (2) ``serve_load_bench.py``'s full sweep and (3) its trace
+    baseline rebuilt with the scorers on cuda, byte for byte the committed
+    JSON; (4) ``serve_bench.py``'s comparisons and the round scorer's
+    requests/s. ``kernels``: the launches of (1)-(3)."""
+    from repro_torch.comm.wire import QuantizedSVM
+
+    total = {}
+    fp32_model, q8_model, round_s = fleet_artifacts(make_dataset, run_protocol,
+                                                    DistillConfig, artifacts)
+    if not isinstance(q8_model, QuantizedSVM):
+        raise AssertionError(f"fleet: main_q8's student is a {type(q8_model).__name__}")
+    out = {"rounds_run_seconds": round_s,
+           "handoff": [fleet_handoff(ops, fp32_model, "main server_scorer fp32", total),
+                       fleet_handoff(ops, q8_model, "main_q8 student int8", total)]}
+    for label, build, path in (
+            ("load_curve", lambda: load_curve("cuda", **LOAD_FULL), "serve_load_bench.json"),
+            ("trace", lambda: load_trace("cuda"), "fleet_trace_baseline.json")):
+        want = (ROOT / "benchmarks" / path).read_text()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        text, calls = build()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        _add_counts(total, counts)
+        out[label] = {"file": f"benchmarks/{path}", "bytes": len(text),
+                      "byte_identical": text == want, "wall_seconds": wall,
+                      "scorer_calls": calls, "kernels": counts}
+        if text != want:
+            raise AssertionError(f"fleet {label}: the port's JSON differs from "
+                                 f"benchmarks/{path}")
+        if counts["ensemble_score"] != calls:
+            raise AssertionError(f"fleet {label}: ensemble_score launched "
+                                 f"{counts['ensemble_score']} times for {calls} batches")
+    out["serve_bench"] = serve_bench_card(fp32_model)
+    out["kernels"] = total
+    return out
+
+
 def _time_ms(fn, reps):
     import torch
 
@@ -1624,12 +2077,13 @@ TIMING_CASES = {
                          "fit dirichlet g256 b64 d16"),
     "rbf_gram": ("ideal 2000x2000x32",),
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
-                       "ideal predict b8192 k1 n2000", "population b4096 k50 n40 d16"),
+                       "ideal predict b8192 k1 n2000", "population b4096 k50 n40 d16",
+                       "fleet d8 b32 k4 n40"),
     "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
              "group g128 b256", "group dirichlet g256 b64"),
     "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32", "cg l4096 d16"),
     "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32"),
-    "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230"),
+    "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230", "fleet d8 b32 k4 n40"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
                         "serve b4 s2048 h32 k8 hd64 causal float32"),
 }
@@ -1748,6 +2202,7 @@ def main(argv=None) -> int:
 
     detail = {"nvidia_smi": card}
     errs, counts, timing = {}, {}, {}   # counts: phase -> kernel -> launches
+    artifacts = {}   # main, main_q8 -> the round's result, for the fleet phase
     for phase in PHASES:
         if phase not in phases:
             continue
@@ -1761,12 +2216,13 @@ def main(argv=None) -> int:
             elif phase == "parity":
                 out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
-                out = phase_main(make_dataset, run_protocol, ops, trace, FP32_KERNELS, gram=True)
+                out, artifacts[phase] = phase_main(make_dataset, run_protocol, ops, trace,
+                                                   FP32_KERNELS, gram=True)
                 counts[phase] = out["kernels"]
             elif phase == "main_q8":
-                out = phase_main(make_dataset, run_protocol, ops, trace,
-                                 FP32_KERNELS + Q8_KERNELS, codec="int8",
-                                 distill=DistillConfig(proxy_size=4096, solver="cg"))
+                out, artifacts[phase] = phase_main(
+                    make_dataset, run_protocol, ops, trace, FP32_KERNELS + Q8_KERNELS,
+                    codec="int8", distill=DistillConfig(proxy_size=4096, solver="cg"))
                 counts[phase] = out["kernels"]
             elif phase == "population":
                 out = phase_population(ops, trace, DistillConfig, device)
@@ -1778,6 +2234,9 @@ def main(argv=None) -> int:
                 out = phase_lm_parity(ops, device)
             elif phase == "serve":
                 out = phase_serve(ops, device)
+                counts[phase] = out["kernels"]
+            elif phase == "fleet":
+                out = phase_fleet(make_dataset, run_protocol, DistillConfig, ops, artifacts)
                 counts[phase] = out["kernels"]
             else:
                 out = phase_timing(ops, device, np.random.default_rng(0), names)
@@ -1804,7 +2263,7 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
-            "launches_path": path,
+            "launches_path": path, "launches_fleet": counts.get("fleet", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -35,7 +35,9 @@ from repro_torch.comm.wire import (
     encode,
     encoded_nbytes,
     get_codec,
+    payload_to_tree,
     svm_wire_nbytes,
+    tree_to_payload,
 )
 
 __all__ = [
@@ -45,5 +47,6 @@ __all__ = [
     "CommEvent", "CommLedger", "ModelExchange", "StreamExchange",
     "CODECS", "Codec", "QuantizedStackedEnsemble", "QuantizedSVM",
     "REPORT_NBYTES", "WIRE_VERSION",
-    "decode", "encode", "encoded_nbytes", "get_codec", "svm_wire_nbytes",
+    "decode", "encode", "encoded_nbytes", "get_codec", "payload_to_tree",
+    "svm_wire_nbytes", "tree_to_payload",
 ]

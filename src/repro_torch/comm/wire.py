@@ -525,3 +525,13 @@ def agg_extra_wire_nbytes(shapes: Dict[str, Tuple[int, ...]], codec="fp32") -> i
 
 # the pre-round metadata exchange costs exactly this much per device
 REPORT_NBYTES = len(encode(DeviceReport(0, 0, 0.5, True)))
+
+
+def payload_to_tree(blob: bytes) -> Dict[str, np.ndarray]:
+    """Wrap a wire payload as a one-leaf tree so it can ride through the
+    npz checkpoint manager (``checkpoint.manager.save_payload``)."""
+    return {"wire": np.frombuffer(blob, np.uint8).copy()}
+
+
+def tree_to_payload(tree: Dict[str, np.ndarray]) -> bytes:
+    return np.asarray(tree["wire"], np.uint8).tobytes()

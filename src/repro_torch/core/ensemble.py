@@ -153,6 +153,30 @@ class Ensemble:
             return ensemble_predict_mean(self.members, x)
         return self.stacked().predict(x, chunk=chunk)
 
+    def predict_padded(self, x: np.ndarray, chunk: int = 4096) -> np.ndarray:
+        """Pre-fusion baseline: pack per call, a full padded Gram in plain
+        torch on the members' device.
+
+        Kept (not routed anywhere) as the comparison point of the fused
+        scorer: it re-packs the (k, n_max, d) support tensor on every
+        call and materialises the whole (k, chunk, n_max) Gram before
+        reducing it, as the reference's ``vmap`` of jnp does.
+        """
+        packed = StackedEnsemble.from_members(self.members)  # per call, on purpose
+        sup, coef, gam = packed.sup, packed.coef, packed.gammas
+        # zero-padded support rows contribute exp(-g*dist)*0 via coef
+        x2 = (sup * sup).sum(-1)[:, None, :]                         # (k, 1, n)
+        outs = []
+        for start in range(0, len(x), chunk):
+            xq = torch.from_numpy(np.ascontiguousarray(x[start : start + chunk],
+                                                       np.float32)).to(sup.device)
+            q2 = (xq * xq).sum(1)[None, :, None]                      # (1, b, 1)
+            d2 = torch.clamp(q2 + x2 - 2.0 * torch.matmul(xq[None], sup.transpose(1, 2)),
+                             min=0.0)
+            scores = torch.bmm(torch.exp(-gam[:, None, None] * d2), coef[:, :, None])
+            outs.append(scores[:, :, 0].mean(0).cpu().numpy())
+        return np.concatenate(outs)
+
 
 def ensemble_predict_mean(members: Sequence, x: np.ndarray) -> np.ndarray:
     """Plain mean over member.predict (handles ConstantModel members)."""

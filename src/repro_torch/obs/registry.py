@@ -1,10 +1,14 @@
-"""Metrics registry — named counters and histograms, one collect().
+"""Metrics registry — named counters/gauges/histograms, one collect().
 
-A host-only copy of the core of ``repro.obs.registry``: the engine
-increments the same dotted names (``engine.groups``,
-``engine.devices_trained``, ``engine.group_seconds``) into the
-process-wide ``default_registry()``; ``reset()`` it between measured
-regions. ``collect()`` nests on the dots::
+A host-only copy of ``repro.obs.registry``: the engine increments the
+same dotted names (``engine.groups``, ``engine.devices_trained``,
+``engine.group_seconds``) into the process-wide ``default_registry()``;
+``reset()`` it between measured regions. The metric silos —
+``comm.CommLedger`` (exact wire bytes), ``fleet.FleetMetrics`` (SLO
+accounting) and ``serve.SchedulerStats`` (batching and cache tallies) —
+keep their own accounting and export through the adapters below into
+one schema-versioned ``envelope()``, the reference's shape.
+``collect()`` nests on the dots::
 
     reg = MetricsRegistry()
     reg.counter("engine.devices_trained").inc(512)
@@ -16,8 +20,12 @@ observation that actually happened.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List
+from typing import Dict, Iterable, List, Mapping, Optional
+
+SCHEMA_VERSION = 1
+SCHEMA = "repro.obs/v1"
 
 
 def _nearest_rank(sorted_xs: List[float], q: float) -> float:
@@ -45,6 +53,22 @@ class Counter:
 
     def collect(self) -> Dict[str, object]:
         return {"type": "counter", "value": self.value}
+
+
+class Gauge:
+    """Last-set value."""
+
+    __slots__ = ("value",)
+    kind = "gauge"
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+    def collect(self) -> Dict[str, object]:
+        return {"type": "gauge", "value": self.value}
 
 
 class Histogram:
@@ -76,7 +100,7 @@ class Histogram:
         }
 
 
-_KINDS = {"counter": Counter, "histogram": Histogram}
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
 
 class MetricsRegistry:
@@ -97,6 +121,9 @@ class MetricsRegistry:
 
     def counter(self, name: str) -> Counter:
         return self._get(name, "counter")
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, "gauge")
 
     def histogram(self, name: str) -> Histogram:
         return self._get(name, "histogram")
@@ -130,3 +157,64 @@ _DEFAULT = MetricsRegistry()
 def default_registry() -> MetricsRegistry:
     """The process-wide registry hot paths increment into."""
     return _DEFAULT
+
+
+# ----------------------------------------------------------------------
+# silo adapters: the existing exact accountings, under one envelope
+# ----------------------------------------------------------------------
+
+def comm_section(ledger) -> Dict[str, object]:
+    """``comm.CommLedger`` -> envelope section: its exact per-tag byte
+    summary, the message count and the representation."""
+    return {
+        "summary": ledger.summary(),
+        "messages": len(ledger),
+        "compact": bool(ledger.compact),
+    }
+
+
+def fleet_section(summary: Mapping) -> Dict[str, object]:
+    """``fleet.FleetMetrics.summary()`` (or ``ServeFleet.summary()``)
+    output -> envelope section, verbatim."""
+    return dict(summary)
+
+
+def scheduler_section(stats: Iterable) -> Dict[str, object]:
+    """``serve.SchedulerStats`` instances (e.g. one per cache shard) ->
+    summed counter dict plus the shard count."""
+    stats = list(stats)
+    total: Dict[str, int] = {}
+    for s in stats:
+        for k, v in dataclasses.asdict(s).items():
+            total[k] = total.get(k, 0) + int(v)
+    total["shards"] = len(stats)
+    return total
+
+
+def envelope(
+    registry: Optional[MetricsRegistry] = None,
+    *,
+    comm=None,
+    fleet: Optional[Mapping] = None,
+    scheduler: Optional[Iterable] = None,
+    extra: Optional[Mapping] = None,
+) -> Dict[str, object]:
+    """The schema-versioned export: every silo that exists for this run
+    adapted under one dict. Pass the raw objects (a ``CommLedger``, a
+    fleet summary dict, ``SchedulerStats``) — adapters normalize."""
+    sections: Dict[str, object] = {}
+    if registry is not None:
+        sections["metrics"] = registry.collect()
+    if comm is not None:
+        sections["comm"] = comm_section(comm)
+    if fleet is not None:
+        sections["fleet"] = fleet_section(fleet)
+    if scheduler is not None:
+        sections["scheduler"] = scheduler_section(scheduler)
+    if extra:
+        sections.update(dict(extra))
+    return {
+        "schema": SCHEMA,
+        "schema_version": SCHEMA_VERSION,
+        "sections": sections,
+    }

@@ -1,19 +1,29 @@
 """Span-based tracing to Chrome trace-event JSON (Perfetto-viewable).
 
 A host-only copy of ``repro.obs.trace``: the round and engine spans
-(``round.*``, ``engine.group``) and the ledger's ``comm.*`` instants
-exist in the port under the same names, so one trace reader serves
-both packages. Spans time the host: every round phase ends in a
-device-to-host copy of its scores, so a phase's span covers its device
-work too.
+(``round.*``, ``engine.group``), the ledger's ``comm.*`` instants and
+the fleet's ``fleet.execute`` / ``fleet.shed`` events exist in the port
+under the same names, so one trace reader serves both packages, and
+``to_json`` serialises equal events to the reference's bytes. Spans
+time the host: every round phase ends in a device-to-host copy of its
+scores, so a phase's span covers its device work too.
 
 One ``Tracer`` collects events for one run and exports the standard
 Chrome trace-event format (``{"traceEvents": [...]}``):
 
   * nested spans — ``with tracer.span("round.train", cat="round")``
     emits a begin/end ("B"/"E") pair;
+  * complete events — ``tracer.complete(name, ts_us, dur_us)`` for
+    spans whose duration is known up front (the fleet's simulated batch
+    services);
   * instants — ``tracer.instant(name)`` for point events (every
     ``CommLedger`` record mirrors here).
+
+Two clock sources: ``wall_clock()`` (the default) for spans that
+measure the host, and ``sim_clock(SimClock)``, the fleet's simulated
+milliseconds: a fleet trace reads no wall clock anywhere, so it is
+byte-reproducible from the traffic seed (it equals the committed
+``benchmarks/fleet_trace_baseline.json``).
 
 With no tracer installed, ``current_tracer()`` returns ``NULL_TRACER``
 whose ``enabled`` is False and whose ``span`` hands back one reusable
@@ -31,6 +41,7 @@ time.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import time
 from typing import Callable, Dict, Iterator, List, Optional
@@ -53,6 +64,13 @@ def stopwatch() -> Callable[[], float]:
     primitive for engine code, which reads no clock itself)."""
     t0 = time.perf_counter()  # repro: allow[wall-clock-ban] reason=the port's obs layer owns its clock reads, as repro/obs does
     return lambda: time.perf_counter() - t0  # repro: allow[wall-clock-ban] reason=the port's obs layer owns its clock reads, as repro/obs does
+
+
+def sim_clock(clock) -> Callable[[], float]:
+    """Microseconds of *simulated* time read off a ``fleet.SimClock``
+    (or anything with ``now_ms``) — no wall-clock reads, so traces
+    built on it are byte-reproducible from the run's seed."""
+    return lambda: clock.now_ms * 1000.0
 
 
 def _coerce_attr(name: str, key: str, val):
@@ -97,6 +115,10 @@ class NullTracer:
     def instant(self, name: str, cat: str = "app", ts_us: Optional[float] = None, **attrs):
         return None
 
+    def complete(self, name: str, ts_us: float, dur_us: float,
+                 cat: str = "app", **attrs):
+        return None
+
     def export(self, path: str) -> bool:
         return False
 
@@ -108,17 +130,26 @@ class Tracer:
     """Collects Chrome trace events for one run.
 
     ``clock`` is a zero-arg callable returning the current timestamp in
-    microseconds (``wall_clock()`` by default).
+    microseconds (``wall_clock()`` by default, ``sim_clock(...)`` for
+    simulated time). ``pid`` namespaces the events: merged traces
+    (``merge``) keep each source on its own process track, named by
+    ``process_name``'s metadata ("M") event.
     """
 
     enabled = True
 
     def __init__(self, clock: Optional[Callable[[], float]] = None,
-                 pid: int = 1, tid: int = 1):
+                 pid: int = 1, tid: int = 1,
+                 process_name: Optional[str] = None):
         self.clock = clock if clock is not None else wall_clock()
         self.pid = int(pid)
         self.tid = int(tid)
         self.events: List[Dict] = []
+        if process_name is not None:
+            self.events.append({
+                "ph": "M", "name": "process_name", "pid": self.pid,
+                "tid": self.tid, "ts": 0.0, "args": {"name": process_name},
+            })
 
     def _event(self, ph: str, name: str, cat: str, ts: float, attrs: dict,
                **extra) -> None:
@@ -142,6 +173,17 @@ class Tracer:
         """Point event (scope "t" = thread-local in the viewer)."""
         ts = self.clock() if ts_us is None else ts_us
         self._event("i", name, cat, ts, attrs, s="t")
+
+    def complete(self, name: str, ts_us: float, dur_us: float,
+                 cat: str = "app", **attrs) -> None:
+        """One "X" event whose duration is known up front — the fleet's
+        simulated batch services land here with explicit timestamps."""
+        self._event("X", name, cat, ts_us, attrs, dur=float(dur_us))
+
+    def merge(self, other: "Tracer") -> None:
+        """Append another tracer's events (they keep their own pid —
+        give sub-tracers a distinct one)."""
+        self.events.extend(other.events)
 
     def span_seconds(self) -> Dict[str, float]:
         """name -> summed wall seconds of its closed B/E spans."""
@@ -202,3 +244,19 @@ def use_tracer(tracer) -> Iterator[object]:
         yield tracer
     finally:
         _CURRENT = prev
+
+
+def traced(name: Optional[str] = None, cat: str = "app") -> Callable:
+    """Decorator form: span the whole call on the current tracer."""
+    def deco(fn):
+        span_name = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t = _CURRENT
+            if not t.enabled:
+                return fn(*args, **kwargs)
+            with t.span(span_name, cat=cat):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco

@@ -5,7 +5,10 @@ Port of the part of ``repro.utils.trees`` that the one-shot baselines
 use. ``tree_structure`` plays the role of a JAX treedef: dict keys are
 taken in sorted order (as ``jax.tree`` takes them), ``None`` is an empty
 subtree, and two trees map together only where their structures are
-equal. The stacking helpers and ``tree_global_norm`` / ``tree_cast``
+equal. ``tree_flatten_with_path`` names each leaf by the key string the
+reference's checkpoints use (``"/"``-joined dict keys and sequence
+indices), and ``tree_unflatten`` rebuilds a tree from a structure and
+its leaves. The stacking helpers and ``tree_global_norm`` / ``tree_cast``
 come with the LM's train step (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
@@ -34,6 +37,49 @@ def tree_structure(tree):
     if kind == "leaf":
         return "*"
     return (kind, keys, tuple(tree_structure(c) for c in kids))
+
+
+def tree_flatten_with_path(tree) -> List[Tuple[str, Any]]:
+    """(key, leaf) pairs in ``tree_leaves`` order; the key is JAX's path
+    of the leaf as ``repro.checkpoint`` spells it: dict keys and sequence
+    indices joined by ``"/"`` (a bare leaf has the key ``""``)."""
+    kind, keys, kids = _children(tree)
+    if kind == "leaf":
+        return [("", tree)]
+    names = keys if kind == "dict" else range(len(kids))
+    return [(f"{name}/{sub}" if sub else str(name), leaf)
+            for name, c in zip(names, kids) for sub, leaf in tree_flatten_with_path(c)]
+
+
+def tree_unflatten(structure, leaves) -> Any:
+    """The tree of ``structure`` (a ``tree_structure``) whose leaves, in
+    ``tree_leaves`` order, are ``leaves``."""
+    it = iter(leaves)
+    out = _build(structure, it)
+    if next(it, _END) is not _END:
+        raise ValueError("tree_unflatten: more leaves than the structure holds")
+    return out
+
+
+_END = object()
+_SEQUENCES = {"list": list, "tuple": tuple}
+
+
+def _build(structure, it):
+    if structure == "*":
+        leaf = next(it, _END)
+        if leaf is _END:
+            raise ValueError("tree_unflatten: fewer leaves than the structure holds")
+        return leaf
+    kind, keys, kids = structure
+    if kind == "none":
+        return None
+    built = [_build(c, it) for c in kids]
+    if kind == "dict":
+        return dict(zip(keys, built))
+    if kind not in _SEQUENCES:
+        raise TypeError(f"tree_unflatten: cannot rebuild a {kind} node")
+    return _SEQUENCES[kind](built)
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -9,8 +9,9 @@ machine without JAX; from the repository root::
 
 The CPU tests hold each plain version to the JAX reference
 (``tests/test_torch_kernels.py``); these hold each kernel to its plain
-version on the same card tensors, at the registry's tolerance, and the
-round on the card to the round on the CPU.
+version on the same card tensors, at the registry's tolerance, the
+round on the card to the round on the CPU, and the serving path
+(``EnsembleScorer``, a ``ServeFleet`` cell) on the card to the CPU's.
 """
 import importlib.util
 from pathlib import Path
@@ -608,3 +609,91 @@ def test_score_does_not_depend_on_the_batch(cuda_device, name):
     full = spec.kernel(x, *rest)
     head = spec.kernel(x[:1000].contiguous(), *rest)
     assert torch.equal(full[:1000], head)
+
+
+# ----------------------------------------------------------------------
+# the serving path: EnsembleScorer and the fleet on the card
+# ----------------------------------------------------------------------
+
+def _served_model(codec, d, device, k=4):
+    """A ragged RBF ensemble at d (its int8 wire form for ``int8``),
+    decoded onto ``device``."""
+    from repro_torch.comm.wire import decode, encode
+    from repro_torch.core import Ensemble, SVMModel
+
+    rng = _rng(f"served {codec} d{d}")
+    members = []
+    for _ in range(k):
+        n = int(rng.integers(20, 61))
+        members.append(SVMModel(rng.normal(size=(n, d)).astype(np.float32),
+                                rng.normal(0, 0.1, n).astype(np.float32),
+                                float(1.0 / (d * rng.uniform(0.5, 2.0))), device="cpu"))
+    return decode(encode(Ensemble(members), codec), device=device)
+
+
+@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+def test_ensemble_scorer_on_the_card_matches_cpu(cuda_device, codec, d):
+    """``EnsembleScorer`` on cuda against cpu behind a scheduler with
+    buckets 8/32/256 (LRU on): scores within the scorer's tol, one kernel
+    launch per batch, equal stats; a row's bits equal in every bucket."""
+    from repro_torch.serve import EnsembleScorer, MicroBatchScheduler, ServeConfig
+
+    name = "ensemble_score_q8" if codec == "int8" else "ensemble_score"
+    config = ServeConfig(max_batch=256, buckets=(8, 32, 256), cache_size=64)
+    rng = _rng(f"requests d{d}")
+    uniq = rng.normal(size=(90, d)).astype(np.float32)
+    rows = [uniq[i] for i in rng.integers(0, 90, size=400)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        scorer = EnsembleScorer(_served_model(codec, d, dev), device=dev)
+        sched = MicroBatchScheduler(scorer, config)
+        before = ops.KERNEL_REGISTRY[name].counter.count
+        outs = [sched.run(rows[a:b]) for a, b in ((0, 5), (5, 35), (35, 300), (300, 400))]
+        runs[dev] = (np.concatenate(outs), vars(sched.stats),
+                     ops.KERNEL_REGISTRY[name].counter.count - before, scorer)
+    (got, stats, launches, scorer), (want, want_stats, _, _) = runs["cuda"], runs["cpu"]
+    tol = ops.KERNEL_REGISTRY[name].tol
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    assert stats == want_stats and launches == stats["batches"] == 4
+    x = np.stack(rows[:256])
+    by_bucket = [scorer(x[:b]) for b in (8, 32, 256)]
+    assert all(np.array_equal(by_bucket[0], s[:8]) for s in by_bucket[1:])
+
+
+def test_fleet_cell_on_the_card_is_the_cpu_cell(cuda_device):
+    """One ``ServeFleet`` cell (2 tenants, 2 shards each, d 8, overload)
+    with ``keep_results`` on cuda and on cpu: the summaries byte for byte
+    equal (simulated time: scores never enter them), the cuda results
+    bitwise the direct cuda scores of their rows, and within the scorer's
+    tol of the cpu results."""
+    import json
+
+    from repro_torch.fleet import (FleetConfig, ServeFleet, TenantRegistry, TenantSLO,
+                                   nominal_capacity_qps, open_loop_trace)
+    from repro_torch.serve import ServeConfig
+
+    serve = ServeConfig(max_batch=32, max_queue=4096, buckets=(8, 32), cache_size=256)
+    config = FleetConfig(n_servers=2, max_global_queue=1024)
+    rate = 1.5 * nominal_capacity_qps(config.n_servers, serve, config.cost) / 2
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reg = TenantRegistry(device=dev)
+        for i, codec in enumerate(("fp32", "int8")):
+            reg.register(f"t{i}", _served_model(codec, 8, dev), serve=serve, n_shards=2,
+                         slo=TenantSLO(deadline_ms=(20.0, 100.0)[i], priority=1 - i, quota=256))
+        trace = open_loop_trace({n: rate for n in reg.names()}, horizon_ms=40.0, dim=8,
+                                seed=7, pool_size=256)
+        fleet = ServeFleet(reg, config, keep_results=True)
+        runs[dev] = (json.dumps(fleet.run(trace, horizon_ms=40.0), sort_keys=True),
+                     fleet, trace)
+    (summary, fleet, trace), (cpu_summary, cpu_fleet, _) = runs["cuda"], runs["cpu"]
+    assert summary == cpu_summary and json.loads(summary)["global"]["conserved"]
+    assert sorted(fleet.results) == sorted(cpu_fleet.results) and fleet.results
+    for name in ("t0", "t1"):
+        rids = [rid for rid in sorted(fleet.results) if trace[rid].tenant == name]
+        kept = np.array([fleet.results[rid] for rid in rids])
+        direct = fleet.registry.get(name).scorer(np.stack([trace[rid].row for rid in rids]))
+        assert np.array_equal(kept, direct)
+        np.testing.assert_allclose(kept, [cpu_fleet.results[rid] for rid in rids],
+                                   atol=ops.KERNEL_REGISTRY["ensemble_score"].tol, rtol=0)

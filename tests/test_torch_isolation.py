@@ -77,6 +77,9 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.core.ensemble import StackedEnsemble
     from repro_torch.core.protocol import run_protocol
     from repro_torch.distill import distill_teacher
+    from repro_torch.comm.wire import encode
+    from repro_torch.fleet import TenantRegistry, serve_round_artifact
+    from repro_torch.serve import EnsembleScorer
     from repro_torch.core.svm import SVMModel, train_svm
     from repro_torch.data import make_dataset
     from repro_torch.sim import PopulationConfig, device_stream, run_population
@@ -106,6 +109,9 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: LinearSVM(x[0], 0.5).predict(x),
         lambda: StackedLinear.from_model(LinearSVM(x[0], 0.5)),
         lambda: linear_from_arrays(x[0], 0.5),
+        lambda: EnsembleScorer(SVMModel(x, y * 0.1, 0.5)),
+        lambda: TenantRegistry().register_wire("t", encode(SVMModel(x, y * 0.1, 0.5))),
+        lambda: serve_round_artifact(SVMModel(x, y * 0.1, 0.5)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
