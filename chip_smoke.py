@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs eleven phases, each printing one JSON line on stdout:
+``repro``, and runs thirteen phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -131,6 +131,23 @@ It imports the port and nothing of JAX or of the reference package
            and peak memory of that first serve, prefill and decode seconds
            and tokens/s of it (cold) and of a second serve (warm); then
            the same serve once more under the profiler;
+  train    the LM train step (``models.make_train_step``, ``launch/train.py``;
+           no hand-written kernel runs in it: none has a backward, as no
+           Pallas kernel of the reference has one): (a) llama3.2-1b at full
+           width cut to 2 layers, fp32, the same parameters (drawn on the
+           cpu) 3 steps of ``make_optimizer(1e-3)`` at batch 2, seq 64 on
+           cuda and on cpu: losses within 1e-4 (step 1) and 1e-3 relative;
+           (b) the full 16-layer bf16 llama3.2-1b through
+           ``launch.train.main`` on cuda, 8 steps at batch 4, seq 1,024, lr
+           3e-4: s/step over steps 2-8 (``train.step`` spans), tokens/s,
+           peak memory, every loss finite, no kernel launched; the same
+           steps again from the same parameters: step 1's batch's loss
+           lower after them than before; a step's forward + backward and
+           optimizer seconds apart (CUDA events); one more step under the
+           profiler (busy share, GEMM seconds),
+           the roofline share against ``roofline_report`` on ``H100_SXM``
+           (6 N T + attention FLOPs); and a ``use_pallas`` step, which must
+           raise and leave the parameters as they were;
   fleet    the SVM serving path and the multi-tenant fleet
            (``repro_torch.serve``, ``repro_torch.fleet``): (1) the emnist
            round's fp32 ``server_scorer`` and ``main_q8``'s int8 student
@@ -158,23 +175,32 @@ It imports the port and nothing of JAX or of the reference package
            back-to-back calls (``device_ms``), at main-path shapes
            (``batched_rbf_gram`` at six of the round's 15), beside a
            ``fill_`` of the output (the card's own write rate) and the
-           analytic bound: the larger of operations over the card's peak
-           for the inputs' type (67 TFLOP/s fp32 outside the tensor cores,
-           989 TFLOP/s bf16 dense) and bytes (each input read once, each
-           output written once) over 3.35 TB/s, the H100 SXM's published
-           peaks; flash attention also beside ``library_ms``, one call of
+           analytic bound from the port's ``obs.profile.kernel_bound``: the
+           larger of operations over the card's peak for the inputs' type
+           (``roofline.H100_SXM_FP32``, 67 TFLOP/s fp32 outside the tensor
+           cores; ``H100_SXM``, 989 TFLOP/s bf16 dense) and bytes (each
+           input read once, each output written once) over 3.35 TB/s, the
+           H100 SXM's published peaks; flash attention also beside
+           ``library_ms``, one call of
            ``torch.nn.functional.scaled_dot_product_attention`` on the same
            tensors (a yardstick only: the port never calls it). SDCA's
            rows also give ns a step and a chain figure: the steps of the
            longest solve times one step's latency, from the kernel on a
-           single 32-row tile.
+           single 32-row tile;
+  profile  the kernel spans (``obs.profile.maybe_profile``): every timing
+           case once more through its dispatcher under a tracer, the
+           traced result bitwise the untraced one, each span's flops and
+           bytes > 0, 0 < ``roofline_frac`` <= 1.05 and
+           ``roofline_bound_us`` the ``timing`` row's bound; then ``main``'s
+           round under a tracer: its ``kernel.<name>`` spans one per launch.
 
 The last three lines are the per-kernel summary ``{"kernels": [...]}``
 (each kernel's launches read from the run it was ported for: ``main``
 for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
-``serve`` for flash attention, named in ``launches_path``, and each
+``serve`` for flash attention, named in ``launches_path``, each
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
-``launches_fleet``; the ``population`` line carries its own counts), the card's
+``launches_fleet`` and in ``train`` (b)'s steps as ``launches_train``;
+the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
 that last line, and so does a machine without a CUDA device or a
@@ -188,6 +214,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -195,11 +222,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
-          "serve", "fleet", "timing")
+          "serve", "train", "fleet", "timing", "profile")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
-PEAK_FP32_OPS = 67e12             # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_OPS = 989e12            # H100 SXM bf16 tensor cores, dense
-PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 FLEET_BUCKETS = (8, 32, 256)      # the fleet's two buckets and ServeConfig()'s largest
 PARITY_KS = (1, 10, 38)
@@ -444,107 +468,6 @@ def agreement(spec, got, want):
     return err, finite and err <= spec.tol, spec.tol
 
 
-def _nbytes(a):
-    return a.numel() * a.element_size() if hasattr(a, "element_size") else a.nbytes
-
-
-def attention_pairs(Sq, Skv, causal, window):
-    """(query, key) pairs the causal and window masks leave, per (batch, head)."""
-    import numpy as np
-
-    i = np.arange(Sq)
-    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
-# ----------------------------------------------------------------------
-# analytic bounds: (fp32 operations, bytes) of one call
-# ----------------------------------------------------------------------
-
-def work_of(name, args):
-    """Operations and bytes the function needs for these inputs (each
-    input read once, each output written once, int8 supports at one byte
-    an element and two operations an element to dequantise; SDCA counts
-    the steps its n_real coordinates take)."""
-    if name in ("batched_rbf_gram", "rbf_gram"):
-        x1, x2 = args[0], args[1]
-        g = x1.shape[0] if x1.ndim == 3 else 1
-        m, d = x1.shape[-2:]
-        return gram_work(g, m, x2.shape[-2], d, same=x2 is x1, gammas=x1.ndim == 3)
-    if name == "ensemble_score":
-        x, sup = args[0], args[1]
-        b, d = x.shape
-        k, n_max, _ = sup.shape
-        # per pair: 2d cross, 3 combine, clamp, scale, exp, 2 for coef*K + sum
-        ops = b * k * n_max * (2 * d + 8) + 2 * d * (b + k * n_max) + b
-        nbytes = 4 * (b * d + k * n_max * d + k * n_max + k + b)
-        return ops, nbytes
-    if name == "gram_matvec":
-        x1, x2 = args[0], args[1]
-        m, d = x1.shape
-        n = x2.shape[0]
-        # per pair: 2d cross, 3 combine, clamp, scale, exp, 2 for v*K + sum
-        ops = m * n * (2 * d + 8) + 2 * d * (m + n)
-        nbytes = 4 * (m * d + n * d + n + m)
-        return ops, nbytes
-    if name == "rbf_gram_q8":
-        x, q = args[0], args[1]
-        m, d = x.shape
-        n = q.shape[0]
-        ops = m * n * (2 * d + 6) + 2 * d * (m + n) + 2 * n * d
-        nbytes = 4 * m * d + n * d + 4 * 2 * d + 4 * m * n
-        return ops, nbytes
-    if name == "ensemble_score_q8":
-        x, q = args[0], args[1]
-        b, d = x.shape
-        k, n_max, _ = q.shape
-        ops = (b * k * n_max * (2 * d + 8) + 2 * d * (b + k * n_max) + b
-               + 2 * k * n_max * d)
-        nbytes = 4 * b * d + k * n_max * d + 4 * (2 * k * d + k * n_max + k + b)
-        return ops, nbytes
-    if name == "flash_attention":
-        q, k = args[0], args[1]
-        causal, window = (args[3], args[4]) if len(args) > 3 else (True, 0)
-        B, Sq, H, hd = q.shape
-        # per unmasked pair: hd multiply-adds for q.k and hd for p v
-        ops = B * H * attention_pairs(Sq, k.shape[1], causal, window) * 4 * hd
-        # q and o, k and v: each read or written once
-        nbytes = 2 * (_nbytes(q) + _nbytes(k))
-        return ops, nbytes
-    if name == "sdca":
-        K, n_real, epochs = args[0], args[2], args[4]
-        g, b, _ = K.shape
-        n = n_real.astype("int64")
-        # K*y once, then per step a length-n dot (2n) and ~8 scalar ops
-        ops = int((n * n + epochs * n * (2 * n + 8)).sum())
-        nbytes = 4 * (g * b * b + g * b + g + g * b)
-        return ops, nbytes
-    raise KeyError(name)
-
-
-def gram_work(g, m, n, d, same=False, gammas=True):
-    """(operations, bytes) of g RBF Grams (m, n, d): norms 2d a row; per
-    pair 2d for the cross term, 3 to combine, clamp, scale, exp. An operand
-    passed as both x1 and x2 (a fit) is read once; per-device gammas add g
-    floats."""
-    ops = g * (m * n * (2 * d + 6) + 2 * d * (m + (0 if same else n)))
-    nbytes = 4 * (g * (m + (0 if same else n)) * d + g * m * n + (g if gammas else 0))
-    return ops, nbytes
-
-
-def bound_ms(ops, nbytes, bf16=False):
-    """(ms, "operations" or "bytes"): the larger of ops over the peak for
-    the type and bytes over the memory rate."""
-    t_ops, t_bytes = ops / (PEAK_BF16_OPS if bf16 else PEAK_FP32_OPS), nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def bound_of(name, args):
-    ops, nbytes = work_of(name, args)
-    return bound_ms(ops, nbytes, bf16=str(getattr(args[0], "dtype", "")) == "torch.bfloat16")
-
-
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
@@ -558,8 +481,6 @@ SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_sco
 
 def sass_counts(native, name):
     """How often each of SASS_OPS occurs in lib<name>.so's device code."""
-    import re
-
     cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
     r = subprocess.run([str(cuobjdump), "-sass", str(native.build_dir() / f"lib{name}.so")],
                        capture_output=True, text=True, timeout=300)
@@ -1374,17 +1295,28 @@ IDEAL_ROWS = 2000   # run_protocol's ideal_cap: the ideal's Gram is 2,000 x 2,00
 
 def gram_round(ops, ds, by_function, counts):
     """Rows 1 and 3 in the profiled round: their launches (and the
-    measured round's), device seconds, and the bound of those launches:
+    measured round's), device seconds, and the bound of those launches
+    (``obs.profile.kernel_bound``, priced on shape-only ``meta`` tensors):
     ``batched_rbf_gram``'s from the round's own launch shapes
     (``ops.round_gram_launches``: fits with x2 = x1, val and test scores),
     ``rbf_gram``'s the ideal's one 2,000 x 2,000 x d Gram (x2 = x1)."""
+    import torch
+
+    from repro_torch.obs.profile import kernel_bound
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    def launch_args(kind, g, m, n, d):
+        x1 = meta(g, m, d)
+        return x1, x1 if kind == "fit" else meta(g, n, d), meta(g)
+
     shapes = ops.round_gram_launches(ds)
-    d = shapes[0][4]
+    ideal = meta(IDEAL_ROWS, shapes[0][4])
     bounds = {
-        "batched_rbf_gram": sum(bound_ms(*gram_work(g, m, n, d_, same=kind == "fit"))[0]
-                                for kind, g, m, n, d_ in shapes),
-        "rbf_gram": bound_ms(*gram_work(1, IDEAL_ROWS, IDEAL_ROWS, d, same=True,
-                                        gammas=False))[0],
+        "batched_rbf_gram": sum(1e3 * kernel_bound("batched_rbf_gram", launch_args(*sh))[0]
+                                for sh in shapes),
+        "rbf_gram": 1e3 * kernel_bound("rbf_gram", (ideal, ideal, 1.0))[0],
     }
     out = {}
     for name, prof in by_function.items():
@@ -1411,8 +1343,6 @@ def profile_call(fn, top=20, functions=()):
     launches and device seconds, summed over its instantiations. The
     profiler slows the host, so this wall is longer than an unprofiled
     one's; the busy share is that of the profiled call."""
-    import re
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1599,6 +1529,248 @@ def phase_serve(ops, device):
     if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
         raise AssertionError("serve: a repeat of the serve generated other tokens")
     return out
+
+
+# the train phase: the LM train step (``models.make_train_step``,
+# ``launch/train.py``); no hand-written kernel runs in it, as none has a
+# backward (the reference trains with ``use_pallas=False`` too)
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_PARITY = dict(n_layers=2, batch=2, seq=64, steps=3, lr=1e-3)
+# step 1 starts from equal parameters; later steps add the optimizer's
+# arithmetic, in another order on each device
+TRAIN_LOSS_RTOL = (1e-4, 1e-3)
+# lr: the reference's make_optimizer default for full-size models; at the
+# driver's CLI default 1e-3 (no warmup) the bf16 1.2B model's loss rose to
+# 13.55 by step 8 (the reduced model in bf16 tracks the reference's losses
+# there: tests/test_torch_train.py)
+TRAIN_FULL = dict(steps=8, batch=4, seq=1024, lr=3e-4)
+
+
+def _windows(vocab, batch, seq, steps, seed=0):
+    """``launch/train.py``'s first ``steps`` token windows."""
+    import numpy as np
+
+    from repro_torch.data import make_federated_lm_data, token_batches
+
+    stream = token_batches(np.concatenate(make_federated_lm_data(8, vocab, 20_000, seed=seed)),
+                           batch, seq, seed=seed)
+    return [next(stream) for _ in range(steps)]
+
+
+def train_parity(ops, device):
+    """(a) llama3.2-1b at full width, 2 layers, fp32: the same parameters
+    (drawn on the cpu, a copy moved to the card) take 3 steps of
+    ``make_optimizer(1e-3)`` on the same windows on cuda and on cpu."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import init_params, make_train_step, param_tree
+
+    tp = TRAIN_PARITY
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=tp["n_layers"], dtype=torch.float32)
+    windows = _windows(cfg.vocab, tp["batch"], tp["seq"], tp["steps"])
+    params = init_params(cfg, seed=0, device="cpu", trainable=True)
+    copies = {"cuda": copy.deepcopy(params).to(device), "cpu": params}
+    runs = {}
+    for dev, p in copies.items():
+        opt = make_optimizer(tp["lr"])
+        state = opt.init(param_tree(p))
+        step = make_train_step(cfg, opt)
+        ops.reset_launch_counts()
+        losses, t0 = [], time.perf_counter()
+        for w in windows:
+            t = torch.from_numpy(w).to(p.embed.device)
+            p, state, m = step(p, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            losses.append(float(m["loss"]))
+        runs[dev] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                     "kernels": sum(ops.launch_counts().values())}
+    param_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                     for a, b in zip(copies["cuda"].parameters(), copies["cpu"].parameters()))
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["cuda"]["losses"], runs["cpu"]["losses"])]
+    out = {"arch": TRAIN_ARCH, "dtype": "float32", **tp, "d_model": cfg.d_model,
+           "losses": {k: r["losses"] for k, r in runs.items()}, "loss_rel_diff": rel,
+           "tol": list(TRAIN_LOSS_RTOL), "max_param_diff": param_diff,
+           "seconds": {k: r["seconds"] for k, r in runs.items()},
+           "kernel_launches": {k: r["kernels"] for k, r in runs.items()}}
+    tols = [TRAIN_LOSS_RTOL[0]] + [TRAIN_LOSS_RTOL[1]] * (len(rel) - 1)
+    if not all(r <= t for r, t in zip(rel, tols)):
+        raise AssertionError(f"train (a): cuda and cpu losses {out['losses']} differ by {rel}")
+    if any(r["kernels"] for r in runs.values()):
+        raise AssertionError(f"train (a): kernels launched {out['kernel_launches']}")
+    return out
+
+
+def step_spans(tracer):
+    """(seconds of each ``train.step`` span, losses of ``train.metrics``)."""
+    begins, secs = [], []
+    for ev in tracer.events:
+        if ev["name"] == "train.step" and ev["ph"] == "B":
+            begins.append(ev["ts"])
+        elif ev["name"] == "train.step" and ev["ph"] == "E":
+            secs.append((ev["ts"] - begins.pop()) / 1e6)
+    losses = [ev["args"]["loss"] for ev in tracer.events if ev["name"] == "train.metrics"]
+    return secs, losses
+
+
+def train_model_flops(cfg, batch, seq):
+    """6 N T for the parameters that multiply (all but the embedding, a
+    gather) plus ``_sdpa``'s attention, forward 4 B H S^2 hd a layer (all
+    pairs: the mask is applied after the product) and twice that back."""
+    from repro_torch.models import param_count
+
+    n = param_count(cfg) - cfg.vocab * cfg.d_model
+    attn = cfg.n_layers * 12 * batch * cfg.n_heads * seq ** 2 * cfg.head_dim
+    return 6 * n * batch * seq + attn
+
+
+# library matrix products as the profiler names them (cuBLAS's nvjet and
+# CUTLASS-style sm90 kernels)
+GEMM_KERNELS = r"nvjet|gemm|cutlass|sm90_xmma"
+
+
+def step_split(cfg, opt, params, state, batch):
+    """Seconds (CUDA events, warm) of one train step's two halves, as
+    ``make_train_step`` runs them: the forward, ``lm_loss`` and
+    ``torch.autograd.grad``; then the optimizer's update and
+    ``apply_updates`` (not copied back: the parameters stay as they are)."""
+    import torch
+
+    from repro_torch.models import forward_train, lm_loss, param_tree
+    from repro_torch.optim import apply_updates
+    from repro_torch.utils.trees import tree_leaves, tree_structure, tree_unflatten
+
+    tree = param_tree(params)
+    leaves = tree_leaves(tree)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, _ = forward_train(params, cfg, batch)
+    loss = lm_loss(logits, batch["labels"])
+    del logits
+    grads = tree_unflatten(tree_structure(tree), torch.autograd.grad(loss, leaves))
+    ev[1].record()
+    with torch.no_grad():
+        updates, _ = opt.update(grads, state, tree)
+        del grads
+        new = apply_updates(tree, updates)
+    ev[2].record()
+    ev[2].synchronize()
+    del updates, new
+    return {"forward_backward_s": ev[0].elapsed_time(ev[1]) / 1e3,
+            "optimizer_s": ev[1].elapsed_time(ev[2]) / 1e3}
+
+
+def train_full(ops, trace, device):
+    """(b) the 16-layer bf16 llama3.2-1b at full width through
+    ``launch.train.main`` on cuda (8 steps at batch 4, seq 1,024). Then the
+    same 8 steps again through ``make_train_step`` from the same seeded
+    parameters, to read what ``main`` keeps to itself: the loss of step 1's
+    batch before the steps and after them (``make_eval_step``; the steps'
+    own losses are each on another batch, so the last against the first
+    is not a measure of learning); then one more step under the profiler,
+    and a ``use_pallas`` step, which must raise."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main, make_optimizer
+    from repro_torch.models import (init_params, make_eval_step, make_train_step, param_count,
+                                    param_tree)
+    from repro_torch.roofline import H100_SXM, roofline_report
+
+    tf = TRAIN_FULL
+    cfg = get_config(TRAIN_ARCH)
+    tracer = trace.Tracer()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        final = train_main(["--arch", TRAIN_ARCH, "--steps", str(tf["steps"]), "--batch",
+                            str(tf["batch"]), "--seq", str(tf["seq"]), "--lr", str(tf["lr"]),
+                            "--log-every", "1"], device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    secs, losses = step_spans(tracer)
+    torch.cuda.empty_cache()
+
+    tokens = tf["batch"] * tf["seq"]
+    s_step = sum(secs[1:]) / len(secs[1:])
+    flops = train_model_flops(cfg, tf["batch"], tf["seq"])
+    # the least bytes a step moves: bf16 parameters and gradients each
+    # written and read, fp32 moments read and written
+    nbytes = param_count(cfg) * (2 * 2 + 2 * 2 + 2 * 8)
+    rl = roofline_report(flops, nbytes, 0.0, hw=H100_SXM, model_flops=flops)
+
+    # main's steps again, from main's parameters and on main's windows
+    params = init_params(cfg, seed=0, device=device, trainable=True)
+    opt = make_optimizer(tf["lr"])
+    state = opt.init(param_tree(params))
+    step = make_train_step(cfg, opt)
+    evaluate = make_eval_step(cfg)
+    batches = []
+    for w in _windows(cfg.vocab, tf["batch"], tf["seq"], tf["steps"]):
+        t = torch.from_numpy(w).to(device)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    before = float(evaluate(params, batches[0]))
+    rerun = []
+    for batch in batches:
+        params, state, m = step(params, state, batch)
+        rerun.append(float(m["loss"]))
+    after = float(evaluate(params, batches[0]))
+    batch = batches[0]
+    split = step_split(cfg, opt, params, state, batch)
+    # one more step (warm), under the profiler
+    profile, (params, state, m) = profile_call(lambda: step(params, state, batch), top=60)
+    gemm = [k for k in profile["by_kernel"] if re.search(GEMM_KERNELS, k["name"])]
+    profile["gemm_seconds"] = sum(k["seconds"] for k in gemm)
+    profile["gemm_launches"] = sum(k["count"] for k in gemm)
+
+    # with the flash kernel the step raises at the first attention and
+    # leaves every parameter as it was
+    probe = [params.embed, params.blocks[0].mixer.wq, params.lm_head]
+    saved = [t.detach().clone() for t in probe]
+    try:
+        make_train_step(cfg.replace(use_pallas=True), opt)(params, state, batch)
+        pallas = "trained"
+    except RuntimeError as e:
+        pallas = str(e)
+    unchanged = all(torch.equal(a, t) for a, t in zip(saved, probe))
+    counts = ops.launch_counts()   # over every step of the phase's (b)
+
+    out = {
+        "arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": str(cfg.dtype).replace("torch.", ""),
+        "params": param_count(cfg), **tf, "tokens_per_step": tokens, "main_wall_seconds": wall,
+        "final_loss": final, "losses": losses, "step_seconds": secs,
+        "rerun_losses": rerun, "first_batch_loss": {"before": before, "after": after},
+        "seconds_per_step": s_step, "tokens_per_s": tokens / s_step, "peak_memory_bytes": peak,
+        "model_flops": flops, "step_bytes": nbytes, "roofline": rl,
+        "roofline_share": rl["step_lower_bound_s"] / s_step,
+        "step_split": split, "profiled_step": profile,
+        # the profiler's own start and stop dwarf one step's wall, so the
+        # busy share is the profiled step's device seconds over an
+        # unprofiled step's
+        "device_busy_share": profile["device_seconds"] / s_step, "kernels": counts,
+        "use_pallas_step": pallas[:300], "use_pallas_params_unchanged": unchanged,
+    }
+    if len(losses) != tf["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train (b): losses {losses}")
+    if not (math.isfinite(after) and after < before and abs(before - losses[0]) <= 1e-2):
+        raise AssertionError(f"train (b): step 1's batch loss {before} -> {after} after the "
+                             f"steps (main's first loss {losses[0]})")
+    if any(counts.values()):
+        raise AssertionError(f"train (b): kernels launched during the steps: {counts}")
+    if "no backward" not in pallas or not unchanged:
+        raise AssertionError(f"train (b): a use_pallas step on cuda did not raise cleanly: "
+                             f"{pallas[:200]} (parameters unchanged: {unchanged})")
+    return out
+
+
+def phase_train(ops, trace, device):
+    return {"parity": train_parity(ops, device), "full": train_full(ops, trace, device)}
 
 
 # the fleet phase: the SVM serving path and the multi-tenant fleet
@@ -2091,7 +2263,14 @@ LIBRARY = {"flash_attention": sdpa_library}
 
 
 def phase_timing(ops, device, rng, names):
+    """Each kernel in turns with its plain version (``time_pair``), its
+    device time (``device_time``), a ``fill_`` of its output and its bound
+    (``obs.profile.kernel_bound``: ``kernel_cost``'s operations and bytes
+    on the card's sheet for the first operand's type, the bound a kernel
+    span carries) at the ``TIMING_CASES`` shapes."""
     import torch
+
+    from repro_torch.obs.profile import kernel_bound, kernel_cost
 
     cases = {name: dict(c) for name, c in kernel_cases(rng, ops).items()}
     rows = []
@@ -2109,8 +2288,8 @@ def phase_timing(ops, device, rng, names):
                                                                        reps["kernel"])
             except AssertionError as e:
                 raise AssertionError(f"{name} [{label}]: {e}") from e
-            bound_ms, bound_by = bound_of(name, args)
-            ops_n, bytes_n = work_of(name, args)
+            bound_s, bound_by = kernel_bound(name, args)
+            ops_n, bytes_n = kernel_cost(name, spec.kernel, args)
             row = {
                 "kernel": name, "case": label,
                 "ms": sum(turns["kernel"]) / 2, "device_ms": dev_ms,
@@ -2118,7 +2297,7 @@ def phase_timing(ops, device, rng, names):
                 "device_windows": windows,
                 "plain_ms": sum(turns["plain"]) / 2,
                 "library_ms": sum(turns["library"]) / 2 if library else None,
-                "turns": turns, "reps": reps, "bound_ms": bound_ms,
+                "turns": turns, "reps": reps, "bound_ms": 1e3 * bound_s,
                 "bound_by": bound_by, "ops": ops_n, "bytes": bytes_n,
                 "fill_ms": fill_ms(spec.kernel(*targs)),
             }
@@ -2151,6 +2330,82 @@ def sdca_step_ns(ops, device, rng, epochs=1250):
     kernel(*targs)
     ms = min(_time_ms(lambda: kernel(*targs), 5) for _ in range(3))
     return 1e6 * ms / (epochs * 32)
+
+
+PROFILE_FRAC_MAX = 1.05   # a span's roofline share: the bound over event-timed seconds
+
+
+def phase_profile(ops, device, rng, names, timing_rows, make_dataset, run_protocol, trace):
+    """Every ``TIMING_CASES`` call once more through its dispatcher under a
+    tracer: the traced result bitwise the untraced one, the span's
+    ``flops`` and ``bytes_accessed`` > 0, ``0 < roofline_frac <=
+    PROFILE_FRAC_MAX`` and ``roofline_bound_us`` the ``timing`` table's
+    bound (one function computes both); then ``main``'s emnist round under
+    a tracer: one ``kernel.<name>`` span per launch of every kernel."""
+    import collections
+    import math
+
+    import torch
+
+    from repro_torch.obs.profile import kernel_bound
+
+    cases = {name: dict(c) for name, c in kernel_cases(rng, ops).items()}
+    rows, failed = [], []
+    for name, labels in TIMING_CASES.items():
+        if name not in names:
+            continue
+        spec = ops.KERNEL_REGISTRY[name]
+        for label in labels:
+            args = case_args(cases[name][label])
+            targs = to_device(args, device)
+            untraced = spec.dispatch(*targs)
+            tracer = trace.Tracer()
+            with trace.use_tracer(tracer):
+                traced = spec.dispatch(*targs)
+            spans = [e for e in tracer.events if e["name"] == f"kernel.{name}"]
+            a = spans[0]["args"] if len(spans) == 1 else {}
+            bound_ms = timing_rows.get((name, label), 1e3 * kernel_bound(name, args)[0])
+            row = {"kernel": name, "case": label, "spans": len(spans),
+                   "bitwise": bool(torch.equal(untraced, traced)),
+                   **{k: a.get(k) for k in ("dur_s", "flops", "bytes_accessed",
+                                            "roofline_bound_us", "roofline_frac", "dominant")},
+                   "timing_bound_ms": bound_ms}
+            rows.append(row)
+            ok = (len(spans) == 1 and row["bitwise"] and a["flops"] > 0
+                  and a["bytes_accessed"] > 0 and 0 < a["roofline_frac"] <= PROFILE_FRAC_MAX
+                  and math.isclose(a["roofline_bound_us"], 1e3 * bound_ms, rel_tol=1e-12))
+            if not ok:
+                failed.append(f"{name} [{label}]: {row}")
+            del targs, untraced, traced
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("profile: " + "; ".join(failed))
+
+    ds = make_dataset("emnist", seed=0, scale=1.0)
+    tracer = trace.Tracer()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    kspans = [e for e in tracer.events if e.get("cat") == "kernel"]
+    by_name = collections.defaultdict(list)
+    for e in kspans:
+        by_name[e["name"][len("kernel."):]].append(e["args"])
+    spans = {name: len(v) for name, v in by_name.items()}
+    round_out = {
+        "round_seconds_traced": wall, "kernel_spans": spans, "launches": counts,
+        "kernel_seconds": {n: sum(a["dur_s"] for a in v) for n, v in by_name.items()},
+        "bound_seconds": {n: sum(a["roofline_bound_us"] for a in v) / 1e6
+                          for n, v in by_name.items()},
+    }
+    if any(spans.get(n, 0) != c for n, c in counts.items()) or set(spans) - set(counts):
+        raise AssertionError(f"profile: kernel spans {spans} != launches {counts}")
+    missing = [n for n in FP32_KERNELS if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"profile: the traced round launched no {missing}")
+    return {"cases": rows, "main_round": round_out}
 
 
 # ----------------------------------------------------------------------
@@ -2235,12 +2490,20 @@ def main(argv=None) -> int:
             elif phase == "serve":
                 out = phase_serve(ops, device)
                 counts[phase] = out["kernels"]
+            elif phase == "train":
+                out = phase_train(ops, trace, device)
+                counts[phase] = out["full"]["kernels"]
             elif phase == "fleet":
                 out = phase_fleet(make_dataset, run_protocol, DistillConfig, ops, artifacts)
                 counts[phase] = out["kernels"]
-            else:
+            elif phase == "timing":
                 out = phase_timing(ops, device, np.random.default_rng(0), names)
                 timing = {r["kernel"]: r for r in reversed(out["rows"])}
+            else:
+                bounds = {(r["kernel"], r["case"]): r["bound_ms"]
+                          for r in detail.get("timing", {}).get("rows", [])}
+                out = phase_profile(ops, device, np.random.default_rng(0), names, bounds,
+                                    make_dataset, run_protocol, trace)
         except Exception as e:
             emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
             raise
@@ -2264,6 +2527,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
             "launches_path": path, "launches_fleet": counts.get("fleet", {}).get(name),
+            "launches_train": counts.get("train", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -28,8 +28,11 @@ from repro_torch.utils.trees import (
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host array; bfloat16, which numpy lacks, is stored as
+    fp32 (exact) and cast back by ``_like`` on restore."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
 
 

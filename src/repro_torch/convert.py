@@ -102,12 +102,13 @@ def agg_extra_from_arrays(arrays) -> AggExtra:
     return AggExtra({str(k): np.array(v, np.float32) for k, v in arrays.items()})
 
 
-def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda"):
+def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda", trainable: bool = False):
     """A reference LM parameter tree (``repro.models.init_params``'s
     layout, leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, p)``)
     -> the port's parameter module on ``device``. Layer ``i`` of the port
     is superblock ``i // period`` of the reference's sub-layer kind
-    ``i % period``. Values are carried exactly (bf16 through fp32)."""
+    ``i % period``. Values are carried exactly (bf16 through fp32). The
+    parameters require grad when ``trainable`` (for ``make_train_step``)."""
     dev = resolve_device(device)
     period = len(cfg.sublayer_kinds())
 
@@ -124,4 +125,4 @@ def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda"):
                              f"config wants {spec.shape}")
         return torch.from_numpy(np.array(arr, np.float32)).to(dev, spec.dtype)
 
-    return materialize(model_specs(cfg), leaf)
+    return materialize(model_specs(cfg), leaf, trainable=trainable)

@@ -9,16 +9,15 @@ averaging.py  one-shot parameter-averaging baseline [related work [8]]
 fedavg.py     iterative FedAvg baseline             [related work [5]]
 cohorts.py    cohort-personalized ensembles         [future work (1)]
 
-The transformer round (``deepfed``), few-shot personalisation
-(``fewshot``) and the logit-space distillation losses come with the LM's
-train step (ROADMAP queue 1 item 13).
+The transformer round (``deepfed``) and few-shot personalisation
+(``fewshot``) are ROADMAP queue 1 item 13.3.
 """
 from repro_torch.core.svm import SVMModel, ConstantModel, train_svm, default_gamma, validation_auc
 from repro_torch.core.ensemble import Ensemble, StackedEnsemble, ensemble_predict_mean
 from repro_torch.core.selection import (
     DeviceReport, cv_selection, data_selection, random_selection, select,
 )
-from repro_torch.core.distill import distill_svm
+from repro_torch.core.distill import distill_svm, distill_loss_l2, distill_loss_kl, DISTILL_LOSSES
 from repro_torch.core.protocol import run_protocol, ProtocolResult
 from repro_torch.core.averaging import (
     average_params, LinearSVM, train_linear_svm, one_shot_average_linear,
@@ -30,7 +29,7 @@ __all__ = [
     "SVMModel", "ConstantModel", "train_svm", "default_gamma", "validation_auc",
     "Ensemble", "StackedEnsemble", "ensemble_predict_mean",
     "DeviceReport", "cv_selection", "data_selection", "random_selection", "select",
-    "distill_svm",
+    "distill_svm", "distill_loss_l2", "distill_loss_kl", "DISTILL_LOSSES",
     "run_protocol", "ProtocolResult",
     "average_params", "LinearSVM", "train_linear_svm", "one_shot_average_linear",
     "run_fedavg", "FedAvgResult", "cohorts",

@@ -176,7 +176,19 @@ def check_cuda(name: str, device: torch.device, dtypes: Optional[Dict[str, torch
                **tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on ``device``
     of the dtype the kernel takes: ``dtypes[arg]`` where the wrapper
-    names one, float32 otherwise."""
+    names one, float32 otherwise. A kernel has no backward, so it also
+    raises, before anything else, when grad mode is on and a tensor
+    requires grad: its output would carry no ``grad_fn`` and cut the
+    gradient silently."""
+    if torch.is_grad_enabled():
+        needs = [arg for arg, t in tensors.items() if t.requires_grad]
+        if needs:
+            verb = "requires" if len(needs) == 1 else "require"
+            raise RuntimeError(
+                f"{name}: {', '.join(needs)} {verb} grad, but the CUDA kernel has no "
+                "backward (the reference has no backward kernel for any Pallas kernel "
+                "either): call it under torch.no_grad(), or train with "
+                "use_pallas=False as the reference does")
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {device}")
     dtypes = dtypes or {}

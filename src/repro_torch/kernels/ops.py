@@ -3,7 +3,11 @@
 Dispatch policy: a call whose tensors lie on the CPU runs the kernel's
 plain PyTorch version; a call whose tensors lie on a CUDA device
 launches the hand-written kernel, which raises if it cannot take the
-inputs. There is no fallback from one to the other.
+inputs. There is no fallback from one to the other. Every dispatcher
+goes through ``obs.profile.maybe_profile``, as the reference's do: with
+a tracer installed each call is timed to completion and becomes a
+``kernel.<name>`` span with its roofline accounting; without one the
+hook is a tail call.
 
 ``KERNEL_REGISTRY`` mirrors ``repro/kernels/ops.py``'s: each entry holds
 the kernel, its plain version, the dispatcher, ``make_inputs(rng)`` (a
@@ -27,77 +31,75 @@ import torch
 from repro_torch.kernels import batched_gram, ensemble_score as _ens, rbf_gram as _rbf, sdca as _sdca
 from repro_torch.kernels import ensemble_score_q8 as _ens_q8, gram_matvec as _gmv
 from repro_torch.kernels import flash_attention as _flash, rbf_gram_q8 as _q8
+from repro_torch.obs.profile import maybe_profile
 
 
-def _on_cuda(t: torch.Tensor, name: str) -> bool:
+def _pick(name: str, t: torch.Tensor, cuda: Callable, plain: Callable) -> Callable:
+    """The CUDA wrapper for a CUDA tensor, the plain version for a CPU one."""
     if t.device.type == "cuda":
-        return True
+        return cuda
     if t.device.type == "cpu":
-        return False
+        return plain
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
 def batched_rbf_gram(x1, x2, gammas):
     """Per-device RBF Grams: x1 (g, m, d), x2 (g, n, d), gammas (g,) ->
     (g, m, n) fp32. Callers mask padded rows/cols themselves."""
-    if _on_cuda(x1, "batched_rbf_gram"):
-        return batched_gram.batched_rbf_gram_cuda(x1, x2, gammas)
-    return batched_gram.batched_rbf_gram_plain(x1, x2, gammas)
+    fn = _pick("batched_rbf_gram", x1, batched_gram.batched_rbf_gram_cuda,
+               batched_gram.batched_rbf_gram_plain)
+    return maybe_profile("batched_rbf_gram", fn, x1, x2, gammas)
 
 
 def rbf_gram(x1, x2, gamma: float):
     """RBF Gram for one bandwidth: x1 (m, d), x2 (n, d) -> (m, n) fp32."""
-    if _on_cuda(x1, "rbf_gram"):
-        return _rbf.rbf_gram_cuda(x1, x2, gamma)
-    return _rbf.rbf_gram_plain(x1, x2, gamma)
+    fn = _pick("rbf_gram", x1, _rbf.rbf_gram_cuda, _rbf.rbf_gram_plain)
+    return maybe_profile("rbf_gram", fn, x1, x2, gamma)
 
 
 def ensemble_score(x, sup, coef, gammas):
     """Mean-of-member RBF-SVM scores: x (b, d), sup (k, n_max, d),
     coef (k, n_max), gammas (k,) -> (b,) fp32."""
-    if _on_cuda(x, "ensemble_score"):
-        return _ens.ensemble_score_cuda(x, sup, coef, gammas)
-    return _ens.ensemble_score_plain(x, sup, coef, gammas)
+    fn = _pick("ensemble_score", x, _ens.ensemble_score_cuda, _ens.ensemble_score_plain)
+    return maybe_profile("ensemble_score", fn, x, sup, coef, gammas)
 
 
 def gram_matvec(x1, x2, v, gamma: float):
     """Streaming ``K(x1, x2; gamma) @ v``: x1 (m, d), x2 (n, d), v (n,)
     -> (m,) fp32, without the (m, n) Gram."""
-    if _on_cuda(x1, "gram_matvec"):
-        return _gmv.gram_matvec_cuda(x1, x2, v, gamma)
-    return _gmv.gram_matvec_plain(x1, x2, v, gamma)
+    fn = _pick("gram_matvec", x1, _gmv.gram_matvec_cuda, _gmv.gram_matvec_plain)
+    return maybe_profile("gram_matvec", fn, x1, x2, v, gamma)
 
 
 def rbf_gram_q8(x, q, scale, zero, gamma: float):
     """RBF Gram against per-column affine int8 supports: x (m, d) fp32,
     q (n, d) int8, scale and zero (d,) -> (m, n) fp32."""
-    if _on_cuda(x, "rbf_gram_q8"):
-        return _q8.rbf_gram_q8_cuda(x, q, scale, zero, gamma)
-    return _q8.rbf_gram_q8_plain(x, q, scale, zero, gamma)
+    fn = _pick("rbf_gram_q8", x, _q8.rbf_gram_q8_cuda, _q8.rbf_gram_q8_plain)
+    return maybe_profile("rbf_gram_q8", fn, x, q, scale, zero, gamma)
 
 
 def ensemble_score_q8(x, q, scale, zero, coef, gammas):
     """Mean-of-member scores from int8 supports: x (b, d), q (k, n_max, d)
     int8, scale and zero (k, d), coef (k, n_max), gammas (k,) -> (b,)."""
-    if _on_cuda(x, "ensemble_score_q8"):
-        return _ens_q8.ensemble_score_q8_cuda(x, q, scale, zero, coef, gammas)
-    return _ens_q8.ensemble_score_q8_plain(x, q, scale, zero, coef, gammas)
+    fn = _pick("ensemble_score_q8", x, _ens_q8.ensemble_score_q8_cuda,
+               _ens_q8.ensemble_score_q8_plain)
+    return maybe_profile("ensemble_score_q8", fn, x, q, scale, zero, coef, gammas)
 
 
 def sdca(K, y, n_real, lam: float, epochs: int = 20):
     """Batched cyclic SDCA: K (g, b, b), y (g, b), n_real (g,) int32 ->
     alpha (g, b)."""
-    if _on_cuda(K, "sdca"):
-        return _sdca.sdca_cuda(K, y, n_real, lam, epochs)
-    return _sdca.sdca_plain(K, y, n_real, lam, epochs)
+    fn = _pick("sdca", K, _sdca.sdca_cuda, _sdca.sdca_plain)
+    return maybe_profile("sdca", fn, K, y, n_real, lam, epochs)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """GQA attention: q (B, Sq, H, hd), k and v (B, Skv, K, hd) ->
-    (B, Sq, H, hd) in q's dtype, with causal and sliding-window masks."""
-    if _on_cuda(q, "flash_attention"):
-        return _flash.flash_attention_cuda(q, k, v, causal, window)
-    return _flash.flash_attention_plain(q, k, v, causal, window)
+    (B, Sq, H, hd) in q's dtype, with causal and sliding-window masks.
+    On a CUDA tensor the kernel has no backward: under grad mode with an
+    input that requires grad it raises (``native.check_cuda``)."""
+    fn = _pick("flash_attention", q, _flash.flash_attention_cuda, _flash.flash_attention_plain)
+    return maybe_profile("flash_attention", fn, q, k, v, causal, window)
 
 
 @dataclasses.dataclass(frozen=True)

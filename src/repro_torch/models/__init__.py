@@ -12,8 +12,9 @@ from repro_torch.models.model import (
     make_decode_step,
     make_eval_step,
     make_prefill_step,
+    make_train_step,
 )
-from repro_torch.models.params import init_params, model_specs
+from repro_torch.models.params import init_params, model_specs, param_tree
 
 __all__ = [
     "ModelConfig",
@@ -21,6 +22,7 @@ __all__ = [
     "active_param_count",
     "init_params",
     "model_specs",
+    "param_tree",
     "blocked_attention",
     "forward_train",
     "forward_prefill",
@@ -28,6 +30,7 @@ __all__ = [
     "init_cache",
     "cache_spec",
     "lm_loss",
+    "make_train_step",
     "make_eval_step",
     "make_prefill_step",
     "make_decode_step",

@@ -6,11 +6,11 @@ heterogeneity (Jamba's 1:7 attention:mamba interleave with alternating
 MoE) is expressed via periodic *layer kinds*.
 
 A copy of ``repro.models.config`` with ``dtype`` a ``torch.dtype``
-(bf16 by default, fp32 in ``reduced()``). The reference's runtime knobs
-that only its XLA path reads (``remat``, ``scan_unroll``,
-``cast_grads``, ``moe_local_dispatch``, ``shard_attn_seq``) stay as
-fields so a config means the same in both packages; the port's forward
-pass is a Python loop over layers and ignores them. ``use_pallas``
+(bf16 by default, fp32 in ``reduced()``). ``remat`` and ``cast_grads``
+act in the train step (``models/model.py``); the knobs that only the
+reference's XLA path reads (``scan_unroll``, ``moe_local_dispatch``,
+``shard_attn_seq``) stay as fields so a config means the same in both
+packages, and the port's Python loop over layers ignores them. ``use_pallas``
 means what it means in the reference: attention goes through the
 ``flash_attention`` kernel (on a CUDA tensor the hand-written kernel,
 on a CPU tensor its plain version).

@@ -12,7 +12,9 @@ a leading ``n_superblocks`` axis for ``lax.scan``; the port keeps one
 entry per layer (``blocks[i]``, of kind ``sublayer_kinds()[i % period]``)
 and loops over them.
 
-The slice serves: parameters are created with ``requires_grad=False``.
+Serving builds frozen parameters (``requires_grad=False``); training
+builds them with ``trainable=True`` and reads them as a tree through
+``param_tree``, the form the optimizers (``repro_torch.optim``) take.
 Only the dense attention + SwiGLU family builds; the MoE, Mamba,
 cross-attention (audio) and patch-prefix (VLM) specs raise until their
 ROADMAP items land.
@@ -117,11 +119,14 @@ class ParamNode(nn.Module):
     parameter, a ``ParamNode`` or an ``nn.ModuleList``."""
 
 
-def materialize(specs, leaf: Callable[[tuple, ParamSpec], torch.Tensor], path=()) -> nn.Module:
+def materialize(specs, leaf: Callable[[tuple, ParamSpec], torch.Tensor], path=(),
+                trainable: bool = False) -> nn.Module:
     """Build the module tree of ``specs``; ``leaf(path, spec)`` gives each
-    parameter's tensor (``path`` is the tuple of keys and list indices)."""
+    parameter's tensor (``path`` is the tuple of keys and list indices).
+    The parameters require grad when ``trainable``."""
     if isinstance(specs, list):
-        return nn.ModuleList([materialize(s, leaf, path + (i,)) for i, s in enumerate(specs)])
+        return nn.ModuleList([materialize(s, leaf, path + (i,), trainable)
+                              for i, s in enumerate(specs)])
     node = ParamNode()
     for key, spec in specs.items():
         if isinstance(spec, ParamSpec):
@@ -129,16 +134,29 @@ def materialize(specs, leaf: Callable[[tuple, ParamSpec], torch.Tensor], path=()
             if tuple(t.shape) != spec.shape or t.dtype != spec.dtype:
                 raise ValueError(f"{'/'.join(map(str, path + (key,)))}: want {spec.shape} "
                                  f"{spec.dtype}, got {tuple(t.shape)} {t.dtype}")
-            node.register_parameter(key, nn.Parameter(t, requires_grad=False))
+            node.register_parameter(key, nn.Parameter(t, requires_grad=trainable))
         else:
-            node.add_module(key, materialize(spec, leaf, path + (key,)))
+            node.add_module(key, materialize(spec, leaf, path + (key,), trainable))
     return node
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> nn.Module:
+def param_tree(params: nn.Module):
+    """The parameters of a module built by ``materialize`` as a tree of
+    dicts (a ``ParamNode``'s keys) and lists (a ``ModuleList``) whose
+    leaves are the module's own ``nn.Parameter``s, not copies."""
+    if isinstance(params, nn.ModuleList):
+        return [param_tree(m) for m in params]
+    tree = dict(params.named_parameters(recurse=False))
+    tree.update((key, param_tree(m)) for key, m in params.named_children())
+    return tree
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                trainable: bool = False) -> nn.Module:
     """Seeded parameters on ``device``: ``normal * std``, zeros or ones as
     the specs say, drawn in fp32 from a ``torch.Generator`` on that
-    device seeded with ``seed`` and cast to the spec's dtype. The draws
+    device seeded with ``seed`` and cast to the spec's dtype; frozen for
+    serving, requiring grad when ``trainable``. The draws
     are not the reference's (``jax.random`` differs); carry reference
     parameters across with ``convert.lm_params_from_arrays``."""
     dev = resolve_device(device)
@@ -153,4 +171,4 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> nn.Module:
         draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
         return draw.mul_(float(spec.init)).to(spec.dtype)
 
-    return materialize(model_specs(cfg), leaf)
+    return materialize(model_specs(cfg), leaf, trainable=trainable)

@@ -1,5 +1,5 @@
-"""repro_torch.obs — host-side observability of the port: the span
-tracer and the metrics registry.
+"""repro_torch.obs — observability of the port: the span tracer, the
+metrics registry and the kernel profiling hooks.
 
   * ``trace``    span tracer -> Chrome trace-event JSON (Perfetto);
                  ``wall_clock`` for the rounds and engines, ``sim_clock``
@@ -7,9 +7,13 @@ tracer and the metrics registry.
   * ``registry`` named counters/gauges/histograms + the schema-
                  versioned envelope the metric silos (``CommLedger``,
                  ``FleetMetrics``, ``SchedulerStats``) export through
+  * ``profile``  kernel dispatch hooks: every ``kernels.ops`` call, with
+                 a tracer installed, timed to completion (CUDA events on
+                 the card) with achieved-vs-roofline FLOPs/bytes
+                 attributes priced on the card's sheets
 
-``profile`` (kernel timing with achieved-vs-roofline attributes) comes
-with the observability item (ROADMAP queue 1 item 12).
+Everything is gated behind the null tracer: uninstrumented runs pay
+one attribute check per site.
 """
 from repro_torch.obs.trace import (
     NULL_TRACER,
@@ -30,6 +34,7 @@ from repro_torch.obs.registry import (
     fleet_section,
     scheduler_section,
 )
+from repro_torch.obs.profile import kernel_cost, maybe_profile, set_hardware, timed_call
 
 __all__ = [
     "NULL_TRACER",
@@ -47,4 +52,8 @@ __all__ = [
     "envelope",
     "fleet_section",
     "scheduler_section",
+    "kernel_cost",
+    "maybe_profile",
+    "set_hardware",
+    "timed_call",
 ]

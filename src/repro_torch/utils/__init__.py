@@ -1,9 +1,5 @@
 """Host utilities of the port: parameter trees, metrics, logging, seeds,
-the Threefry key chain and the device policy.
-
-``accuracy`` and ``binary_cross_entropy`` come with the LM's train step
-(ROADMAP queue 1 item 13).
-"""
+the Threefry key chain and the device policy."""
 from repro_torch.utils.trees import (
     tree_zeros_like,
     tree_add,
@@ -11,8 +7,12 @@ from repro_torch.utils.trees import (
     tree_mean,
     tree_size_bytes,
     tree_count_params,
+    tree_stack,
+    tree_unstack,
+    tree_index,
+    tree_global_norm,
 )
-from repro_torch.utils.metrics import roc_auc
+from repro_torch.utils.metrics import accuracy, binary_cross_entropy, roc_auc
 from repro_torch.utils.logging import get_logger, kv
 
 __all__ = [
@@ -22,7 +22,13 @@ __all__ = [
     "tree_mean",
     "tree_size_bytes",
     "tree_count_params",
+    "tree_stack",
+    "tree_unstack",
+    "tree_index",
+    "tree_global_norm",
     "roc_auc",
+    "accuracy",
+    "binary_cross_entropy",
     "get_logger",
     "kv",
 ]

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _midranks(x: np.ndarray) -> np.ndarray:
@@ -255,3 +256,20 @@ def streaming_grouped_auc(
     flush()
     return acc
 
+
+
+def accuracy(labels, scores) -> float:
+    labels = np.asarray(labels).ravel()
+    preds = np.sign(np.asarray(scores).ravel())
+    preds = np.where(preds == 0, 1, preds)
+    labels = np.where(labels > 0, 1, -1)
+    return float((preds == labels).mean())
+
+
+def binary_cross_entropy(labels, logits) -> torch.Tensor:
+    """Mean BCE in fp32 as a 0-d tensor; labels in {-1,+1} or {0,1}."""
+    logits = torch.as_tensor(logits).float()
+    labels01 = (torch.as_tensor(labels, device=logits.device) > 0).float()
+    return torch.mean(
+        torch.clamp(logits, min=0) - logits * labels01 + torch.log1p(torch.exp(-torch.abs(logits)))
+    )

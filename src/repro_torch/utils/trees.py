@@ -1,15 +1,14 @@
 """Parameter trees without JAX: nested dicts, lists and tuples whose
 leaves are numpy arrays, torch tensors or scalars.
 
-Port of the part of ``repro.utils.trees`` that the one-shot baselines
-use. ``tree_structure`` plays the role of a JAX treedef: dict keys are
-taken in sorted order (as ``jax.tree`` takes them), ``None`` is an empty
-subtree, and two trees map together only where their structures are
-equal. ``tree_flatten_with_path`` names each leaf by the key string the
+Port of ``repro.utils.trees``. ``tree_structure`` plays the role of a
+JAX treedef: dict keys are taken in sorted order (as ``jax.tree`` takes
+them), ``None`` is an empty subtree, and two trees map together only
+where their structures are equal. ``tree_flatten_with_path`` names each leaf by the key string the
 reference's checkpoints use (``"/"``-joined dict keys and sequence
 indices), and ``tree_unflatten`` rebuilds a tree from a structure and
-its leaves. The stacking helpers and ``tree_global_norm`` / ``tree_cast``
-come with the LM's train step (ROADMAP queue 1 item 13).
+its leaves. ``tree_global_norm`` returns a 0-d fp32 tensor (on the
+leaves' device), as the reference returns a 0-d array.
 """
 from __future__ import annotations
 
@@ -160,3 +159,46 @@ def tree_size_bytes(tree) -> int:
 
 def tree_count_params(tree) -> int:
     return sum(int(np.prod(leaf_shape(leaf))) for leaf in tree_leaves(tree))
+
+
+def _stack(xs):
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs, dim=0)
+    return np.stack(xs, axis=0)
+
+
+def tree_stack(trees):
+    """Stack a list of trees along a new leading (member) axis."""
+    return tree_map(lambda *xs: _stack(xs), trees[0], *trees[1:])
+
+
+def tree_unstack(tree):
+    """Inverse of tree_stack: list of trees from a member-stacked tree."""
+    leaves = tree_leaves(tree)
+    structure = tree_structure(tree)
+    n = leaf_shape(leaves[0])[0]
+    return [tree_unflatten(structure, [leaf[i] for leaf in leaves]) for i in range(n)]
+
+
+def tree_index(tree, i):
+    """Select member ``i`` from a member-stacked tree."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32."""
+    leaves = [torch.as_tensor(x).float() for x in tree_leaves(tree)]
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+
+
+def _cast(x, dtype):
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    x = np.asarray(x)
+    return x.astype(dtype) if np.issubdtype(x.dtype, np.floating) else x
+
+
+def tree_cast(tree, dtype):
+    """Floating leaves cast to ``dtype`` (a torch dtype for tensor leaves,
+    a numpy dtype for arrays); other leaves unchanged."""
+    return tree_map(lambda x: _cast(x, dtype), tree)

@@ -697,3 +697,46 @@ def test_fleet_cell_on_the_card_is_the_cpu_cell(cuda_device):
         assert np.array_equal(kept, direct)
         np.testing.assert_allclose(kept, [cpu_fleet.results[rid] for rid in rids],
                                    atol=ops.KERNEL_REGISTRY["ensemble_score"].tol, rtol=0)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
+    """A kernel has no backward: under grad mode an input that requires
+    grad raises instead of cutting the gradient; under no_grad it runs."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = _on(spec.make_inputs(_rng("grad" + name)), cuda_device)
+    args = (args[0].clone().requires_grad_(),) + args[1:]
+    before = spec.counter.count
+    with pytest.raises(RuntimeError, match="no backward"):
+        spec.dispatch(*args)
+    assert spec.counter.count == before
+    with torch.no_grad():
+        got = spec.dispatch(*args)
+    assert got.grad_fn is None and spec.counter.count == before + 1
+
+
+def test_pallas_train_step_on_the_card_raises(cuda_device):
+    """``use_pallas`` training on the card raises at the first attention
+    and leaves the parameters as they were; ``_sdpa``'s step trains, and
+    its loss matches the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import init_params, make_train_step, param_tree
+
+    cfg = get_config("llama3.2-1b").reduced()
+    tokens = _rng("train").integers(0, cfg.vocab, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        params = init_params(cfg, seed=0, device="cpu", trainable=True).to(dev)
+        opt = make_optimizer(1e-3)
+        state = opt.init(param_tree(params))
+        before = [p.detach().clone() for p in params.parameters()]
+        if dev != "cpu":
+            with pytest.raises(RuntimeError, match="no backward"):
+                make_train_step(cfg.replace(use_pallas=True), opt)(params, state, batch)
+            assert all(torch.equal(a, p) for a, p in zip(before, params.parameters()))
+        _, _, m = make_train_step(cfg, opt)(params, state, batch)
+        losses[str(dev)] = float(m["loss"])
+        assert not all(torch.equal(a, p) for a, p in zip(before, params.parameters()))
+    assert abs(losses["cpu"] - losses[str(cuda_device)]) <= 1e-4 * losses["cpu"]

@@ -79,6 +79,7 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.distill import distill_teacher
     from repro_torch.comm.wire import encode
     from repro_torch.fleet import TenantRegistry, serve_round_artifact
+    from repro_torch.launch import train
     from repro_torch.serve import EnsembleScorer
     from repro_torch.core.svm import SVMModel, train_svm
     from repro_torch.data import make_dataset
@@ -112,6 +113,7 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: EnsembleScorer(SVMModel(x, y * 0.1, 0.5)),
         lambda: TenantRegistry().register_wire("t", encode(SVMModel(x, y * 0.1, 0.5))),
         lambda: serve_round_artifact(SVMModel(x, y * 0.1, 0.5)),
+        lambda: train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
