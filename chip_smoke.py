@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs thirteen phases, each printing one JSON line on stdout:
+``repro``, and runs fifteen phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -148,6 +148,37 @@ It imports the port and nothing of JAX or of the reference package
            the roofline share against ``roofline_report`` on ``H100_SXM``
            (6 N T + attention FLOPs); and a ``use_pallas`` step, which must
            raise and leave the parameters as they were;
+  deep     the deep one-shot round (``core/deepfed.py``, ``fed_run --mode
+           lm``'s path): (a) llama3.2-1b at full width cut to 2 layers,
+           fp32, 2 members (drawn on the cpu, copies moved to the card) 2
+           local steps each at batch 2, seq 256, evaluated on 2 held-out
+           windows (single member and ensemble), 2 ``kl`` distill steps
+           into a student drawn on the cpu, on cuda (the teacher and the
+           evaluations through the fp32 flash kernel) and on cpu: local
+           losses within 1e-4 (step 1) and 1e-3 relative, NLLs within 1e-4,
+           distill losses within 1e-3, byte counts equal, the flash
+           launches counted; (b) the full 16-layer bf16 llama3.2-1b: 4
+           members 4 local steps each at batch 4, seq 512, single-member
+           and ensemble NLLs on 8 held-out windows, 4 ``kl`` distill steps
+           and the student's NLL, the teacher and the evaluations through
+           the bf16 flash kernel: s a local step, tokens/s, the teacher's
+           forward and a distill step's seconds, peak memory, the flash
+           launches equal to the count from M, the layers, the distill
+           steps and the windows, no other kernel, step 1's batch loss
+           lower after the steps than before for every member; the
+           ensemble NLL of one window through the kernel within 2^-7 of
+           the plain attention's; a distill step and a local step under
+           the profiler (busy share);
+  cli      ``repro_torch.launch.fed_run.main`` on cuda and on cpu: the
+           sim round on 1,024 dirichlet devices, ks 10 and 50, dense
+           distillation on 1,024 proxy rows and ``--serve-fleet``, then in
+           int8 under a 30,000-byte budget with ``fisher`` and CG
+           distillation, each with ``--trace``: equal ``comm`` blocks and
+           ledgers, AUCs within 1e-4 (the distilled one where the CG
+           converged), the fleet summaries byte for byte, the trace's
+           ``round.*``, ``engine.*`` and fleet (pid 2) tracks, and the
+           seven SVM kernels launched; ``--mode lm`` at its defaults: the
+           reference's keys, equal byte counts, finite NLLs;
   fleet    the SVM serving path and the multi-tenant fleet
            (``repro_torch.serve``, ``repro_torch.fleet``): (1) the emnist
            round's fp32 ``server_scorer`` and ``main_q8``'s int8 student
@@ -170,7 +201,9 @@ It imports the port and nothing of JAX or of the reference package
            defaults on 4,096 requests: host seconds, requests/s, device ms;
   timing   each kernel and its plain version, in turns (plain, kernel,
            kernel, plain) with CUDA events (``ms``; for a kernel of a few
-           microseconds mostly the wrapper's host time), and the kernel's
+           microseconds mostly the wrapper's host time; a version whose
+           call takes a second or more, the plain SDCA at the ideal, is
+           timed by one call), and the kernel's
            own device time a call from ``torch.profiler`` over a run of
            back-to-back calls (``device_ms``), at main-path shapes
            (``batched_rbf_gram`` at six of the round's 15), beside a
@@ -199,7 +232,9 @@ The last three lines are the per-kernel summary ``{"kernels": [...]}``
 for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
 ``serve`` for flash attention, named in ``launches_path``, each
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
-``launches_fleet`` and in ``train`` (b)'s steps as ``launches_train``;
+``launches_fleet``, in ``train`` (b)'s steps as ``launches_train``, in
+``deep`` (b)'s round as ``launches_deep`` and in the ``cli`` runs on
+cuda as ``launches_cli``;
 the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
@@ -213,16 +248,19 @@ the detailed timings there as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from statistics import fmean as mean
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
-          "serve", "train", "fleet", "timing", "profile")
+          "serve", "train", "deep", "cli", "fleet", "timing", "profile")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 FLEET_BUCKETS = (8, 32, 256)      # the fleet's two buckets and ServeConfig()'s largest
@@ -1773,6 +1811,385 @@ def phase_train(ops, trace, device):
     return {"parity": train_parity(ops, device), "full": train_full(ops, trace, device)}
 
 
+# the deep phase: the deep one-shot round (``core/deepfed.py``, ``fed_run
+# --mode lm``): M members trained one after another by ``make_train_step``
+# (no kernel runs there: none has a backward), the teacher's and the
+# evaluations' forwards through the flash kernel (``use_pallas``)
+DEEP_ARCH = SERVE_ARCH
+# (a): full width, 2 fp32 layers, cuda against cpu
+DEEP_PARITY = dict(n_layers=2, members=2, batch=2, seq=256, local_steps=2, distill_steps=2,
+                   eval_windows=2, lr=1e-3)
+# local losses: step 1 from equal parameters, later steps after the
+# optimizer's arithmetic in another order on each device (``train`` (a)'s)
+DEEP_LOSS_RTOL = TRAIN_LOSS_RTOL
+DEEP_NLL_RTOL, DEEP_DISTILL_RTOL = 1e-4, 1e-3
+# (b): the full 16-layer bf16 model, the CLI's 4 clients; lr as ``train`` (b)
+DEEP_FULL = dict(members=4, batch=4, seq=512, local_steps=4, distill_steps=4, lr=3e-4)
+DEEP_TOKENS = 8192   # tokens a client: windows of 4 x 513 at random starts
+
+
+def deep_windows(vocab, members, batch, seq, local_steps, n_eval, n_proxy):
+    """``fed_run --mode lm``'s token windows: each client's local windows
+    (M, steps, B, S+1), then the held-out (2M) and proxy (M) windows drawn
+    from the clients in turn."""
+    import numpy as np
+
+    from repro_torch.data import make_federated_lm_data, token_batches
+
+    clients = make_federated_lm_data(members, vocab, DEEP_TOKENS, seed=0)
+    local = np.stack([np.stack([next(it) for _ in range(local_steps)])
+                      for it in (token_batches(c, batch, seq, seed=1) for c in clients)])
+    test = np.stack([next(token_batches(clients[i % members], batch, seq, seed=7))
+                     for i in range(n_eval)])
+    proxy = np.stack([next(token_batches(clients[i % members], batch, seq, seed=13))
+                      for i in range(n_proxy)])
+    return local, test, proxy
+
+
+@contextlib.contextmanager
+def cpu_drawn_student(deepfed):
+    """``deepfed.init_params`` drawing on the cpu and moving the draw to the
+    device asked for (``init_params``' generator is per device), so the
+    student starts from the same parameters on cuda and on cpu."""
+    from repro_torch.models import init_params
+
+    def drawn(cfg, seed=0, device="cuda", trainable=False):
+        return init_params(cfg, seed=seed, device="cpu", trainable=trainable).to(device)
+
+    saved = deepfed.init_params
+    deepfed.init_params = drawn
+    try:
+        yield
+    finally:
+        deepfed.init_params = saved
+
+
+def deep_flash_launches(cfg, members, distill_steps, eval_windows):
+    """One flash launch a layer for each teacher forward (M a distill step)
+    and each evaluation forward (single member, M ensemble members and the
+    student on each held-out window)."""
+    return cfg.n_layers * (distill_steps * members + eval_windows * (1 + members + 1))
+
+
+def deep_parity(ops, device):
+    """(a) llama3.2-1b at full width, 2 fp32 layers: the same members
+    (drawn on the cpu, copies moved to the card) train, are evaluated and
+    distilled on cuda and on cpu; the teacher and the evaluations through
+    the fp32 flash kernel on cuda, its plain version on cpu."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import deepfed
+
+    dp = DEEP_PARITY
+    M = dp["members"]
+    cfg = get_config(DEEP_ARCH).replace(n_layers=dp["n_layers"], dtype=torch.float32)
+    teacher = cfg.replace(use_pallas=True)
+    local, test, proxy = deep_windows(cfg.vocab, M, dp["batch"], dp["seq"], dp["local_steps"],
+                                      dp["eval_windows"], dp["distill_steps"])
+    members = deepfed.stacked_init(cfg, M, seed=0, device="cpu")
+    copies = {"cuda": [copy.deepcopy(m).to(device) for m in members], "cpu": members}
+    runs = {}
+    for name, mem in copies.items():
+        dev = mem[0].embed.device
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        mem, losses = deepfed.make_local_train(cfg, lr=dp["lr"])(mem, local)
+        single = deepfed.ensemble_eval_loss(mem[:1], teacher, test)
+        ens = deepfed.ensemble_eval_loss(mem, teacher, test)
+        with cpu_drawn_student(deepfed):
+            student, dl = deepfed.distill_to_student(cfg, teacher, mem, proxy,
+                                                     steps=dp["distill_steps"], lr=dp["lr"],
+                                                     loss_kind="kl", device=dev)
+        student_nll = deepfed.ensemble_eval_loss([student], teacher, test)
+        counts = ops.launch_counts()
+        runs[name] = {
+            "local_losses": losses.cpu().tolist(), "single_member_nll": single,
+            "ensemble_nll": ens, "distill_losses": dl, "student_nll": student_nll,
+            "comm": deepfed.one_shot_comm_bytes(mem, M, student, n_devices=M),
+            "fedavg10": deepfed.fedavg_comm_bytes(student, 10, M),
+            "seconds": time.perf_counter() - t0, "flash_launches": counts["flash_attention"],
+            "other_launches": sum(counts.values()) - counts["flash_attention"]}
+        del mem, student
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    local_rel = [[rel(a, b) for a, b in zip(x, y)]
+                 for x, y in zip(card["local_losses"], cpu["local_losses"])]
+    nll_rel = {k: rel(card[k], cpu[k]) for k in ("single_member_nll", "ensemble_nll",
+                                                 "student_nll")}
+    distill_rel = [rel(a, b) for a, b in zip(card["distill_losses"], cpu["distill_losses"])]
+    flash = deep_flash_launches(cfg, M, dp["distill_steps"], dp["eval_windows"])
+    out = {"arch": DEEP_ARCH, "dtype": "float32", **dp, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "runs": runs, "local_loss_rel_diff": local_rel,
+           "nll_rel_diff": nll_rel, "distill_loss_rel_diff": distill_rel,
+           "tol": {"local": list(DEEP_LOSS_RTOL), "nll": DEEP_NLL_RTOL,
+                   "distill": DEEP_DISTILL_RTOL},
+           "flash_launches_want": flash}
+    for i, row in enumerate(local_rel):
+        tols = [DEEP_LOSS_RTOL[0]] + [DEEP_LOSS_RTOL[1]] * (len(row) - 1)
+        if not all(r <= t for r, t in zip(row, tols)):
+            raise AssertionError(f"deep (a): member {i}'s cuda and cpu losses differ by {row}")
+    if not max(nll_rel["single_member_nll"], nll_rel["ensemble_nll"]) <= DEEP_NLL_RTOL:
+        raise AssertionError(f"deep (a): cuda and cpu NLLs differ by {nll_rel}")
+    if not (max(distill_rel) <= DEEP_DISTILL_RTOL and math.isfinite(card["student_nll"])):
+        raise AssertionError(f"deep (a): distill losses differ by {distill_rel} "
+                             f"(student NLL {card['student_nll']})")
+    if card["comm"] != cpu["comm"] or card["fedavg10"] != cpu["fedavg10"]:
+        raise AssertionError(f"deep (a): byte counts differ: {card['comm']} {cpu['comm']}")
+    if (card["flash_launches"], cpu["flash_launches"]) != (flash, 0) or card["other_launches"]:
+        raise AssertionError(f"deep (a): flash launches cuda {card['flash_launches']}, cpu "
+                             f"{cpu['flash_launches']}, want {flash} and 0; other kernels "
+                             f"{card['other_launches']}")
+    return out
+
+
+def _lm_batch(window, device):
+    import torch
+
+    t = torch.from_numpy(window).to(device).long()
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _sync_seconds(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, result
+
+
+def deep_full(ops, device):
+    """(b) the full 16-layer bf16 llama3.2-1b: 4 members trained one after
+    another, evaluated (single member and ensemble) on 8 held-out windows,
+    distilled into a student (``kl``) whose NLL is taken on the same
+    windows, as ``fed_run --mode lm`` runs them, the teacher and the
+    evaluations through the bf16 flash kernel. Then, outside the counted
+    run: the teacher's forward timed alone, the ensemble NLL of one window
+    through the kernel against the plain attention, and one distill step
+    and one local step under the profiler."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import deepfed
+    from repro_torch.models import make_eval_step, param_count
+
+    df = DEEP_FULL
+    M, steps = df["members"], df["distill_steps"]
+    cfg = get_config(DEEP_ARCH)
+    teacher = cfg.replace(use_pallas=True)
+    local, test, proxy = deep_windows(cfg.vocab, M, df["batch"], df["seq"], df["local_steps"],
+                                      2 * M, M)
+    init_s, members = _sync_seconds(lambda: deepfed.stacked_init(cfg, M, seed=0, device=device))
+    evaluate = make_eval_step(cfg)
+    before = [float(evaluate(p, _lm_batch(local[m, 0], device))) for m, p in enumerate(members)]
+    train = deepfed.make_local_train(cfg, lr=df["lr"])
+
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    local_s, (members, losses) = _sync_seconds(lambda: train(members, local))
+    after = [float(evaluate(p, _lm_batch(local[m, 0], device))) for m, p in enumerate(members)]
+    eval_s, (single, ens) = _sync_seconds(lambda: (
+        deepfed.ensemble_eval_loss(members[:1], teacher, test),
+        deepfed.ensemble_eval_loss(members, teacher, test)))
+    distill_s, (student, dl) = _sync_seconds(lambda: deepfed.distill_to_student(
+        cfg, teacher, members, proxy, steps=steps, lr=df["lr"], loss_kind="kl", device=device))
+    student_nll = deepfed.ensemble_eval_loss([student], teacher, test)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    comm = deepfed.one_shot_comm_bytes(members, M, student, n_devices=M)
+    del student
+
+    # the teacher's forward on a proxy window alone (warm)
+    proxy_batch = _lm_batch(proxy[0], device)
+    teacher_s = sorted(_sync_seconds(lambda: deepfed.ensemble_log_probs(
+        members, teacher, proxy_batch["tokens"]))[0] for _ in range(3))[1]
+    # kernel against plain attention: the ensemble on one held-out window
+    batch = _lm_batch(test[0], device)
+    nlls, lps = {}, {}
+    for name, c in (("kernel", teacher), ("plain", cfg)):
+        lp = deepfed.ensemble_log_probs(members, c, batch["tokens"])
+        nlls[name] = float(-torch.gather(lp, -1, batch["labels"][..., None]).mean())
+        lps[name] = lp
+        del lp
+    gap = float((lps["kernel"] - lps["plain"]).abs().max())
+    del lps
+    distill_profile, _ = profile_call(lambda: deepfed.distill_to_student(
+        cfg, teacher, members, proxy[:1], steps=1, lr=df["lr"], device=device))
+    local_profile, _ = profile_call(lambda: train(members[:1], local[:1, :1]))
+    torch.cuda.empty_cache()
+
+    tokens = df["batch"] * df["seq"]
+    s_local = local_s / (M * df["local_steps"])
+    flash = deep_flash_launches(cfg, M, steps, len(test))
+    host_losses = losses.float().cpu().tolist()
+    out = {
+        "arch": DEEP_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": "bfloat16", "params": param_count(cfg), **df,
+        "tokens_per_step": tokens, "init_seconds": init_s,
+        "local_seconds": local_s, "seconds_per_local_step": s_local,
+        "local_tokens_per_s": tokens / s_local, "local_losses": host_losses,
+        "first_batch_loss": {"before": before, "after": after},
+        "eval_seconds": eval_s, "distill_seconds": distill_s,
+        "seconds_per_distill_step": distill_s / steps,
+        "teacher_forward_seconds": teacher_s, "distill_losses": dl,
+        "nll": {"single_member": single, "ensemble": ens, "student": student_nll},
+        "kernel_vs_plain": {"nll": nlls, "nll_rel_diff": abs(nlls["kernel"] - nlls["plain"])
+                            / abs(nlls["plain"]), "tol": BF16_RTOL,
+                            "max_log_prob_gap": gap},
+        "comm": comm, "peak_memory_bytes": peak,
+        "flash_launches_want": flash, "kernels": counts,
+        "distill_step_profile": distill_profile, "local_step_profile": local_profile,
+        # the profiler's own start and stop dwarf a step's wall (``train``
+        # (b)), so a busy share is the profiled call's device seconds over
+        # an unprofiled step's; the profiled distill call also draws its
+        # student, the local one also zeroes its member's moments
+        "device_busy_share": {
+            "local_step": local_profile["device_seconds"] / s_local,
+            "distill_step": distill_profile["device_seconds"] / (distill_s / steps)},
+    }
+    finite = [single, ens, student_nll] + dl + [x for row in host_losses for x in row]
+    if not all(math.isfinite(x) for x in finite):
+        raise AssertionError(f"deep (b): a loss or NLL is not finite: {out['nll']}")
+    if not all(b > a for b, a in zip(before, after)):
+        raise AssertionError(f"deep (b): step 1's batch loss before {before}, after {after}")
+    if counts["flash_attention"] != flash or sum(counts.values()) != flash:
+        raise AssertionError(f"deep (b): launches {counts}, want {flash} flash and no other")
+    if not out["kernel_vs_plain"]["nll_rel_diff"] <= BF16_RTOL:
+        raise AssertionError(f"deep (b): ensemble NLL through the kernel {nlls['kernel']} "
+                             f"against plain {nlls['plain']}")
+    return out
+
+
+def phase_deep(ops, device):
+    return {"parity": deep_parity(ops, device), "full": deep_full(ops, device)}
+
+
+# the cli phase: ``repro_torch.launch.fed_run.main`` as a user runs it, on
+# cuda and on cpu: two sim rounds (fp32 with dense distillation and the
+# fleet; int8 under a budget with fisher and CG distillation) and --mode lm
+CLI_COMMON = ["--mode", "sim", "--scenario", "dirichlet", "--devices", "1024", "--k", "10", "50",
+              "--distill-proxy", "1024"]
+CLI_RUNS = {
+    "fp32": (CLI_COMMON + ["--distill-solver", "dense", "--serve-fleet"],
+             ("batched_rbf_gram", "sdca", "ensemble_score", "rbf_gram")),
+    "int8": (CLI_COMMON + ["--codec", "int8", "--budget-bytes", "30000", "--aggregator",
+                           "fisher", "--distill-solver", "cg"], Q8_KERNELS),
+}
+# ``repro.launch.fed_run``'s --mode lm report (tests/test_torch_fed_run.py
+# holds the port's keys to the reference's on the cpu)
+LM_REPORT_KEYS = ("arch", "clients", "single_member_nll", "ensemble_nll", "student_nll",
+                  "one_shot_comm_bytes", "fedavg10_comm_bytes", "comm_reduction_vs_fedavg10")
+CG_MAXITER = 256   # DistillConfig().maxiter
+
+
+def cli_main(fed_run, ops, argv, device, trace_path=None):
+    """(report, the run's launches, its trace or None, seconds); the
+    report's printout kept off this script's stdout."""
+    import io
+
+    argv = list(argv) + (["--trace", str(trace_path)] if trace_path else [])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = fed_run.main(argv, device=device)
+    seconds = time.perf_counter() - t0
+    doc = json.loads(Path(trace_path).read_text()) if trace_path else None
+    return report, ops.launch_counts(), doc, seconds
+
+
+def sim_aucs(report, distilled=True):
+    vals = {"mean_local_auc": report["mean_local_auc"], "mean_val_auc": report["mean_val_auc"]}
+    for s, by_k in report["ensemble_auc"].items():
+        if s != "distilled" or distilled:
+            vals.update({f"{s}_k{k}": v for k, v in by_k.items()})
+    return vals
+
+
+def phase_cli(ops, device):
+    """Each ``CLI_RUNS`` round through ``fed_run.main`` with ``--trace`` on
+    cuda and on cpu (the plain versions): equal ``comm`` blocks and ledger
+    sections, equal headcounts, AUCs within AUC_TOL (the distilled one only
+    where the CG converged on both), the fleet summaries byte for byte; the
+    trace parses and has ``round.*`` and ``engine.*`` spans and the fleet's
+    process track (pid 2); each run's kernels launched on cuda. Then
+    ``--mode lm`` at its defaults on both: the reference's keys, equal byte
+    counts, finite NLLs."""
+    import tempfile
+
+    from repro_torch.launch import fed_run
+
+    out, total = {}, {}
+    with tempfile.TemporaryDirectory(prefix="fed_run_") as tmp:
+        for name, (argv, kernels) in CLI_RUNS.items():
+            runs = {dev: cli_main(fed_run, ops, argv, dev, Path(tmp) / f"{name}_{dev}.json")
+                    for dev in ("cuda", "cpu")}
+            (card, counts, doc, card_s), (cpu, _, cpu_doc, cpu_s) = runs["cuda"], runs["cpu"]
+            _add_counts(total, counts)
+            cg = {dev: [e["args"]["iterations"] for e in d["traceEvents"]
+                        if e["name"] == "distill.cg"]
+                  for dev, d in (("cuda", doc), ("cpu", cpu_doc))}
+            converged = all(it < CG_MAXITER for its in cg.values() for it in its)
+            a, b = sim_aucs(card, converged), sim_aucs(cpu, converged)
+            diff = max(abs(a[k] - b[k]) for k in b) if set(a) == set(b) else math.inf
+            with_student = sim_aucs(card), sim_aucs(cpu)
+            names = {e["name"] for e in doc["traceEvents"]}
+            fleet_track = any(e["ph"] == "M" and e["pid"] == 2 for e in doc["traceEvents"])
+            fleet_events = sum(1 for e in doc["traceEvents"]
+                               if e.get("cat") == "fleet" and e["pid"] == 2)
+            fleet_equal = (json.dumps(card.get("fleet"), sort_keys=True)
+                           == json.dumps(cpu.get("fleet"), sort_keys=True))
+            out[name] = {
+                "argv": argv, "seconds": {"cuda": card_s, "cpu": cpu_s},
+                "devices": card["devices"], "eligible": card["eligible"], "best": card["best"],
+                "ensemble_auc": {s: {str(k): v for k, v in d.items()}
+                                 for s, d in card["ensemble_auc"].items()},
+                "comm_equal": card["comm"] == cpu["comm"],
+                "ledger_equal": card["obs"]["sections"]["comm"] == cpu["obs"]["sections"]["comm"],
+                "headcounts_equal": (card["available"], card["eligible"])
+                == (cpu["available"], cpu["eligible"]),
+                "max_auc_diff_held": diff, "cg_iterations": cg, "cg_converged": converged,
+                "max_auc_diff_with_student": max(abs(with_student[0][k] - with_student[1][k])
+                                                 for k in with_student[1]),
+                "fleet_equal": fleet_equal, "trace_events": len(doc["traceEvents"]),
+                "trace_fleet_events": fleet_events, "kernels": counts,
+            }
+            held = {k: out[name][k] for k in ("comm_equal", "ledger_equal", "headcounts_equal")}
+            if not (all(held.values()) and diff <= AUC_TOL):
+                raise AssertionError(f"cli [{name}]: cuda and cpu reports differ: {held}, "
+                                     f"AUCs {diff} apart")
+            fleet_ok = fleet_equal and fleet_track and fleet_events > 0
+            if "--serve-fleet" in argv and not (fleet_ok and card["fleet"]["global"]["conserved"]):
+                raise AssertionError(f"cli [{name}]: fleet summaries equal {fleet_equal}, "
+                                     f"fleet track {fleet_track}, {fleet_events} fleet events")
+            if not (any(n.startswith("round.") for n in names)
+                    and any(n.startswith("engine.") for n in names)):
+                raise AssertionError(f"cli [{name}]: trace spans {sorted(names)[:40]}")
+            idle = [k for k in kernels if not counts.get(k)]
+            if idle:
+                raise AssertionError(f"cli [{name}]: kernels {idle} not launched: {counts}")
+        lm = {dev: cli_main(fed_run, ops, [], dev) for dev in ("cuda", "cpu")}
+    (card, counts, _, card_s), (cpu, _, _, cpu_s) = lm["cuda"], lm["cpu"]
+    _add_counts(total, counts)
+    nll_keys = ("single_member_nll", "ensemble_nll", "student_nll")
+    out["lm"] = {"seconds": {"cuda": card_s, "cpu": cpu_s},
+                 "keys_equal": tuple(card) == LM_REPORT_KEYS == tuple(cpu),
+                 "nll": {dev: {k: r[0][k] for k in nll_keys} for dev, r in lm.items()},
+                 "comm": card["one_shot_comm_bytes"], "kernels": counts}
+    if not out["lm"]["keys_equal"]:
+        raise AssertionError(f"cli [lm]: report keys {list(card)}, want {list(LM_REPORT_KEYS)}")
+    for key in ("one_shot_comm_bytes", "fedavg10_comm_bytes", "comm_reduction_vs_fedavg10"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"cli [lm]: {key} {card[key]} on cuda, {cpu[key]} on cpu")
+    if not all(math.isfinite(r[0][k]) for r in lm.values() for k in nll_keys):
+        raise AssertionError(f"cli [lm]: NLLs {out['lm']['nll']}")
+    out["kernels"] = total
+    return out
+
+
 # the fleet phase: the SVM serving path and the multi-tenant fleet
 # (``repro_torch.serve``, ``repro_torch.fleet``) on the card. The cells of
 # ``benchmarks/serve_load_bench.py`` are rebuilt here on the port (its two
@@ -2192,12 +2609,19 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# a call at least this long is timed by its sizing call alone: turns guard
+# against the host's drift between short runs, which one second outlasts
+# (the plain SDCA at the ideal takes ~11 s a call)
+SLOW_CALL_MS = 1000.0
+
+
 def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain),
     each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms
     from one call made after a warm-up call; with ``library``, its two
     turns go between the kernel's (plain, kernel, library, library,
-    kernel, plain)."""
+    kernel, plain). A version whose sizing call took SLOW_CALL_MS or more
+    takes no turns: that call is its one measurement."""
     import torch
 
     fns = {"plain": plain, "kernel": kernel}
@@ -2205,14 +2629,16 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     if library is not None:
         fns["library"] = library
         order[2:2] = ["library", "library"]
-    reps = {}
+    reps, turns = {}, {}
     for label, fn in fns.items():
         fn(*args)                                # warm-up: a first call pays set-up
         torch.cuda.synchronize()
         once = _time_ms(lambda: fn(*args), 1)   # then size the run
         reps[label] = max(1, min(200, int(budget_ms / max(once, 1e-3))))
-    turns = {label: [] for label in fns}
+        turns[label] = [once] if once >= SLOW_CALL_MS else []
     for label in order:
+        if turns[label] and turns[label][0] >= SLOW_CALL_MS:
+            continue
         turns[label].append(_time_ms(lambda: fns[label](*args), reps[label]))
     return turns, reps
 
@@ -2292,11 +2718,11 @@ def phase_timing(ops, device, rng, names):
             ops_n, bytes_n = kernel_cost(name, spec.kernel, args)
             row = {
                 "kernel": name, "case": label,
-                "ms": sum(turns["kernel"]) / 2, "device_ms": dev_ms,
+                "ms": mean(turns["kernel"]), "device_ms": dev_ms,
                 "device_launches_recorded": dev_launches, "device_kernels": dev_names,
                 "device_windows": windows,
-                "plain_ms": sum(turns["plain"]) / 2,
-                "library_ms": sum(turns["library"]) / 2 if library else None,
+                "plain_ms": mean(turns["plain"]),
+                "library_ms": mean(turns["library"]) if library else None,
                 "turns": turns, "reps": reps, "bound_ms": 1e3 * bound_s,
                 "bound_by": bound_by, "ops": ops_n, "bytes": bytes_n,
                 "fill_ms": fill_ms(spec.kernel(*targs)),
@@ -2493,6 +2919,12 @@ def main(argv=None) -> int:
             elif phase == "train":
                 out = phase_train(ops, trace, device)
                 counts[phase] = out["full"]["kernels"]
+            elif phase == "deep":
+                out = phase_deep(ops, device)
+                counts[phase] = out["full"]["kernels"]
+            elif phase == "cli":
+                out = phase_cli(ops, device)
+                counts[phase] = out["kernels"]
             elif phase == "fleet":
                 out = phase_fleet(make_dataset, run_protocol, DistillConfig, ops, artifacts)
                 counts[phase] = out["kernels"]
@@ -2528,6 +2960,8 @@ def main(argv=None) -> int:
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
             "launches_path": path, "launches_fleet": counts.get("fleet", {}).get(name),
             "launches_train": counts.get("train", {}).get(name),
+            "launches_deep": counts.get("deep", {}).get(name),
+            "launches_cli": counts.get("cli", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

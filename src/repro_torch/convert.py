@@ -14,7 +14,9 @@ either package decodes in the other.
 ``lm_params_from_arrays`` carries an LM's parameter tree across: the
 reference's nested dict of arrays, whose blocks are stacked on a leading
 ``n_superblocks`` axis per sub-layer kind, becomes the port's module with
-one entry per layer.
+one entry per layer; ``lm_stacked_from_arrays`` splits the reference's
+stacked members (``repro.core.deepfed.stacked_init``'s leading member
+axis) into the port's list of member modules.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.svm import SVMModel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import materialize, model_specs
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 def svm_from_arrays(support_x, coef, gamma: float, device="cuda") -> SVMModel:
@@ -126,3 +129,16 @@ def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda", trainable: bool
         return torch.from_numpy(np.array(arr, np.float32)).to(dev, spec.dtype)
 
     return materialize(model_specs(cfg), leaf, trainable=trainable)
+
+
+def lm_stacked_from_arrays(tree, cfg: ModelConfig, device="cuda", trainable: bool = False):
+    """The reference's stacked members (``repro.core.deepfed.stacked_init``:
+    every leaf of ``init_params``' tree with a leading member axis M,
+    leaves as numpy arrays) -> the port's list of M parameter modules,
+    member m ``lm_params_from_arrays`` of the leaves' slice m."""
+    sizes = {np.shape(leaf)[0] for leaf in tree_leaves(tree)}
+    if len(sizes) != 1:
+        raise ValueError(f"stacked members disagree on the member axis: {sorted(sizes)}")
+    return [lm_params_from_arrays(tree_map(lambda a, m=m: np.asarray(a)[m], tree), cfg,
+                                  device=device, trainable=trainable)
+            for m in range(sizes.pop())]

@@ -8,9 +8,8 @@ protocol.py   end-to-end one-shot round + comm accounting
 averaging.py  one-shot parameter-averaging baseline [related work [8]]
 fedavg.py     iterative FedAvg baseline             [related work [5]]
 cohorts.py    cohort-personalized ensembles         [future work (1)]
-
-The transformer round (``deepfed``) and few-shot personalisation
-(``fewshot``) are ROADMAP queue 1 item 13.3.
+deepfed.py    transformer instantiation (the dense LM family)
+fewshot.py    few-shot rounds over deepfed          [future work (3)]
 """
 from repro_torch.core.svm import SVMModel, ConstantModel, train_svm, default_gamma, validation_auc
 from repro_torch.core.ensemble import Ensemble, StackedEnsemble, ensemble_predict_mean
@@ -23,7 +22,7 @@ from repro_torch.core.averaging import (
     average_params, LinearSVM, train_linear_svm, one_shot_average_linear,
 )
 from repro_torch.core.fedavg import run_fedavg, FedAvgResult
-from repro_torch.core import cohorts
+from repro_torch.core import cohorts, deepfed, fewshot
 
 __all__ = [
     "SVMModel", "ConstantModel", "train_svm", "default_gamma", "validation_auc",
@@ -32,5 +31,5 @@ __all__ = [
     "distill_svm", "distill_loss_l2", "distill_loss_kl", "DISTILL_LOSSES",
     "run_protocol", "ProtocolResult",
     "average_params", "LinearSVM", "train_linear_svm", "one_shot_average_linear",
-    "run_fedavg", "FedAvgResult", "cohorts",
+    "run_fedavg", "FedAvgResult", "cohorts", "deepfed", "fewshot",
 ]

@@ -1,10 +1,11 @@
 """Command-line drivers of the port (``python -m repro_torch.launch.<name>``):
-``serve`` (batched prefill + greedy decode) and ``train`` (LM training
-steps). The modules load on first access, so ``python -m`` runs each
-without importing it twice."""
+``serve`` (batched prefill + greedy decode), ``train`` (LM training
+steps) and ``fed_run`` (the one-shot round: the deep LM round or the
+population-scale SVM round). The modules load on first access, so
+``python -m`` runs each without importing it twice."""
 import importlib
 
-__all__ = ["serve", "train"]
+__all__ = ["serve", "train", "fed_run"]
 
 
 def __getattr__(name):

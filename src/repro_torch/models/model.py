@@ -224,35 +224,45 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1) 
     return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def optimizer_step(params, opt_state, optimizer, loss_fn):
+    """One step on ``loss_fn(params) -> (loss, metrics)``: the loss's
+    gradients with respect to every parameter come from
+    ``torch.autograd``, ``optimizer`` (a ``repro_torch.optim.Optimizer``
+    over ``param_tree(params)``) turns them into updates, and
+    ``apply_updates``' new values are copied into ``params`` (built with
+    ``trainable=True``). Returns ``(params, opt_state, metrics)``, the
+    metrics detached."""
+    tree = param_tree(params)
+    leaves = tree_leaves(tree)
+    if not all(p.requires_grad for p in leaves):
+        raise ValueError("the parameters are frozen; build them with trainable=True")
+    loss, metrics = loss_fn(params)
+    grads = tree_unflatten(tree_structure(tree), torch.autograd.grad(loss, leaves))
+    with torch.no_grad():
+        updates, opt_state = optimizer.update(grads, opt_state, tree)
+        del grads
+        for p, new in zip(leaves, tree_leaves(apply_updates(tree, updates))):
+            p.copy_(new)
+    return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+
 def make_train_step(cfg: ModelConfig, optimizer):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "ce", "aux"})``, as the reference's: the loss is ``lm_loss``
-    plus ``router_aux_coef * aux``, its gradients with respect to every
-    parameter come from ``torch.autograd``, ``optimizer`` (a
-    ``repro_torch.optim.Optimizer`` over ``param_tree(params)``) turns
-    them into updates, and ``apply_updates``' new values are copied into
-    ``params`` (built with ``trainable=True``), which is returned.
+    plus ``router_aux_coef * aux``, one ``optimizer_step`` on it.
     The metrics are 0-d fp32 tensors on the parameters' device."""
     check_buildable(cfg)
 
-    def train_step(params, opt_state, batch):
-        tree = param_tree(params)
-        leaves = tree_leaves(tree)
-        if not all(p.requires_grad for p in leaves):
-            raise ValueError("make_train_step: the parameters are frozen; build them with "
-                             "trainable=True")
+    def loss_fn(params, batch):
         logits, aux = forward_train(params, cfg, batch)
         ce = lm_loss(logits, batch["labels"])
         del logits
         loss = ce + cfg.router_aux_coef * aux
-        grads = tree_unflatten(tree_structure(tree), torch.autograd.grad(loss, leaves))
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, tree)
-            del grads
-            for p, new in zip(leaves, tree_leaves(apply_updates(tree, updates))):
-                p.copy_(new)
-        metrics = {"loss": loss.detach(), "ce": ce.detach(), "aux": aux.detach()}
-        return params, opt_state, metrics
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+    def train_step(params, opt_state, batch):
+        return optimizer_step(params, opt_state, optimizer,
+                              functools.partial(loss_fn, batch=batch))
 
     return train_step
 

@@ -79,7 +79,10 @@ def test_default_device_is_the_card(monkeypatch):
     from repro_torch.distill import distill_teacher
     from repro_torch.comm.wire import encode
     from repro_torch.fleet import TenantRegistry, serve_round_artifact
-    from repro_torch.launch import train
+    from repro_torch.core import deepfed
+    from repro_torch.core.fewshot import run_few_shot
+    from repro_torch.launch import fed_run, train
+    from repro_torch.models.config import ModelConfig
     from repro_torch.serve import EnsembleScorer
     from repro_torch.core.svm import SVMModel, train_svm
     from repro_torch.data import make_dataset
@@ -91,6 +94,19 @@ def test_default_device_is_the_card(monkeypatch):
     ds = make_dataset("gleam", seed=0, scale=0.2)
     x = np.random.default_rng(0).normal(size=(10, 4)).astype(np.float32)
     y = np.where(np.arange(10) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    lm = ModelConfig(name="tiny", n_layers=1, d_model=16, n_heads=2, d_ff=32, vocab=31,
+                     dtype=torch.float32)
+    wins = np.random.default_rng(0).integers(0, lm.vocab, (2, 1, 2, 9)).astype(np.int32)
+    lm_argv = ["--clients", "2", "--local-steps", "1", "--distill-steps", "1", "--batch", "2",
+               "--seq", "8", "--tokens-per-client", "200"]
+    deep = [  # each must also run with device="cpu"
+        lambda **kw: deepfed.stacked_init(lm, 2, **kw),
+        lambda **kw: deepfed.distill_to_student(
+            lm, lm, deepfed.stacked_init(lm, 2, device="cpu"), wins[:, 0], steps=1, **kw),
+        lambda **kw: run_few_shot(lm, wins, wins[:, 0], wins[0], rounds=1, distill_steps=1,
+                                  **kw),
+        lambda **kw: fed_run.main(lm_argv, **kw),
+    ]
     calls = [
         lambda: resolve_device("cuda"),
         lambda: run_protocol(ds, ks=(1,)),
@@ -114,10 +130,12 @@ def test_default_device_is_the_card(monkeypatch):
         lambda: TenantRegistry().register_wire("t", encode(SVMModel(x, y * 0.1, 0.5))),
         lambda: serve_round_artifact(SVMModel(x, y * 0.1, 0.5)),
         lambda: train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
-    ]
+    ] + deep
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    for fn in deep:
+        assert fn(device="cpu") is not None
 
 
 def test_cpu_on_request_and_unknown_devices_rejected():
