@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs fifteen phases, each printing one JSON line on stdout:
+``repro``, and runs sixteen phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -20,8 +20,9 @@ It imports the port and nothing of JAX or of the reference package
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
            and bf16 (the tensor-core ``flash_attention_tc.cu``) at head dims
            32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
-           causal with a window, non-causal, ragged lengths and the serve
-           shape; the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
+           causal with a window, non-causal, ragged lengths, the serve
+           shape and the ``families`` prefills (hd 128, 4 and 8 query
+           heads per KV head); the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
            and feature dims 12, 24, 32 and 37, and at the fleet's d 8 (k 4,
            n 40 at b 8, 32 and 256); SDCA at the group shapes, on
            the pooled emnist ideal, whose alphas are not all 0 or 1, and on
@@ -169,6 +170,31 @@ It imports the port and nothing of JAX or of the reference package
            ensemble NLL of one window through the kernel within 2^-7 of
            the plain attention's; a distill step and a local step under
            the profiler (busy share);
+  families the MoE, SSM (Mamba2) and hybrid (Jamba) LMs
+           (``models/layers.py::moe``, ``models/ssm.py``), each part's
+           seconds on a progress line: (a) phi3.5-moe and mamba2 at full
+           width, 2 fp32 layers, the same parameters (drawn on the card, a
+           copy moved to the cpu), ``forward_train`` on 1 x 256 tokens on
+           cuda and cpu: logits within LM_LOGIT_TOL and every MoE layer's
+           top-k expert ids equal; (b) bf16 with the flash kernel through
+           ``serve_prompts``, 4 x 2,048-token prompts, 32 greedy tokens:
+           phi3.5-moe at 16 of 32 layers, mamba2-2.7b at all 64, jamba at
+           its first 5 of 72 (mamba/mlp, mamba/moe, mamba/mlp, mamba/moe,
+           attn/mlp): parameters = ``param_count`` + the conv biases,
+           prefill and decode seconds cold and warm, cache bytes, peak
+           memory, busy share (a serve under the profiler), flash launches
+           = attention layers (one prefill) and no other kernel, the
+           prompts' NLL through the kernel within 2^-7 of plain
+           attention's, the first MoE layer twice on a prefill-shaped input
+           bitwise equal; (c) 2 fp32 layers (phi3.5-moe through the fp32
+           kernel, mamba2): 96-token prefill and 31 decode steps against
+           ``forward_train`` at each position within LM_LOGIT_TOL (B x S =
+           256: dropless), and one full-width mamba2 mixer at chunk 256 on
+           512 tokens finite and within 1e-3 of its token-by-token
+           recurrence; (d) bf16 train steps, no kernel: phi3.5-moe at 1
+           layer and mamba2 at 32, 3 steps of 4 x 512 tokens at lr 3e-4:
+           losses finite, aux > 0 for the MoE, step 1's batch loss lower
+           after, s/step and peak memory;
   cli      ``repro_torch.launch.fed_run.main`` on cuda and on cpu: the
            sim round on 1,024 dirichlet devices, ks 10 and 50, dense
            distillation on 1,024 proxy rows and ``--serve-fleet``, then in
@@ -233,7 +259,8 @@ for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
 ``serve`` for flash attention, named in ``launches_path``, each
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
 ``launches_fleet``, in ``train`` (b)'s steps as ``launches_train``, in
-``deep`` (b)'s round as ``launches_deep`` and in the ``cli`` runs on
+``deep`` (b)'s round as ``launches_deep``, in ``families`` (b)'s
+counted serves as ``launches_families`` and in the ``cli`` runs on
 cuda as ``launches_cli``;
 the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -260,7 +287,7 @@ from statistics import fmean as mean
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
-          "serve", "train", "deep", "cli", "fleet", "timing", "profile")
+          "serve", "train", "deep", "families", "cli", "fleet", "timing", "profile")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 FLEET_BUCKETS = (8, 32, 256)      # the fleet's two buckets and ServeConfig()'s largest
@@ -277,7 +304,8 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 # terms) run in another order on each device: ~1e-5 expected
 LM_LOGIT_TOL = 1e-3
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-1b", 4, 2048, 32
-# (label, (B, S, H, K, hd), causal, window); the last is the serve phase's prefill
+# (label, (B, S, H, K, hd), causal, window); the last three are the serve and
+# families phases' prefills
 FLASH_SHAPES = (
     ("hd32 rep1 causal", (2, 256, 4, 4, 32), True, 0),
     ("hd64 rep4 causal window100", (2, 300, 8, 2, 64), True, 100),
@@ -285,6 +313,9 @@ FLASH_SHAPES = (
     ("hd128 rep6 causal ragged333", (1, 333, 12, 2, 128), True, 0),
     ("hd64 rep4 non-causal window64 ragged201", (2, 201, 8, 2, 64), False, 64),
     ("serve b4 s2048 h32 k8 hd64 causal", (4, 2048, 32, 8, 64), True, 0),
+    # the families phase's prefills: phi3.5-moe (GQA 4) and jamba (GQA 8), hd 128
+    ("phi prefill b4 s2048 h32 k8 hd128 causal", (4, 2048, 32, 8, 128), True, 0),
+    ("jamba prefill b4 s2048 h64 k8 hd128 causal", (4, 2048, 64, 8, 128), True, 0),
 )
 
 
@@ -1373,20 +1404,23 @@ def gram_round(ops, ds, by_function, counts):
 DEVICE_FUNCTIONS = {"batched_rbf_gram": "batched_rbf_gram_kernel", "rbf_gram": "rbf_gram_kernel"}
 
 
-def profile_call(fn, top=20, functions=()):
+def profile_call(fn, top=20, functions=(), cpu_ops=True):
     """``fn()`` under ``torch.profiler``: the device's busy seconds (the
     sum of every kernel and copy on the card; one stream, so they do not
     overlap) against the call's wall seconds, and the device time by
     kernel; with ``functions`` (names of ``DEVICE_FUNCTIONS``), each one's
     launches and device seconds, summed over its instantiations. The
     profiler slows the host, so this wall is longer than an unprofiled
-    one's; the busy share is that of the profiled call."""
+    one's; the busy share is that of the profiled call. ``cpu_ops=False``
+    records the card's activity alone (no host op events: a call of
+    ~100,000 launches reads back in seconds, not minutes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] if cpu_ops else []
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         result = fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1395,6 +1429,7 @@ def profile_call(fn, top=20, functions=()):
     ranked = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]
     out = {
         "wall_seconds": wall, "device_seconds": busy,
+        "device_launches": sum(e.count for e in on_card),
         "device_busy_share": busy / wall if busy > 0 else None,
         "by_kernel": [{"name": e.key[:100], "count": e.count,
                        "seconds": e.self_device_time_total / 1e6} for e in ranked],
@@ -1498,8 +1533,8 @@ def phase_serve(ops, device):
     from repro_torch.configs import get_config
     from repro_torch.data import make_federated_lm_data
     from repro_torch.launch.serve import serve_prompts
-    from repro_torch.models import cache_spec, forward_prefill, init_cache, init_params
-    from repro_torch.models import param_count
+    from repro_torch.models import cache_nbytes, cache_spec, forward_prefill, init_cache
+    from repro_torch.models import init_params, param_count
 
     cfg = get_config(SERVE_ARCH).replace(use_pallas=True)
     t0 = time.perf_counter()
@@ -1512,9 +1547,7 @@ def phase_serve(ops, device):
     clients = make_federated_lm_data(SERVE_BATCH, cfg.vocab, SERVE_PROMPT + 8, seed=0)
     prompts = np.stack([c[:SERVE_PROMPT] for c in clients]).astype(np.int32)
     kv_len = SERVE_PROMPT + SERVE_GEN + 1
-    spec = cache_spec(cfg, SERVE_BATCH, kv_len)
-    cache_bytes = sum(int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
-                      for sub in spec["blocks"] for shape, dtype in sub["attn"].values())
+    cache_bytes = cache_nbytes(cache_spec(cfg, SERVE_BATCH, kv_len))
 
     # the first serve is the measured main path (launch counts, peak
     # memory); it also pays the first calls' set-up (cuBLAS handles and
@@ -2066,6 +2099,390 @@ def deep_full(ops, device):
 
 def phase_deep(ops, device):
     return {"parity": deep_parity(ops, device), "full": deep_full(ops, device)}
+
+
+# the families phase: the MoE, SSM (Mamba2) and hybrid (Jamba) LMs
+# (``models/layers.py::moe``, ``models/ssm.py``) through the port's entry
+# points; flash attention runs on the attention layers of phi and jamba
+FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID = ("phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                                         "jamba-1.5-large-398b")
+# (a): full width, 2 fp32 layers, cuda against cpu, 1 x 256 tokens
+FAMILY_PARITY = dict(n_layers=2, tokens=256)
+# (b): the depth cut of each model for one 80 GB card in bf16 (jamba's
+# first 5 layers: (mamba, mlp), (mamba, moe), (mamba, mlp), (mamba, moe),
+# (attn, mlp)); serve_prompts as ``serve``'s, 4 x 2,048 tokens, 32 greedy
+FAMILY_SERVE_LAYERS = {FAMILY_MOE: 16, FAMILY_SSM: 64, FAMILY_HYBRID: 5}
+# (c): 2 fp32 layers; B * S = 2 * 128 <= 256, so every MoE call is dropless
+FAMILY_CACHE = dict(n_layers=2, batch=2, prompt=96, gen=32)
+FAMILY_SSD = dict(tokens=512, chunk=256, tol=1e-3)
+# (d): bf16 train steps without the kernels (they have no backward). The
+# functional AdamW holds the old and new fp32 moments and the fp32 updates
+# at once, ~26 bytes a parameter: phi at 2 layers (2.86 B) ran out of the
+# card's 80 GB in its first update, so it trains 1 layer (1.56 B); mamba2 at
+# the depth whose activations (the SSD's (B, L, L, H) fp32 terms, saved for
+# the backward) fit beside its moments
+FAMILY_TRAIN = dict(steps=3, batch=4, seq=512, lr=3e-4)
+FAMILY_TRAIN_LAYERS = {FAMILY_MOE: 1, FAMILY_SSM: 32}
+
+
+@contextlib.contextmanager
+def record_routing(layers):
+    """Record each ``layers.moe`` call's top-k expert ids and probabilities
+    (as the call computes them) while the context is open."""
+    calls = []
+    moe = layers.moe
+
+    def recording(x, p, cfg):
+        probs, _ = layers._route(x.reshape(-1, x.shape[-1]), p, cfg)
+        vals, ids = layers.top_k(probs, cfg.top_k + 1)
+        calls.append({"ids": ids[:, :cfg.top_k].cpu(), "probs": vals.cpu()})
+        return moe(x, p, cfg)
+
+    layers.moe = recording
+    try:
+        yield calls
+    finally:
+        layers.moe = moe
+
+
+def _free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_parity(device):
+    """(a) phi3.5-moe and mamba2 at full width, 2 fp32 layers: the same
+    parameters (drawn on the card, a copy moved to the cpu) through
+    ``forward_train`` on 1 x 256 tokens on cpu and on cuda: logits within
+    LM_LOGIT_TOL, every MoE layer's top-k expert ids equal (the tokens
+    whose ids differ are counted, with the gap between their k-th and
+    next expert's probability, before the check fails)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.models import layers
+
+    fp = FAMILY_PARITY
+    out = {}
+    for arch in (FAMILY_MOE, FAMILY_SSM):
+        cfg = get_config(arch).replace(n_layers=fp["n_layers"], dtype=torch.float32)
+        tokens = make_federated_lm_data(1, cfg.vocab, fp["tokens"] + 8, seed=0)[0]
+        tokens = torch.from_numpy(tokens[None, :fp["tokens"]].astype(np.int64))
+        on_card = init_params(cfg, seed=0, device=device)
+        copies = {"cpu": copy.deepcopy(on_card).cpu(), "cuda": on_card}
+        runs = {}
+        for name, params in copies.items():
+            dev = params.embed.device
+            t0 = time.perf_counter()
+            with torch.no_grad(), record_routing(layers) as calls:
+                logits, aux = forward_train(params, cfg, {"tokens": tokens.to(dev)})
+            runs[name] = {"logits": logits.cpu(), "aux": float(aux), "routing": calls,
+                          "seconds": time.perf_counter() - t0}
+            del logits
+        del on_card, copies, params
+        _free_card()
+        cpu, card = runs["cpu"], runs["cuda"]
+        diff = float((card["logits"] - cpu["logits"]).abs().max())
+        flipped, gaps = 0, []
+        for a, b in zip(card["routing"], cpu["routing"]):
+            bad = (a["ids"] != b["ids"]).any(dim=-1)
+            flipped += int(bad.sum())
+            k = cfg.top_k
+            gaps += (b["probs"][bad, k - 1] - b["probs"][bad, k]).tolist()
+        out[arch] = {
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "tokens": fp["tokens"],
+            "max_logit_diff": diff, "tol": LM_LOGIT_TOL,
+            "aux": {k: r["aux"] for k, r in runs.items()},
+            "moe_layers": len(card["routing"]), "routing_tokens_differing": flipped,
+            "routing_gaps_of_differing": gaps,
+            "seconds": {k: r["seconds"] for k, r in runs.items()}}
+        if not (torch.isfinite(card["logits"]).all() and diff <= LM_LOGIT_TOL):
+            raise AssertionError(f"families (a) {arch}: logits differ by {diff}")
+        if flipped or len(card["routing"]) != len(cpu["routing"]):
+            raise AssertionError(f"families (a) {arch}: {flipped} tokens route to other "
+                                 f"experts on cuda (probability gaps {gaps})")
+    return out
+
+
+def _prompts(vocab):
+    import numpy as np
+
+    from repro_torch.data import make_federated_lm_data
+
+    clients = make_federated_lm_data(SERVE_BATCH, vocab, SERVE_PROMPT + 8, seed=0)
+    return np.stack([c[:SERVE_PROMPT] for c in clients]).astype(np.int32)
+
+
+def moe_bitwise(params, cfg, device):
+    """The first MoE layer of ``params`` twice on the same bf16 input of the
+    serve prefill's shape (4 x 2,048 tokens: capacity binds): equal bits."""
+    import torch
+
+    from repro_torch.models import layers
+
+    kinds = cfg.sublayer_kinds()
+    i = next(j for j in range(cfg.n_layers) if kinds[j % len(kinds)][1] == "moe")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model), generator=gen, device=device)
+    x = x.to(cfg.dtype)
+    with torch.no_grad():
+        first, aux1 = layers.moe(x, params.blocks[i].ffn, cfg)
+        second, aux2 = layers.moe(x, params.blocks[i].ffn, cfg)
+    return {"layer": i, "capacity": layers.moe_capacity(cfg, x.shape[0] * x.shape[1]),
+            "bitwise_equal": bool(torch.equal(first, second) and torch.equal(aux1, aux2))}
+
+
+def families_serve(ops, device, arch):
+    """(b) one model at its depth cut in bf16 with the flash kernel through
+    ``serve_prompts``: 4 x 2,048-token prompts, 32 greedy tokens (cold,
+    counted; warm; under the profiler); the prompts' NLL through
+    ``forward_train`` with the kernel and with plain attention, an end-to-end
+    check and not the kernel's (the kernels phase holds the kernel element by
+    element at these prefill shapes), with the largest logit gap reported
+    beside it; the MoE layer twice, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import (cache_nbytes, cache_spec, forward_train, init_params,
+                                    lm_loss, param_count, uncounted_conv_bias)
+
+    cfg = get_config(arch).replace(n_layers=FAMILY_SERVE_LAYERS[arch], use_pallas=True)
+    attn_layers = cfg.mixer_kinds().count("attn")
+    steps = {}   # seconds of each step of this part, on the host's clock
+    steps["init"], params = _sync_seconds(lambda: init_params(cfg, seed=0, device=device))
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = _prompts(cfg.vocab)
+    kv_len = SERVE_PROMPT + SERVE_GEN + 1
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    wall, (tokens, sched) = _sync_seconds(lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    steps["warm_serve"], (warm_tokens, warm_sched) = _sync_seconds(
+        lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    steps["profiled_serve"], (profile, (again, _)) = _sync_seconds(lambda: profile_call(
+        lambda: serve_prompts(cfg, params, prompts, SERVE_GEN), cpu_ops=False))
+    cold, warm = sched.score_fn.timings[0], warm_sched.score_fn.timings[0]
+
+    def rates(timing):
+        pre_s, dec_s = timing["prefill_seconds"], timing["decode_seconds"]
+        return {"prefill_seconds": pre_s,
+                "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / pre_s,
+                "decode_seconds": dec_s,
+                "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / dec_s,
+                "decode_ms_per_step": 1e3 * dec_s / SERVE_GEN}
+
+    batch = torch.from_numpy(prompts).to(device).long()
+    nll, logits = {}, {}
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas=False))):
+        if name == "plain" and not attn_layers:
+            break
+        with torch.no_grad():
+            steps["nll_" + name], (logits[name], _) = _sync_seconds(
+                lambda c=c: forward_train(params, c, {"tokens": batch[:, :-1]}))
+            nll[name] = float(lm_loss(logits[name], batch[:, 1:]))
+    # the largest logit gap, row by row (jamba's logits are 1 GB each)
+    logit_gap = (max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(logits["kernel"], logits["plain"]))
+                 if attn_layers else None)
+    del logits
+    steps["moe_twice"], moe = _sync_seconds(
+        lambda: moe_bitwise(params, cfg, device) if cfg.n_experts else None)
+    out = {
+        "arch": arch, "n_layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+        "kinds": [list(k) for k in cfg.sublayer_kinds()], "d_model": cfg.d_model,
+        "dtype": "bfloat16", "params": n_params, "param_count": param_count(cfg),
+        "uncounted_conv_bias": uncounted_conv_bias(cfg), "step_seconds": steps,
+        "requests": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
+        "cache_bytes": cache_nbytes(cache_spec(cfg, SERVE_BATCH, kv_len)),
+        "peak_memory_bytes": peak, "cold": rates(cold), "warm": rates(warm),
+        "cold_serve_wall_seconds": wall, "kernels": counts,
+        "flash_launches_want": attn_layers, "prompt_nll": nll,
+        "kernel_vs_plain_logits_max_abs_diff": logit_gap,
+        "moe_twice": moe, "tokens_head": tokens[:, :8].tolist(),
+        # the profiler's own cost dwarfs a serve's wall (as in ``deep`` (b)),
+        # so the busy share is the profiled serve's device seconds over the
+        # unprofiled warm serve's wall; the profiled call's own share beside it
+        "device_busy_share": profile["device_seconds"] / steps["warm_serve"],
+        "device_busy_share_profiled": profile["device_busy_share"],
+        "profile": {k: profile[k] for k in ("wall_seconds", "device_seconds",
+                                            "device_launches", "by_kernel")},
+    }
+    del params
+    _free_card()
+    if n_params != param_count(cfg) + uncounted_conv_bias(cfg):
+        raise AssertionError(f"families (b) {arch}: {n_params} parameters, param_count "
+                             f"{param_count(cfg)} + conv biases {uncounted_conv_bias(cfg)}")
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"families (b) {arch}: tokens {tokens.shape} outside the vocabulary")
+    if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
+        raise AssertionError(f"families (b) {arch}: a repeat of the serve generated other tokens")
+    if counts["flash_attention"] != attn_layers or sum(counts.values()) != attn_layers:
+        raise AssertionError(f"families (b) {arch}: launches {counts}, want {attn_layers} "
+                             "flash (one per attention layer, one prefill) and no other")
+    if not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"families (b) {arch}: prompt NLL {nll}")
+    if attn_layers and not abs(nll["kernel"] - nll["plain"]) <= BF16_RTOL * abs(nll["plain"]):
+        raise AssertionError(f"families (b) {arch}: NLL through the kernel {nll['kernel']} "
+                             f"against plain attention {nll['plain']}")
+    if moe is not None and not moe["bitwise_equal"]:
+        raise AssertionError(f"families (b) {arch}: two runs of the MoE layer differ")
+    return out
+
+
+def families_cache(device):
+    """(c) phi3.5-moe (through the fp32 flash kernel) and mamba2 at full
+    width, 2 fp32 layers: prefill 96 tokens, then decode the next 32 of
+    the same sequence; each step's logits against ``forward_train``'s at
+    that position. Then one mamba2 mixer at chunk 256 on 1 x 512 tokens:
+    finite, and its chunked output against the token-by-token recurrence
+    (decode steps through the same mixer)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.models import (forward_decode, forward_prefill, forward_train,
+                                    init_cache, init_params)
+    from repro_torch.models.ssm import mamba_mixer
+
+    fc = FAMILY_CACHE
+    total = fc["prompt"] + fc["gen"]
+    out = {}
+    for arch in (FAMILY_MOE, FAMILY_SSM):
+        cfg = get_config(arch).replace(n_layers=fc["n_layers"], dtype=torch.float32,
+                                       use_pallas=True)
+        params = init_params(cfg, seed=0, device=device)
+        seqs = make_federated_lm_data(fc["batch"], cfg.vocab, total + 8, seed=1)
+        seq = torch.from_numpy(np.stack([s[:total] for s in seqs]).astype(np.int64)).to(device)
+        with torch.no_grad():
+            full, _ = forward_train(params, cfg, {"tokens": seq})
+            cache = init_cache(cfg, fc["batch"], total + 1, device=device)
+            logits, cache = forward_prefill(params, cfg, {"tokens": seq[:, :fc["prompt"]]}, cache)
+            gaps = [float((logits - full[:, fc["prompt"] - 1]).abs().max())]
+            for t in range(fc["prompt"], total - 1):
+                logits, cache = forward_decode(params, cfg, seq[:, t:t + 1], cache)
+                gaps.append(float((logits - full[:, t]).abs().max()))
+        out[arch] = {"batch": fc["batch"], "prompt": fc["prompt"], "decode_steps": len(gaps) - 1,
+                     "max_logit_diff": max(gaps), "tol": LM_LOGIT_TOL,
+                     "finite": bool(torch.isfinite(full).all())}
+        del params, cache, full
+        _free_card()
+        if not (out[arch]["finite"] and max(gaps) <= LM_LOGIT_TOL):
+            raise AssertionError(f"families (c) {arch}: decode against the full forward "
+                                 f"{gaps}")
+    fs = FAMILY_SSD
+    cfg = get_config(FAMILY_SSM).replace(n_layers=1, dtype=torch.float32,
+                                         ssm_chunk=fs["chunk"])
+    mixer = init_params(cfg, seed=0, device=device).blocks[0].mixer
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    x = torch.randn((1, fs["tokens"], cfg.d_model), generator=gen, device=device)
+    with torch.no_grad():
+        chunked, _ = mamba_mixer(x, mixer, cfg)
+        cache = init_cache(cfg, 1, fs["tokens"], device=device)["blocks"][0]["mamba"]
+        steps = [mamba_mixer(x[:, t:t + 1], mixer, cfg, cache=cache, decode=True)[0]
+                 for t in range(fs["tokens"])]
+        stepped = torch.cat(steps, dim=1)
+        dt = F.softplus(x @ mixer.in_dt + mixer.dt_bias)
+        log_decay = (dt * -torch.exp(mixer.a_log))[:, :fs["chunk"]].sum(dim=1)
+    gap = float((chunked - stepped).abs().max())
+    out["ssd_chunk256"] = {"tokens": fs["tokens"], "chunk": fs["chunk"],
+                           "finite": bool(torch.isfinite(chunked).all()),
+                           "max_abs_diff_vs_recurrence": gap, "tol": fs["tol"],
+                           "max_abs_out": float(stepped.abs().max()),
+                           "first_chunk_log_decay_min": float(log_decay.min())}
+    del mixer
+    _free_card()
+    if not (out["ssd_chunk256"]["finite"] and gap <= fs["tol"]):
+        raise AssertionError(f"families (c): chunk-256 SSD against its recurrence {gap}")
+    return out
+
+
+def families_train(ops, device):
+    """(d) phi3.5-moe and mamba2 at FAMILY_TRAIN_LAYERS' depths, full
+    width in bf16, ``make_train_step`` with ``launch.train``'s optimizer,
+    3 steps of 4 x 512 tokens at lr 3e-4: losses and aux finite, aux > 0
+    for the MoE, step 1's batch loss lower after the steps than before, no
+    kernel launched; s/step (steps 2-3) and peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import init_params, make_eval_step, make_train_step, param_tree
+
+    ft = FAMILY_TRAIN
+    out = {}
+    for arch, n_layers in FAMILY_TRAIN_LAYERS.items():
+        cfg = get_config(arch).replace(n_layers=n_layers)
+        windows = _windows(cfg.vocab, ft["batch"], ft["seq"], ft["steps"])
+        params = init_params(cfg, seed=0, device=device, trainable=True)
+        opt = make_optimizer(ft["lr"])
+        state = opt.init(param_tree(params))
+        step, evaluate = make_train_step(cfg, opt), make_eval_step(cfg)
+        first = _lm_batch(windows[0], device)
+        before = float(evaluate(params, first))
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        secs, metrics = [], []
+        for w in windows:
+            s, (params, state, m) = _sync_seconds(
+                lambda w=w: step(params, state, _lm_batch(w, device)))
+            secs.append(s)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated(device)
+        launched = sum(ops.launch_counts().values())
+        after = float(evaluate(params, first))
+        out[arch] = {"n_layers": n_layers, "of_layers": get_config(arch).n_layers,
+                     "dtype": "bfloat16", **ft, "seconds_per_step": secs,
+                     "seconds_per_step_warm": mean(secs[1:]),
+                     "tokens_per_s_warm": ft["batch"] * ft["seq"] / mean(secs[1:]),
+                     "metrics": metrics, "first_batch_loss": {"before": before, "after": after},
+                     "peak_memory_bytes": peak, "kernel_launches": launched}
+        del params, state
+        _free_card()
+        values = [v for m in metrics for v in m.values()] + [before, after]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"families (d) {arch}: a loss is not finite: {metrics}")
+        if cfg.n_experts and not all(m["aux"] > 0 for m in metrics):
+            raise AssertionError(f"families (d) {arch}: aux {metrics}")
+        if not after < before or launched:
+            raise AssertionError(f"families (d) {arch}: step 1's batch loss {before} -> "
+                                 f"{after}, kernels launched {launched}")
+    return out
+
+
+def phase_families(ops, device):
+    """(a)-(d) in turn; each part's seconds on a progress line of its own,
+    so a part that fails leaves the earlier parts' times."""
+    parts = (("parity", lambda: families_parity(device)),
+             ("serve", lambda: {arch: families_serve(ops, device, arch)
+                                for arch in FAMILY_SERVE_LAYERS}),
+             ("cache", lambda: families_cache(device)),
+             ("train", lambda: families_train(ops, device)))
+    out, seconds = {}, {}
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": "families", "part": name, "seconds": seconds[name]})
+    out["part_seconds"] = seconds
+    out["kernels"] = {name: sum(r["kernels"][name] for r in out["serve"].values())
+                      for name in ops.KERNEL_REGISTRY}
+    return out
 
 
 # the cli phase: ``repro_torch.launch.fed_run.main`` as a user runs it, on
@@ -2922,6 +3339,9 @@ def main(argv=None) -> int:
             elif phase == "deep":
                 out = phase_deep(ops, device)
                 counts[phase] = out["full"]["kernels"]
+            elif phase == "families":
+                out = phase_families(ops, device)
+                counts[phase] = out["kernels"]
             elif phase == "cli":
                 out = phase_cli(ops, device)
                 counts[phase] = out["kernels"]
@@ -2961,6 +3381,7 @@ def main(argv=None) -> int:
             "launches_path": path, "launches_fleet": counts.get("fleet", {}).get(name),
             "launches_train": counts.get("train", {}).get(name),
             "launches_deep": counts.get("deep", {}).get(name),
+            "launches_families": counts.get("families", {}).get(name),
             "launches_cli": counts.get("cli", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),

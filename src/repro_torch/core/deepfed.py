@@ -21,6 +21,10 @@ never differentiates the teacher either, and here it is required: the
 members are trainable, and the CUDA flash kernel (``use_pallas``) has no
 backward, so its wrapper refuses inputs that require grad under grad
 mode.
+
+The dense, MoE, SSM and hybrid families run (a MoE member's or
+student's router aux loss enters its step's loss, as in the
+reference); VLM and audio raise (``check_buildable``).
 """
 from __future__ import annotations
 

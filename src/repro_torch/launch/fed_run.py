@@ -29,8 +29,8 @@ round's artifact deployed behind the multi-tenant fleet
 simulated-ms events on their own process track, pid 2).
 
 ``--engine sharded`` and ``--mesh`` raise: the sharded tier is ROADMAP
-queue 1 item 15. ``--mode lm`` with an ``--arch`` of a family the port
-does not build yet raises (``check_buildable``).
+queue 1 item 15. ``--mode lm`` runs the dense, MoE, SSM and hybrid
+``--arch``s; VLM and audio raise (``check_buildable``).
 """
 from __future__ import annotations
 

@@ -10,9 +10,11 @@ it runs on the card unless the caller passes ``device="cpu"``::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --batch 4 --prompt-len 32 --gen 32
 
-Only the dense family runs in the port so far (``llama3.2-1b``,
-``llama3.2-1b-swa8k``, ``qwen2-1.5b``, ``qwen2.5-14b``, ``glm4-9b``); the
-others raise naming their ROADMAP item.
+The dense, MoE, SSM and hybrid families run (``llama3.2-1b``,
+``llama3.2-1b-swa8k``, ``qwen2-1.5b``, ``qwen2.5-14b``, ``glm4-9b``,
+``mixtral-8x22b``, ``phi3.5-moe-42b-a6.6b``, ``mamba2-2.7b``,
+``jamba-1.5-large-398b``); the VLM and audio families raise naming
+their ROADMAP item.
 """
 from __future__ import annotations
 

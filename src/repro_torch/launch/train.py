@@ -18,7 +18,8 @@ done.
 
 Only ``--mesh none`` runs: the sharded tier is ROADMAP queue 1 item 15.
 ``--fsdp`` without a mesh has no effect, as in the reference. The
-families the port does not build yet raise (``check_buildable``).
+dense, MoE, SSM and hybrid families train (the MoE's router aux loss in
+the loss); VLM and audio raise (``check_buildable``).
 """
 from __future__ import annotations
 

@@ -1,8 +1,14 @@
 """The LM of the deep path: config, parameters, layers, forward passes
-(ports of ``repro.models``; the dense family only)."""
-from repro_torch.models.config import ModelConfig, active_param_count, param_count
+(ports of ``repro.models``: the dense, MoE, SSM and hybrid families)."""
+from repro_torch.models.config import (
+    ModelConfig,
+    active_param_count,
+    param_count,
+    uncounted_conv_bias,
+)
 from repro_torch.models.layers import blocked_attention
 from repro_torch.models.model import (
+    cache_nbytes,
     cache_spec,
     forward_decode,
     forward_prefill,
@@ -20,6 +26,7 @@ __all__ = [
     "ModelConfig",
     "param_count",
     "active_param_count",
+    "uncounted_conv_bias",
     "init_params",
     "model_specs",
     "param_tree",
@@ -29,6 +36,7 @@ __all__ = [
     "forward_decode",
     "init_cache",
     "cache_spec",
+    "cache_nbytes",
     "lm_loss",
     "make_train_step",
     "make_eval_step",

@@ -211,3 +211,10 @@ def active_param_count(cfg: ModelConfig) -> int:
     active_moe = cfg.top_k * 3 * cfg.d_model * cfg.d_ff
     n_moe_layers = sum(1 for k in cfg.ffn_kinds() if k == "moe")
     return param_count(cfg) - n_moe_layers * (dense_moe - active_moe)
+
+
+def uncounted_conv_bias(cfg: ModelConfig) -> int:
+    """Parameters that both packages build and ``param_count`` (the
+    reference's formula, kept as it is) leaves out: each Mamba layer's
+    conv bias, ``d_inner + 2 * ssm_state``."""
+    return sum(cfg.d_inner + 2 * cfg.ssm_state for m in cfg.mixer_kinds() if m == "mamba")

@@ -1,6 +1,6 @@
-"""Core layers of the dense LM: RMSNorm, RoPE, GQA attention
-(full-sequence, prefill into the KV cache, one-token decode against it,
-full or sliding-window) and the SwiGLU MLP.
+"""Core layers of the LM: RMSNorm, RoPE, GQA attention (full-sequence,
+prefill into the KV cache, one-token decode against it, full or
+sliding-window), the SwiGLU MLP and the top-k MoE with capacity dispatch.
 
 Ports of ``repro/models/layers.py``, function for function and with the
 reference's layouts: q/k/v ``(B, S, heads, hd)``, ``wq`` ``(d, H, hd)``,
@@ -15,6 +15,13 @@ kernel (``repro_torch.kernels.ops``: the hand-written CUDA kernel on a
 CUDA tensor, its plain version on a CPU tensor); otherwise, above
 ``BLOCKED_ATTN_THRESHOLD`` tokens, ``blocked_attention`` (a plain PyTorch
 online-softmax loop); otherwise dense ``_sdpa``.
+
+The MoE (``moe``, ``moe_local``) routes in fp32 (TF32 is off on the
+card, ``utils.device``) and selects with ``top_k``, a stable descending
+sort: among equal values the lower index wins, as ``jax.lax.top_k``
+does, so tied tokens (the scheduler's all-zero padding rows) route as
+in the reference. Its expert products are batched ``torch.bmm``, as
+the reference computes them in plain ``jnp`` outside any Pallas kernel.
 
 The cache functions update the cache's tensors in place (the reference
 returns a new cache; JAX arrays are immutable) and return the same dict.
@@ -240,9 +247,88 @@ def attention_decode(x, p, cfg: ModelConfig, step: int, cache: dict, window: int
 
 
 # ----------------------------------------------------------------------
-# FFN: SwiGLU MLP
+# FFN: SwiGLU MLP and top-k MoE
 # ----------------------------------------------------------------------
 
 def mlp(x, p, cfg: ModelConfig):
     h = F.silu(torch.matmul(x, p.wg)) * torch.matmul(x, p.wu)
     return torch.matmul(h, p.wd)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values and
+    their indices, ties to the lower index (``torch.topk`` gives no tie
+    order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Tokens an expert takes: all of them (dropless) up to 256 tokens,
+    else ``capacity_factor * top_k * tokens / n_experts``."""
+    if tokens <= 256:
+        return tokens
+    return min(max(int(cfg.capacity_factor * cfg.top_k * tokens / cfg.n_experts), 1), tokens)
+
+
+def _route(xt: torch.Tensor, p, cfg: ModelConfig):
+    """(..., d) tokens -> (softmax router probabilities, the dense combine
+    weights: the renormalised top-k probabilities, 0 elsewhere), fp32."""
+    probs = torch.softmax(torch.matmul(xt.float(), p.router), dim=-1)
+    topv, topi = top_k(probs, cfg.top_k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    return probs, torch.zeros_like(probs).scatter(-1, topi, topv)
+
+
+def _switch_aux(probs, w_te, n_experts: int, dims):
+    """Switch load-balance loss: E * sum(tokens' share * mean probability)."""
+    frac_tokens = (w_te > 0).float().mean(dim=dims)
+    return n_experts * torch.sum(frac_tokens * probs.mean(dim=dims))
+
+
+def _experts(xe: torch.Tensor, p) -> torch.Tensor:
+    """SwiGLU of every expert on its own rows: (E, C, d) -> (E, C, d)."""
+    h = F.silu(torch.bmm(xe, p.wg)) * torch.bmm(xe, p.wu)
+    return torch.bmm(h, p.wd)
+
+
+def moe_local(x, p, cfg: ModelConfig):
+    """Per-row dispatch (``cfg.moe_local_dispatch``): each batch row routes
+    its own S tokens, with a per-row capacity. Returns (out, aux)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    probs, w_te = _route(x, p, cfg)                                     # (B, S, E)
+    aux = _switch_aux(probs, w_te, E, (0, 1))
+    C = moe_capacity(cfg, S)
+    sel_w, sel_idx = top_k(w_te.transpose(1, 2), C)                     # (B, E, C) over S
+    xe = torch.gather(x, 1, sel_idx.reshape(B, E * C, 1).expand(B, E * C, d))
+    xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    ye = _experts(xe, p).reshape(E, B, C, d).transpose(0, 1)            # (B, E, C, d)
+    ye = ye * sel_w[..., None].to(ye.dtype)
+    rows = (sel_idx + S * torch.arange(B, device=x.device)[:, None, None]).reshape(-1)
+    out = torch.zeros((B * S, d), dtype=ye.dtype, device=x.device)
+    out = out.index_add(0, rows, ye.reshape(-1, d))
+    return out.reshape(B, S, d), aux
+
+
+def moe(x, p, cfg: ModelConfig):
+    """Token-choice top-k MoE with per-expert capacity dispatch over all
+    B * S tokens: softmax router in fp32, each token's top-k experts with
+    their probabilities renormalised, each expert's top-C tokens by that
+    weight (C = ``moe_capacity``), gathered, a SwiGLU per expert, scaled
+    and scatter-added back. Returns (out, Switch aux loss).
+    ``cfg.moe_local_dispatch`` routes per row instead (``moe_local``)."""
+    if cfg.moe_local_dispatch:
+        return moe_local(x, p, cfg)
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xt = x.reshape(B * S, d)
+    probs, w_te = _route(xt, p, cfg)                                    # (T, E)
+    aux = _switch_aux(probs, w_te, E, 0)
+    C = moe_capacity(cfg, B * S)
+    sel_w, sel_idx = top_k(w_te.t(), C)                                 # (E, C)
+    ye = _experts(xt[sel_idx], p)                                       # (E, C, d)
+    ye = ye * sel_w[..., None].to(ye.dtype)
+    out = torch.zeros((B * S, d), dtype=ye.dtype, device=x.device)
+    out = out.index_add(0, sel_idx.reshape(-1), ye.reshape(E * C, d))
+    return out.reshape(B, S, d), aux

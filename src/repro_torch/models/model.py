@@ -6,32 +6,39 @@ Three entry modes share one sub-layer implementation, as in
              ``make_train_step`` (gradients from ``torch.autograd``,
              the update from a ``repro_torch.optim`` optimizer),
              ``make_eval_step``;
-  * prefill  full-sequence forward that fills the KV cache, returns the
-             last position's logits;
+  * prefill  full-sequence forward that fills the KV / SSM cache,
+             returns the last position's logits;
   * decode   one token against the cache.
 
 The reference scans over stacked super-blocks; the port loops over
-``params.blocks`` in Python. The cache keeps the reference's per-layer
-layout (k and v ``(B, W, K, hd)``, pos ``(B, W)`` int32, ``-1`` empty)
-as a list with one entry per layer, and ``step`` as a Python int.
-Prefill and decode update the cache's tensors in place and return the
-same dict. Only the dense ``("attn", "mlp")`` sub-layer is ported.
+``params.blocks`` in Python, layer i of kind ``sublayer_kinds()[i %
+period]``: attention or the Mamba2 mixer (``models/ssm.py``), then the
+SwiGLU MLP, the MoE or no FFN. The MoE layers' aux losses are summed
+in layer order and ``forward_train`` returns the sum. The cache keeps
+the reference's per-layer layout as a list with one entry per layer,
+``{"attn": {k, v (B, W, K, hd), pos (B, W) int32, -1 empty}}`` or
+``{"mamba": {ssm (B, H, N, P) fp32, conv (B, K - 1, d_inner + 2N)}}``,
+and ``step`` as a Python int. Prefill and decode update the cache's
+tensors in place and return the same dict.
 
 The reference's train-only knobs act in train mode as its XLA path
 makes them act: ``cast_grads`` casts the trunk's gradient to
 ``cfg.dtype`` at the top of the stack (``_GradCast``, the reference's
 ``_grad_cast``); ``remat="full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), ``remat="dots"`` saves only the outputs
-of the blocks' matmuls without batch dimensions (the projections and
-the MLP, as ``dots_with_no_batch_dims_saveable`` does) and recomputes
-the rest. Neither changes a number. The hand-written CUDA kernels have
-no backward, as the reference's Pallas kernels have none: with
-``use_pallas`` a train step on the card raises (``native.check_cuda``);
-on the CPU the plain flash version is differentiable.
+of the blocks' matmuls without batch dimensions (the projections, the
+router and the MLP, as ``dots_with_no_batch_dims_saveable`` does) and
+recomputes the rest, the experts' and the SSD's batched products
+(``aten.bmm``) among it. Neither changes a number. The hand-written
+CUDA kernels have no backward, as the reference's Pallas kernels have
+none: with ``use_pallas`` a train step on the card raises
+(``native.check_cuda``); on the CPU the plain flash version is
+differentiable.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict
 
 import torch
@@ -46,6 +53,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import check_buildable, param_tree
+from repro_torch.models.ssm import mamba_mixer
 from repro_torch.optim import apply_updates
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import tree_leaves, tree_structure, tree_unflatten
@@ -87,32 +95,47 @@ def _remat_context(remat: str):
 # ----------------------------------------------------------------------
 
 def _apply_sublayer(x, p, kind, cfg: ModelConfig, *, mode: str, positions, cache, step):
-    """One (attention + MLP) sub-layer with pre-norm residuals."""
-    if tuple(kind) != ("attn", "mlp"):
-        raise NotImplementedError(f"sub-layer {kind} not ported yet (ROADMAP queue 1 item 13)")
+    """One (mixer + ffn) sub-layer with pre-norm residuals. Returns (x,
+    the MoE's aux loss or None)."""
+    mixer, ffn = kind
     h = rms_norm(x, p.norm1, cfg.rms_eps)
-    w = cfg.sliding_window
-    if mode == "train":
-        h = L.attention_dense(h, p.mixer, cfg, positions, causal=True, window=w)
-    elif mode == "prefill":
-        h, _ = L.attention_prefill(h, p.mixer, cfg, positions, cache["attn"], window=w)
-    else:  # decode
-        h, _ = L.attention_decode(h, p.mixer, cfg, step, cache["attn"], window=w)
+    if mixer == "attn":
+        w = cfg.sliding_window
+        if mode == "train":
+            h = L.attention_dense(h, p.mixer, cfg, positions, causal=True, window=w)
+        elif mode == "prefill":
+            h, _ = L.attention_prefill(h, p.mixer, cfg, positions, cache["attn"], window=w)
+        else:  # decode
+            h, _ = L.attention_decode(h, p.mixer, cfg, step, cache["attn"], window=w)
+    else:  # mamba
+        h, _ = mamba_mixer(h, p.mixer, cfg, cache=None if cache is None else cache["mamba"],
+                           decode=mode == "decode")
     x = x + h
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + L.mlp(h, p.ffn, cfg)
+    aux = None
+    if ffn != "none":
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        if ffn == "moe":
+            h, aux = L.moe(h, p.ffn, cfg)
+        else:
+            h = L.mlp(h, p.ffn, cfg)
+        x = x + h
+    return x, aux
 
 
 def _run_blocks(x, blocks, cfg: ModelConfig, *, mode: str, positions, blocks_cache, step):
+    """Returns (x, the sum of the MoE layers' aux losses, fp32)."""
     kinds = cfg.sublayer_kinds()
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
     context = _remat_context(cfg.remat) if remat else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(blocks):
         cache = blocks_cache[i] if blocks_cache is not None else None
         block = functools.partial(_apply_sublayer, p=p, kind=kinds[i % len(kinds)], cfg=cfg,
                                   mode=mode, positions=positions, cache=cache, step=step)
-        x = checkpoint(block, x, use_reentrant=False, context_fn=context) if remat else block(x)
-    return x
+        x, a = checkpoint(block, x, use_reentrant=False, context_fn=context) if remat else block(x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _tokens(tokens, params) -> torch.Tensor:
@@ -128,18 +151,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def forward_train(params, cfg: ModelConfig, batch: Dict[str, Any]):
-    """Returns (logits over all positions, aux loss). The dense family has
-    no router, so the aux loss is 0."""
+    """Returns (logits over all positions, aux loss: the MoE layers' Switch
+    losses summed, 0 without MoE layers)."""
     tokens = _tokens(batch["tokens"], params)
     B, S = tokens.shape
     x = params.embed[tokens]
-    x = _run_blocks(x, params.blocks, cfg, mode="train",
-                    positions=_positions(B, S, x.device), blocks_cache=None, step=None)
+    x, aux = _run_blocks(x, params.blocks, cfg, mode="train",
+                         positions=_positions(B, S, x.device), blocks_cache=None, step=None)
     if cfg.cast_grads:
         x = _GradCast.apply(x, cfg.dtype)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     logits = torch.matmul(x, params.lm_head)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 @torch.no_grad()
@@ -149,9 +172,9 @@ def forward_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache):
     tokens = _tokens(batch["tokens"], params)
     B, S = tokens.shape
     x = params.embed[tokens]
-    x = _run_blocks(x, params.blocks, cfg, mode="prefill",
-                    positions=_positions(B, S, x.device), blocks_cache=cache["blocks"],
-                    step=None)
+    x, _ = _run_blocks(x, params.blocks, cfg, mode="prefill",
+                       positions=_positions(B, S, x.device), blocks_cache=cache["blocks"],
+                       step=None)
     x = rms_norm(x[:, -1:], params.final_norm, cfg.rms_eps)
     logits = torch.matmul(x, params.lm_head)[:, 0]
     cache["step"] = S
@@ -164,8 +187,8 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache):
     in place and its ``step`` advanced by one."""
     step = int(cache["step"])
     x = params.embed[_tokens(tokens, params)]
-    x = _run_blocks(x, params.blocks, cfg, mode="decode", positions=None,
-                    blocks_cache=cache["blocks"], step=step)
+    x, _ = _run_blocks(x, params.blocks, cfg, mode="decode", positions=None,
+                       blocks_cache=cache["blocks"], step=step)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     logits = torch.matmul(x, params.lm_head)[:, 0]
     cache["step"] = step + 1
@@ -173,29 +196,42 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache):
 
 
 # ----------------------------------------------------------------------
-# KV cache
+# KV / SSM cache
 # ----------------------------------------------------------------------
+
+def _sublayer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, kv_len: int) -> dict:
+    if mixer == "attn":
+        W = min(cfg.sliding_window, kv_len) if cfg.sliding_window else kv_len
+        K, hd = cfg.n_kv_heads, cfg.head_dim
+        return {"attn": {"k": ((batch, W, K, hd), cfg.dtype),
+                         "v": ((batch, W, K, hd), cfg.dtype),
+                         "pos": ((batch, W), torch.int32)}}
+    H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {"mamba": {"ssm": ((batch, H, N, P), torch.float32),
+                      "conv": ((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * N), cfg.dtype)}}
+
 
 def cache_spec(cfg: ModelConfig, batch: int, kv_len: int):
     """The cache's tree with (shape, dtype) leaves: one entry per layer
-    under ``blocks``, then ``step``."""
+    under ``blocks`` (``{"attn": ...}`` or ``{"mamba": ...}``), then
+    ``step``."""
     check_buildable(cfg)
     kinds = cfg.sublayer_kinds()
-    blocks = []
-    for i in range(cfg.n_layers):
-        mixer, _ = kinds[i % len(kinds)]
-        if mixer != "attn":
-            raise NotImplementedError(f"{mixer} cache not ported yet (ROADMAP queue 1 item 13)")
-        W = min(cfg.sliding_window, kv_len) if cfg.sliding_window else kv_len
-        K, hd = cfg.n_kv_heads, cfg.head_dim
-        blocks.append({"attn": {"k": ((batch, W, K, hd), cfg.dtype),
-                                "v": ((batch, W, K, hd), cfg.dtype),
-                                "pos": ((batch, W), torch.int32)}})
+    blocks = [_sublayer_cache_spec(cfg, kinds[i % len(kinds)][0], batch, kv_len)
+              for i in range(cfg.n_layers)]
     return {"blocks": blocks, "step": ((), torch.int32)}
 
 
+def cache_nbytes(spec) -> int:
+    """The bytes of a ``cache_spec``'s tensors."""
+    return sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+               for sub in spec["blocks"] for entry in sub.values()
+               for shape, dtype in entry.values())
+
+
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
-    """An empty cache on ``device``: k and v zeros, pos -1, step 0."""
+    """An empty cache on ``device``: k, v and the SSM and conv states
+    zeros, pos -1, step 0."""
     dev = resolve_device(device)
 
     def mk(leaf):
@@ -205,8 +241,8 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     spec = cache_spec(cfg, batch, kv_len)
-    blocks = [{"attn": {name: mk(leaf) for name, leaf in sub["attn"].items()}}
-              for sub in spec["blocks"]]
+    blocks = [{kind: {name: mk(leaf) for name, leaf in entry.items()}
+               for kind, entry in sub.items()} for sub in spec["blocks"]]
     return {"blocks": blocks, "step": 0}
 
 

@@ -15,13 +15,15 @@ and loops over them.
 Serving builds frozen parameters (``requires_grad=False``); training
 builds them with ``trainable=True`` and reads them as a tree through
 ``param_tree``, the form the optimizers (``repro_torch.optim``) take.
-Only the dense attention + SwiGLU family builds; the MoE, Mamba,
-cross-attention (audio) and patch-prefix (VLM) specs raise until their
-ROADMAP items land.
+The dense, MoE, SSM (Mamba2) and hybrid (Jamba) families build: every
+(mixer, ffn) sub-layer of ``("attn" | "mamba") x ("mlp" | "moe" |
+"none")``. The cross-attention (audio) and patch-prefix (VLM) families
+raise until their ROADMAP item lands.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import numpy as np
@@ -33,18 +35,19 @@ from repro_torch.utils.device import resolve_device
 
 # families that need modules the port does not have yet
 _UNPORTED_FAMILIES = {
-    "moe": "the MoE FFN (repro/models/layers.py::moe)",
-    "ssm": "the Mamba2 mixer (repro/models/ssm.py)",
-    "hybrid": "the Mamba2 mixer and the MoE FFN",
     "vlm": "the patch-embedding prefix",
     "audio": "the encoder and cross-attention",
 }
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# a normal leaf is drawn in blocks of at most this many fp32 bytes along
+# its first axis (jamba's (16, 8192, 24576) experts: 12.9 GB in one draw)
+_DRAW_BLOCK_BYTES = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: Any  # float std | "zeros" | "ones"
+    init: Any  # float std | "zeros" | "ones" | "a_log" | "dt_bias"
     dtype: torch.dtype
 
 
@@ -54,7 +57,7 @@ def check_buildable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family needs {_UNPORTED_FAMILIES[cfg.family]}, "
             "not ported yet (ROADMAP queue 1 item 13)")
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
@@ -85,18 +88,52 @@ def _mlp_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _moe_specs(cfg: ModelConfig) -> dict:
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+    out_std = 1.0 / np.sqrt(f) / np.sqrt(2.0 * cfg.n_layers)
+    return {
+        "router": ParamSpec((d, E), 1 / np.sqrt(d), torch.float32),
+        "wg": ParamSpec((E, d, f), 1 / np.sqrt(d), dt),
+        "wu": ParamSpec((E, d, f), 1 / np.sqrt(d), dt),
+        "wd": ParamSpec((E, f, d), out_std, dt),
+    }
+
+
+def _mamba_specs(cfg: ModelConfig) -> dict:
+    """Mamba2 block: in_proj -> [z | xBC | dt], depthwise conv on xBC,
+    SSD mixer, gated RMSNorm, out_proj. One B/C group."""
+    d, dt = cfg.d_model, cfg.dtype
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads
+    conv_dim = di + 2 * N
+    out_std = 1.0 / np.sqrt(di) / np.sqrt(2.0 * cfg.n_layers)
+    return {
+        "in_z": ParamSpec((d, di), 1 / np.sqrt(d), dt),
+        "in_x": ParamSpec((d, di), 1 / np.sqrt(d), dt),
+        "in_b": ParamSpec((d, N), 1 / np.sqrt(d), dt),
+        "in_c": ParamSpec((d, N), 1 / np.sqrt(d), dt),
+        "in_dt": ParamSpec((d, H), 1 / np.sqrt(d), dt),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), 1 / np.sqrt(cfg.ssm_conv), dt),
+        "conv_b": ParamSpec((conv_dim,), "zeros", dt),
+        "a_log": ParamSpec((H,), "a_log", torch.float32),
+        "d_skip": ParamSpec((H,), "ones", torch.float32),
+        "dt_bias": ParamSpec((H,), "dt_bias", torch.float32),
+        "norm": ParamSpec((di,), "ones", torch.float32),
+        "out": ParamSpec((di, d), out_std, dt),
+    }
+
+
 def _norm(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), "ones", torch.float32)
 
 
 def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    if mixer != "attn" or ffn not in ("mlp", "none"):
-        raise NotImplementedError(f"{cfg.name}: sub-layer ({mixer}, {ffn}) not ported yet "
-                                  "(ROADMAP queue 1 item 13)")
-    specs = {"norm1": _norm(cfg), "mixer": _attn_specs(cfg)}
+    if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", "none"):
+        raise ValueError(f"{cfg.name}: unknown sub-layer ({mixer}, {ffn})")
+    specs = {"norm1": _norm(cfg),
+             "mixer": _attn_specs(cfg) if mixer == "attn" else _mamba_specs(cfg)}
     if ffn != "none":
         specs["norm2"] = _norm(cfg)
-        specs["ffn"] = _mlp_specs(cfg)
+        specs["ffn"] = _moe_specs(cfg) if ffn == "moe" else _mlp_specs(cfg)
     return specs
 
 
@@ -155,20 +192,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 trainable: bool = False) -> nn.Module:
     """Seeded parameters on ``device``: ``normal * std``, zeros or ones as
     the specs say, drawn in fp32 from a ``torch.Generator`` on that
-    device seeded with ``seed`` and cast to the spec's dtype; frozen for
-    serving, requiring grad when ``trainable``. The draws
-    are not the reference's (``jax.random`` differs); carry reference
-    parameters across with ``convert.lm_params_from_arrays``."""
+    device seeded with ``seed`` and cast to the spec's dtype (in blocks of
+    at most 2 GiB of fp32 along its first axis, so the fp32 copy of
+    jamba's experts never exists whole); Mamba's ``a_log`` is
+    log U(1, 16) and ``dt_bias`` log(expm1(U(1e-3, 1e-1))), the
+    reference's inits. Frozen for serving, requiring grad when
+    ``trainable``. The draws are not the reference's (``jax.random``
+    differs); carry reference parameters across with
+    ``convert.lm_params_from_arrays``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=dev)
+        return u.mul_(hi - lo).add_(lo)
 
     def leaf(_path, spec: ParamSpec) -> torch.Tensor:
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
-        draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
-        return draw.mul_(float(spec.init)).to(spec.dtype)
+        if spec.init == "a_log":
+            return uniform(spec.shape, 1.0, 16.0).log_().to(spec.dtype)
+        if spec.init == "dt_bias":
+            return uniform(spec.shape, 1e-3, 1e-1).expm1_().log_().to(spec.dtype)
+        std = float(spec.init)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        rows = max(1, _DRAW_BLOCK_BYTES // (4 * math.prod(spec.shape[1:])))
+        for lo in range(0, spec.shape[0], rows):
+            block = out[lo:lo + rows]
+            draw = torch.randn(block.shape, generator=gen, dtype=torch.float32, device=dev)
+            block.copy_(draw.mul_(std))
+        return out
 
     return materialize(model_specs(cfg), leaf, trainable=trainable)

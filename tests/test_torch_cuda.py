@@ -740,3 +740,41 @@ def test_pallas_train_step_on_the_card_raises(cuda_device):
         losses[str(dev)] = float(m["loss"])
         assert not all(torch.equal(a, p) for a, p in zip(before, params.parameters()))
     assert abs(losses["cpu"] - losses[str(cuda_device)]) <= 1e-4 * losses["cpu"]
+
+
+def test_top_k_breaks_ties_on_the_card_as_on_the_cpu(cuda_device):
+    """The MoE's selection (``models.layers.top_k``, a stable descending
+    sort) puts the lower index first among equal values on the card too:
+    tied routing weights select the same tokens on both devices."""
+    from repro_torch.models.layers import top_k
+
+    x = torch.from_numpy(_rng("ties").integers(0, 4, size=(16, 8192)).astype(np.float32))
+    for k in (2, 1280, 8191):
+        vals, idx = top_k(x.to(cuda_device), k)
+        want_vals, want_idx = top_k(x, k)
+        assert torch.equal(idx.cpu(), want_idx) and torch.equal(vals.cpu(), want_vals)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_reduced_family_on_the_card_matches_cpu(cuda_device, arch):
+    """A reduced MoE, SSM or hybrid model (fp32, flash on its attention
+    layers) on the card against the CPU: the training forward within 1e-4,
+    the aux loss within 1e-5, and greedy serving tokens equal."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import forward_train, init_params
+
+    cfg = get_config(arch).reduced(max_decode_len=64).replace(use_pallas=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts = _rng("family prompts").integers(1, cfg.vocab, size=(4, 40)).astype(np.int32)
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(cuda_device))):
+        with torch.no_grad():
+            logits, aux = forward_train(p, cfg, {"tokens": torch.from_numpy(prompts).to(dev)})
+        tokens, _ = serve_prompts(cfg, p, prompts, gen=6)
+        runs[dev] = (logits.cpu(), float(aux), tokens)
+    assert float((runs["cuda"][0] - runs["cpu"][0]).abs().max()) <= 1e-4
+    assert abs(runs["cuda"][1] - runs["cpu"][1]) <= 1e-5
+    assert np.array_equal(runs["cuda"][2], runs["cpu"][2])

@@ -177,7 +177,17 @@ LM_ARGV = ["--clients", "2", "--local-steps", "3", "--distill-steps", "2", "--ba
 def test_lm_mode_matches_reference(loss, monkeypatch, tmp_path):
     """``--mode lm`` on the reduced llama3.2-1b, the port started from
     the reference's draws."""
-    ref_cfg = ref_configs.get_config("llama3.2-1b").reduced()
+    _check_lm_mode("llama3.2-1b", loss, monkeypatch, tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b"])
+def test_lm_mode_runs_the_moe_and_ssm_families(arch, monkeypatch, tmp_path):
+    """``--mode lm --arch`` of the MoE and SSM families, as llama's."""
+    _check_lm_mode(arch, "kl", monkeypatch, tmp_path)
+
+
+def _check_lm_mode(arch, loss, monkeypatch, tmp_path):
+    ref_cfg = ref_configs.get_config(arch).reduced()
     tree = lambda t: jax.tree.map(np.asarray, t)
     monkeypatch.setattr(deepfed, "stacked_init", lambda cfg, n, seed=0, device="cuda":
                         lm_stacked_from_arrays(tree(ref_deepfed.stacked_init(
@@ -185,7 +195,7 @@ def test_lm_mode_matches_reference(loss, monkeypatch, tmp_path):
     monkeypatch.setattr(deepfed, "init_params", lambda cfg, seed=0, device="cuda",
                         trainable=False: lm_params_from_arrays(tree(ref_models.init_params(
                             ref_cfg, jax.random.PRNGKey(seed))), cfg, device, trainable))
-    argv = LM_ARGV + ["--distill-loss", loss]
+    argv = LM_ARGV + ["--arch", arch, "--distill-loss", loss]
     want = ref_fed_run.main(argv)
     got = fed_run.main(argv + ["--trace", str(tmp_path / "lm.json")], device="cpu")
     assert set(got) == set(want)
@@ -209,4 +219,4 @@ def test_sharded_tier_is_not_ported(argv):
 
 def test_lm_mode_refuses_families_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        fed_run.main(["--arch", "mixtral-8x22b"] + LM_ARGV, device="cpu")
+        fed_run.main(["--arch", "whisper-base"] + LM_ARGV, device="cpu")
