@@ -22,7 +22,9 @@ It imports the port and nothing of JAX or of the reference package
            32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
            causal with a window, non-causal, ragged lengths, the serve
            shape and the ``families`` prefills (hd 128, 4 and 8 query
-           heads per KV head); the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
+           heads per KV head; llava's 4 x 4,928 positions, causal;
+           whisper's encoder, 4 x 1,500 frames, hd 64, non-causal and
+           ragged against the 128-row tile); the scorers at k 1 / n 2,000, k 10 at b 8, k 100, k 2,821
            and feature dims 12, 24, 32 and 37, and at the fleet's d 8 (k 4,
            n 40 at b 8, 32 and 256); SDCA at the group shapes, on
            the pooled emnist ideal, whose alphas are not all 0 or 1, and on
@@ -99,7 +101,8 @@ It imports the port and nothing of JAX or of the reference package
            peak allocated bytes and each kernel's launches
            (``batched_rbf_gram``, ``sdca``, ``ensemble_score`` and
            ``gram_matvec`` > 0, ``gram_matvec``'s equal to the CG
-           iterations); then once more under the profiler; (c) the traced
+           iterations); then a 10,000-device round of the same setting
+           under the profiler (busy share); (c) the traced
            host peak (``tracemalloc``) of the streamed pass alone at 25,000
            and 100,000 devices: under 64 MiB and flat;
   agg      the aggregator zoo (``repro_torch.agg``): (a) ``main``'s emnist
@@ -136,8 +139,9 @@ It imports the port and nothing of JAX or of the reference package
            no hand-written kernel runs in it: none has a backward, as no
            Pallas kernel of the reference has one): (a) llama3.2-1b at full
            width cut to 2 layers, fp32, the same parameters (drawn on the
-           cpu) 3 steps of ``make_optimizer(1e-3)`` at batch 2, seq 64 on
-           cuda and on cpu: losses within 1e-4 (step 1) and 1e-3 relative;
+           card, a copy moved to the cpu) 3 steps of ``make_optimizer(1e-3)``
+           at batch 2, seq 64 on cuda and on cpu (its large host tensors on
+           reused memory, ``reused_host_memory``): losses within 1e-4 (step 1) and 1e-3 relative;
            (b) the full 16-layer bf16 llama3.2-1b through
            ``launch.train.main`` on cuda, 8 steps at batch 4, seq 1,024, lr
            3e-4: s/step over steps 2-8 (``train.step`` spans), tokens/s,
@@ -151,11 +155,12 @@ It imports the port and nothing of JAX or of the reference package
            raise and leave the parameters as they were;
   deep     the deep one-shot round (``core/deepfed.py``, ``fed_run --mode
            lm``'s path): (a) llama3.2-1b at full width cut to 2 layers,
-           fp32, 2 members (drawn on the cpu, copies moved to the card) 2
+           fp32, 2 members (drawn on the card, copies moved to the cpu) 2
            local steps each at batch 2, seq 256, evaluated on 2 held-out
            windows (single member and ensemble), 2 ``kl`` distill steps
-           into a student drawn on the cpu, on cuda (the teacher and the
-           evaluations through the fp32 flash kernel) and on cpu: local
+           into a student drawn once on the card, on cuda (the teacher and
+           the evaluations through the fp32 flash kernel) and on cpu (on
+           reused host memory), each part's seconds: local
            losses within 1e-4 (step 1) and 1e-3 relative, NLLs within 1e-4,
            distill losses within 1e-3, byte counts equal, the flash
            launches counted; (b) the full 16-layer bf16 llama3.2-1b: 4
@@ -170,31 +175,42 @@ It imports the port and nothing of JAX or of the reference package
            ensemble NLL of one window through the kernel within 2^-7 of
            the plain attention's; a distill step and a local step under
            the profiler (busy share);
-  families the MoE, SSM (Mamba2) and hybrid (Jamba) LMs
-           (``models/layers.py::moe``, ``models/ssm.py``), each part's
-           seconds on a progress line: (a) phi3.5-moe and mamba2 at full
-           width, 2 fp32 layers, the same parameters (drawn on the card, a
-           copy moved to the cpu), ``forward_train`` on 1 x 256 tokens on
-           cuda and cpu: logits within LM_LOGIT_TOL and every MoE layer's
-           top-k expert ids equal; (b) bf16 with the flash kernel through
-           ``serve_prompts``, 4 x 2,048-token prompts, 32 greedy tokens:
-           phi3.5-moe at 16 of 32 layers, mamba2-2.7b at all 64, jamba at
-           its first 5 of 72 (mamba/mlp, mamba/moe, mamba/mlp, mamba/moe,
-           attn/mlp): parameters = ``param_count`` + the conv biases,
-           prefill and decode seconds cold and warm, cache bytes, peak
-           memory, busy share (a serve under the profiler), flash launches
-           = attention layers (one prefill) and no other kernel, the
+  families the MoE, SSM (Mamba2), hybrid (Jamba), VLM (LLaVA) and audio
+           (Whisper) LMs (``models/layers.py::moe``, ``models/ssm.py``, the
+           patch prefix, ``models/model.py::encode`` and the
+           cross-attention), each part's seconds on a progress line: (a)
+           at full width in fp32, the same parameters (drawn on the card, a
+           copy moved to the cpu), ``forward_train`` on cuda and cpu:
+           phi3.5-moe and mamba2 at 2 layers on 1 x 256 tokens, llava at 2
+           layers on 64 random patches + 192 tokens, whisper whole (6 + 6
+           layers) on 1,500 random frames and 64 tokens: logits within
+           LM_LOGIT_TOL and every MoE layer's top-k expert ids equal; (b)
+           bf16 with the flash kernel through ``serve_prompts``, 4 prompts
+           of 2,048 tokens, 32 greedy tokens: phi3.5-moe at 16 of 32
+           layers, mamba2-2.7b at all 64, jamba at its first 5 of 72
+           (mamba/mlp, mamba/moe, mamba/mlp, mamba/moe, attn/mlp), llava at
+           all 32 behind 2,880 zero patches, whisper whole with 416-token
+           prompts behind 1,500 zero frames: parameters = ``param_count`` +
+           ``uncounted_params``, prefill and decode seconds cold and warm,
+           cache bytes, peak memory, busy share (a serve under the
+           profiler), flash launches = self-attention layers, the
+           encoder's included (one prefill), and no other kernel, the
            prompts' NLL through the kernel within 2^-7 of plain
-           attention's, the first MoE layer twice on a prefill-shaped input
-           bitwise equal; (c) 2 fp32 layers (phi3.5-moe through the fp32
-           kernel, mamba2): 96-token prefill and 31 decode steps against
-           ``forward_train`` at each position within LM_LOGIT_TOL (B x S =
-           256: dropless), and one full-width mamba2 mixer at chunk 256 on
-           512 tokens finite and within 1e-3 of its token-by-token
-           recurrence; (d) bf16 train steps, no kernel: phi3.5-moe at 1
-           layer and mamba2 at 32, 3 steps of 4 x 512 tokens at lr 3e-4:
-           losses finite, aux > 0 for the MoE, step 1's batch loss lower
-           after, s/step and peak memory;
+           attention's, with the largest logit gap and, for the MoE, the
+           tokens whose experts differ between the two runs by layer; the
+           first MoE layer twice on a prefill-shaped input bitwise equal;
+           (c) 2 fp32 layers (phi3.5-moe, llava and whisper through the
+           fp32 kernel, mamba2; llava behind 64 random patches, whisper on
+           1,500 random frames): 96-token prefill and 31 decode steps
+           against ``forward_train`` at each position within LM_LOGIT_TOL
+           (B x S = 256: dropless), and one full-width mamba2 mixer at
+           chunk 256 on 512 tokens finite and within 1e-3 of its
+           token-by-token recurrence; (d) bf16 train steps, no kernel:
+           phi3.5-moe at 1 layer, mamba2 at 32, llava at 10 (64 random
+           patches a row, lr 2e-5), whisper whole (1,500 random frames a
+           row), 3 steps of 4 x 512 tokens at lr 3e-4: losses finite, aux > 0 for
+           the MoE, step 1's batch loss lower after, s/step and peak
+           memory;
   cli      ``repro_torch.launch.fed_run.main`` on cuda and on cpu: the
            sim round on 1,024 dirichlet devices, ks 10 and 50, dense
            distillation on 1,024 proxy rows and ``--serve-fleet``, then in
@@ -276,8 +292,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -316,6 +335,10 @@ FLASH_SHAPES = (
     # the families phase's prefills: phi3.5-moe (GQA 4) and jamba (GQA 8), hd 128
     ("phi prefill b4 s2048 h32 k8 hd128 causal", (4, 2048, 32, 8, 128), True, 0),
     ("jamba prefill b4 s2048 h64 k8 hd128 causal", (4, 2048, 64, 8, 128), True, 0),
+    # llava's 2,880 patches + 2,048 prompt tokens; whisper's encoder over its
+    # 1,500 frames, non-causal and ragged against the 128-row tile
+    ("llava prefill b4 s4928 h32 k8 hd128 causal", (4, 4928, 32, 8, 128), True, 0),
+    ("whisper encoder b4 s1500 h8 k8 hd64 non-causal", (4, 1500, 8, 8, 64), False, 0),
 )
 
 
@@ -503,6 +526,16 @@ def kernel_cases(rng, ops):
     return cases
 
 
+@functools.lru_cache(maxsize=1)
+def shared_cases(ops):
+    """``kernel_cases`` of a fresh ``default_rng(0)``, made once and shared
+    by the kernels, timing and profile phases (~16 s of the host's time
+    each)."""
+    import numpy as np
+
+    return kernel_cases(np.random.default_rng(0), ops)
+
+
 def to_device(args, device):
     """The arguments on ``device``; an array passed twice (a fit's x1 and
     x2) becomes one tensor passed twice."""
@@ -572,7 +605,7 @@ def phase_build(native):
             "build_dir": str(native.build_dir().relative_to(ROOT))}, logs
 
 
-def phase_kernels(ops, device, rng, names):
+def phase_kernels(ops, device, names):
     """Every case of every kernel in ``names`` against its plain version;
     all cases run, and the phase fails at the end if any disagreed.
     ``errs`` holds each kernel's largest fp32 error, ``errs[name +
@@ -580,7 +613,9 @@ def phase_kernels(ops, device, rng, names):
     import torch
 
     results, errs, failed = [], {}, []
-    all_cases = {n: c for n, c in kernel_cases(rng, ops).items() if n in names}
+    t0 = time.perf_counter()
+    all_cases = {n: c for n, c in shared_cases(ops).items() if n in names}
+    cases_seconds = time.perf_counter() - t0
     for name, cases in all_cases.items():
         spec = ops.KERNEL_REGISTRY[name]
         for label, args in cases:
@@ -603,7 +638,8 @@ def phase_kernels(ops, device, rng, names):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
-    out = {"cases": results, "determinism": determinism(ops, device, all_cases)}
+    out = {"cases_seconds": cases_seconds, "cases": results,
+           "determinism": determinism(ops, device, all_cases)}
     if {"batched_rbf_gram", "sdca"} <= set(names):
         out["population_identity"] = population_identity(ops, device)
     return out, errs
@@ -915,6 +951,7 @@ POP_PARITY_COMMON = dict(n_devices=2048, seed=3, mean_samples=80, dim=16, ks=(10
                          eval_device_cap=128)
 POP_PARITY_CHUNK = 300
 POP_MEMORY_DEVICES = (25_000, 100_000)
+POP_PROFILE_DEVICES = 10_000   # the profiled round's population
 POP_MEMORY_BUDGET = 64 * 2**20   # the reference's bar (tests/test_stream.py)
 
 
@@ -1051,8 +1088,9 @@ def population_memory(sim, device, n_devices, chunk):
 def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMORY_DEVICES):
     """(a) parity, (b) the 100,000-device streamed dirichlet round at full
     width (d 16) on cuda with CG distillation on 4,096 ``scenario`` proxy
-    rows, then once more under the profiler, (c) the streamed pass's
-    traced host memory at ``memory_devices``."""
+    rows, then a POP_PROFILE_DEVICES-device round of the same setting under
+    the profiler, (c) the streamed pass's traced host memory at
+    ``memory_devices``."""
     import numpy as np
     import torch
 
@@ -1109,7 +1147,11 @@ def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMOR
     if sum(cg) != counts["gram_matvec"]:
         raise AssertionError(f"population: gram_matvec launched {counts['gram_matvec']} "
                              f"times for {sum(cg)} CG iterations")
-    scale["profile"], _ = profile_call(lambda: sim.run_population(cfg, device="cuda"))
+    # the busy share from a profiled round of POP_PROFILE_DEVICES devices:
+    # the same per-device work as the timed round's, a tenth of its wall
+    profiled = dataclasses.replace(cfg, n_devices=POP_PROFILE_DEVICES)
+    scale["profile"], _ = profile_call(lambda: sim.run_population(profiled, device="cuda"))
+    scale["profile"]["devices"] = POP_PROFILE_DEVICES
     out["scale"] = scale
 
     memory = [population_memory(sim, device, n, POP_SCALE["chunk_devices"])
@@ -1630,8 +1672,9 @@ def _windows(vocab, batch, seq, steps, seed=0):
 
 def train_parity(ops, device):
     """(a) llama3.2-1b at full width, 2 layers, fp32: the same parameters
-    (drawn on the cpu, a copy moved to the card) take 3 steps of
-    ``make_optimizer(1e-3)`` on the same windows on cuda and on cpu."""
+    (drawn on the card, a copy moved to the cpu) take 3 steps of
+    ``make_optimizer(1e-3)`` on the same windows on cuda and on cpu, the
+    cpu run's large tensors reusing host memory (``reused_host_memory``)."""
     import copy
 
     import torch
@@ -1643,8 +1686,8 @@ def train_parity(ops, device):
     tp = TRAIN_PARITY
     cfg = get_config(TRAIN_ARCH).replace(n_layers=tp["n_layers"], dtype=torch.float32)
     windows = _windows(cfg.vocab, tp["batch"], tp["seq"], tp["steps"])
-    params = init_params(cfg, seed=0, device="cpu", trainable=True)
-    copies = {"cuda": copy.deepcopy(params).to(device), "cpu": params}
+    params = init_params(cfg, seed=0, device=device, trainable=True)
+    copies = {"cuda": params, "cpu": copy.deepcopy(params).cpu()}
     runs = {}
     for dev, p in copies.items():
         opt = make_optimizer(tp["lr"])
@@ -1652,10 +1695,12 @@ def train_parity(ops, device):
         step = make_train_step(cfg, opt)
         ops.reset_launch_counts()
         losses, t0 = [], time.perf_counter()
-        for w in windows:
-            t = torch.from_numpy(w).to(p.embed.device)
-            p, state, m = step(p, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
-            losses.append(float(m["loss"]))
+        with reused_host_memory() if dev == "cpu" else contextlib.nullcontext():
+            for w in windows:
+                t = torch.from_numpy(w).to(p.embed.device)
+                p, state, m = step(p, state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+                losses.append(float(m["loss"]))
+            del state
         runs[dev] = {"losses": losses, "seconds": time.perf_counter() - t0,
                      "kernels": sum(ops.launch_counts().values())}
     param_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
@@ -1880,14 +1925,15 @@ def deep_windows(vocab, members, batch, seq, local_steps, n_eval, n_proxy):
 
 
 @contextlib.contextmanager
-def cpu_drawn_student(deepfed):
-    """``deepfed.init_params`` drawing on the cpu and moving the draw to the
-    device asked for (``init_params``' generator is per device), so the
-    student starts from the same parameters on cuda and on cpu."""
-    from repro_torch.models import init_params
+def drawn_once(deepfed, params):
+    """``deepfed.init_params`` returning a copy of ``params`` (one draw, on
+    the card) on the device asked for (``init_params``' generator is per
+    device), so the student starts from the same parameters on cuda and on
+    cpu."""
+    import copy
 
     def drawn(cfg, seed=0, device="cuda", trainable=False):
-        return init_params(cfg, seed=seed, device="cpu", trainable=trainable).to(device)
+        return copy.deepcopy(params).to(device).requires_grad_(trainable)
 
     saved = deepfed.init_params
     deepfed.init_params = drawn
@@ -1897,6 +1943,33 @@ def cpu_drawn_student(deepfed):
         deepfed.init_params = saved
 
 
+@contextlib.contextmanager
+def reused_host_memory():
+    """Large host allocations from the heap while the context is open
+    (glibc's ``mallopt``: no ``mmap`` of its own for each large block, and
+    freed blocks kept for the next), so that a cpu run's many fresh
+    gigabyte tensors (the functional AdamW's moments and updates over the
+    128,256-row embedding and head) reuse memory instead of paying fresh
+    page faults; the freed heap goes back to the system on leaving. Where
+    the C library has no ``mallopt``, nothing changes."""
+    import ctypes
+    import ctypes.util
+
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    mallopt = getattr(libc, "mallopt", None)
+    m_trim_threshold, m_mmap_max = -1, -4   # glibc's parameter numbers
+    if mallopt is None or not mallopt(m_mmap_max, 0):
+        yield
+        return
+    mallopt(m_trim_threshold, 2**31 - 1)
+    try:
+        yield
+    finally:
+        mallopt(m_mmap_max, 65536)   # glibc's defaults
+        mallopt(m_trim_threshold, 128 * 1024)
+        libc.malloc_trim(0)
+
+
 def deep_flash_launches(cfg, members, distill_steps, eval_windows):
     """One flash launch a layer for each teacher forward (M a distill step)
     and each evaluation forward (single member, M ensemble members and the
@@ -1904,17 +1977,51 @@ def deep_flash_launches(cfg, members, distill_steps, eval_windows):
     return cfg.n_layers * (distill_steps * members + eval_windows * (1 + members + 1))
 
 
+def _deep_parity_run(ops, deepfed, cfg, teacher, mem, student0, local, test, proxy, dev):
+    """One device's half of ``deep_parity``: local training, the member and
+    ensemble NLLs, distillation into a copy of ``student0`` and its NLL,
+    with each part's seconds."""
+    dp = DEEP_PARITY
+    M = len(mem)
+    ops.reset_launch_counts()
+    parts, t0 = {}, time.perf_counter()
+    parts["local"], (mem, losses) = _sync_seconds(
+        lambda: deepfed.make_local_train(cfg, lr=dp["lr"])(mem, local))
+    parts["eval"], (single, ens) = _sync_seconds(
+        lambda: (deepfed.ensemble_eval_loss(mem[:1], teacher, test),
+                 deepfed.ensemble_eval_loss(mem, teacher, test)))
+    with drawn_once(deepfed, student0):
+        parts["distill"], (student, dl) = _sync_seconds(
+            lambda: deepfed.distill_to_student(cfg, teacher, mem, proxy,
+                                               steps=dp["distill_steps"], lr=dp["lr"],
+                                               loss_kind="kl", device=dev))
+    parts["student_eval"], student_nll = _sync_seconds(
+        lambda: deepfed.ensemble_eval_loss([student], teacher, test))
+    counts = ops.launch_counts()
+    return {
+        "local_losses": losses.cpu().tolist(), "single_member_nll": single,
+        "ensemble_nll": ens, "distill_losses": dl, "student_nll": student_nll,
+        "comm": deepfed.one_shot_comm_bytes(mem, M, student, n_devices=M),
+        "fedavg10": deepfed.fedavg_comm_bytes(student, 10, M),
+        "seconds": time.perf_counter() - t0, "part_seconds": parts,
+        "flash_launches": counts["flash_attention"],
+        "other_launches": sum(counts.values()) - counts["flash_attention"]}
+
+
 def deep_parity(ops, device):
-    """(a) llama3.2-1b at full width, 2 fp32 layers: the same members
-    (drawn on the cpu, copies moved to the card) train, are evaluated and
-    distilled on cuda and on cpu; the teacher and the evaluations through
-    the fp32 flash kernel on cuda, its plain version on cpu."""
+    """(a) llama3.2-1b at full width, 2 fp32 layers: the same members and
+    student (drawn on the card, copies moved to the cpu) train, are
+    evaluated and distilled on cuda and on cpu; the teacher and the
+    evaluations through the fp32 flash kernel on cuda, its plain version on
+    cpu. The cpu run's large tensors reuse host memory
+    (``reused_host_memory``)."""
     import copy
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import deepfed
+    from repro_torch.models import init_params
 
     dp = DEEP_PARITY
     M = dp["members"]
@@ -1922,30 +2029,17 @@ def deep_parity(ops, device):
     teacher = cfg.replace(use_pallas=True)
     local, test, proxy = deep_windows(cfg.vocab, M, dp["batch"], dp["seq"], dp["local_steps"],
                                       dp["eval_windows"], dp["distill_steps"])
-    members = deepfed.stacked_init(cfg, M, seed=0, device="cpu")
-    copies = {"cuda": [copy.deepcopy(m).to(device) for m in members], "cpu": members}
+    members = deepfed.stacked_init(cfg, M, seed=0, device=device)
+    copies = {"cuda": members, "cpu": [copy.deepcopy(m).cpu() for m in members]}
+    student0 = init_params(cfg, seed=0, device=device)
     runs = {}
     for name, mem in copies.items():
         dev = mem[0].embed.device
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        mem, losses = deepfed.make_local_train(cfg, lr=dp["lr"])(mem, local)
-        single = deepfed.ensemble_eval_loss(mem[:1], teacher, test)
-        ens = deepfed.ensemble_eval_loss(mem, teacher, test)
-        with cpu_drawn_student(deepfed):
-            student, dl = deepfed.distill_to_student(cfg, teacher, mem, proxy,
-                                                     steps=dp["distill_steps"], lr=dp["lr"],
-                                                     loss_kind="kl", device=dev)
-        student_nll = deepfed.ensemble_eval_loss([student], teacher, test)
-        counts = ops.launch_counts()
-        runs[name] = {
-            "local_losses": losses.cpu().tolist(), "single_member_nll": single,
-            "ensemble_nll": ens, "distill_losses": dl, "student_nll": student_nll,
-            "comm": deepfed.one_shot_comm_bytes(mem, M, student, n_devices=M),
-            "fedavg10": deepfed.fedavg_comm_bytes(student, 10, M),
-            "seconds": time.perf_counter() - t0, "flash_launches": counts["flash_attention"],
-            "other_launches": sum(counts.values()) - counts["flash_attention"]}
-        del mem, student
+        host = reused_host_memory() if dev.type == "cpu" else contextlib.nullcontext()
+        with host:
+            runs[name] = _deep_parity_run(ops, deepfed, cfg, teacher, mem, student0,
+                                          local, test, proxy, dev)
+    del members, copies, student0
     card, cpu = runs["cuda"], runs["cpu"]
     rel = lambda a, b: abs(a - b) / abs(b)
     local_rel = [[rel(a, b) for a, b in zip(x, y)]
@@ -1955,7 +2049,9 @@ def deep_parity(ops, device):
     distill_rel = [rel(a, b) for a, b in zip(card["distill_losses"], cpu["distill_losses"])]
     flash = deep_flash_launches(cfg, M, dp["distill_steps"], dp["eval_windows"])
     out = {"arch": DEEP_ARCH, "dtype": "float32", **dp, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "runs": runs, "local_loss_rel_diff": local_rel,
+           "vocab": cfg.vocab, "host_threads": torch.get_num_threads(),
+           "host_cpus": len(os.sched_getaffinity(0)), "runs": runs,
+           "local_loss_rel_diff": local_rel,
            "nll_rel_diff": nll_rel, "distill_loss_rel_diff": distill_rel,
            "tol": {"local": list(DEEP_LOSS_RTOL), "nll": DEEP_NLL_RTOL,
                    "distill": DEEP_DISTILL_RTOL},
@@ -2101,41 +2197,71 @@ def phase_deep(ops, device):
     return {"parity": deep_parity(ops, device), "full": deep_full(ops, device)}
 
 
-# the families phase: the MoE, SSM (Mamba2) and hybrid (Jamba) LMs
-# (``models/layers.py::moe``, ``models/ssm.py``) through the port's entry
-# points; flash attention runs on the attention layers of phi and jamba
+# the families phase: the MoE, SSM (Mamba2), hybrid (Jamba), VLM (LLaVA)
+# and audio (Whisper) LMs (``models/layers.py::moe``, ``models/ssm.py``,
+# the patch prefix, ``models/model.py::encode`` and the cross-attention)
+# through the port's entry points; flash attention runs on the attention
+# layers of phi, jamba and llava and on whisper's encoder (non-causal) and
+# decoder self-attention
 FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID = ("phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
                                          "jamba-1.5-large-398b")
-# (a): full width, 2 fp32 layers, cuda against cpu, 1 x 256 tokens
-FAMILY_PARITY = dict(n_layers=2, tokens=256)
+FAMILY_VLM, FAMILY_AUDIO = "llava-next-mistral-7b", "whisper-base"
+# (a): full width, fp32, cuda against cpu: phi and mamba2 at 2 layers on 1 x
+# 256 tokens; llava at 2 layers on 1 x (64 random patches + 192 tokens);
+# whisper at full depth (6 + 6 layers) on one clip of 1,500 random frames
+# and 64 tokens
+FAMILY_PARITY = {FAMILY_MOE: dict(n_layers=2, tokens=256),
+                 FAMILY_SSM: dict(n_layers=2, tokens=256),
+                 FAMILY_VLM: dict(n_layers=2, tokens=192, patches=64),
+                 FAMILY_AUDIO: dict(n_layers=6, tokens=64, frames=1500)}
+# the stub frontends' random patch and frame embeddings: normals at the
+# token embedding's init scale
+FAMILY_INPUT_STD = 0.02
 # (b): the depth cut of each model for one 80 GB card in bf16 (jamba's
 # first 5 layers: (mamba, mlp), (mamba, moe), (mamba, mlp), (mamba, moe),
-# (attn, mlp)); serve_prompts as ``serve``'s, 4 x 2,048 tokens, 32 greedy
-FAMILY_SERVE_LAYERS = {FAMILY_MOE: 16, FAMILY_SSM: 64, FAMILY_HYBRID: 5}
-# (c): 2 fp32 layers; B * S = 2 * 128 <= 256, so every MoE call is dropless
-FAMILY_CACHE = dict(n_layers=2, batch=2, prompt=96, gen=32)
+# (attn, mlp)); llava and whisper whole; serve_prompts as ``serve``'s, 4 x
+# 2,048-token prompts (llava's behind its 2,880 zero patches), 32 greedy
+# tokens; whisper's prompts 416 tokens, so that prompt and generation fill
+# its 448-token decoder, behind 1,500 zero frames
+FAMILY_SERVE_LAYERS = {FAMILY_MOE: 16, FAMILY_SSM: 64, FAMILY_HYBRID: 5, FAMILY_VLM: 32,
+                       FAMILY_AUDIO: 6}
+FAMILY_SERVE_PROMPT = {FAMILY_AUDIO: 416}
+# (c): 2 fp32 layers; B * S = 2 * 128 <= 256, so every MoE call is dropless;
+# llava's 64 random patches sit in the cache in front of the prompt,
+# whisper's decoder reads its 1,500 frames' keys and values from the cache
+FAMILY_CACHE = dict(n_layers=2, batch=2, prompt=96, gen=32, patches=64, frames=1500)
 FAMILY_SSD = dict(tokens=512, chunk=256, tol=1e-3)
 # (d): bf16 train steps without the kernels (they have no backward). The
 # functional AdamW holds the old and new fp32 moments and the fp32 updates
 # at once, ~26 bytes a parameter: phi at 2 layers (2.86 B) ran out of the
 # card's 80 GB in its first update, so it trains 1 layer (1.56 B); mamba2 at
 # the depth whose activations (the SSD's (B, L, L, H) fp32 terms, saved for
-# the backward) fit beside its moments
+# the backward) fit beside its moments; llava at 10 of 32 layers (262 M +
+# 218 M a layer = 2.44 B, ~64 GB at 26 bytes a parameter, beside the
+# activations of 64 patches + 512 tokens a row; 11 layers would be ~70 GB);
+# whisper whole (6 + 6 layers) on 1,500 frames a row. llava trains at 2e-5,
+# LLaVA's own rate for fine-tuning its language model: at 3e-4 its batch
+# loss rose over the 3 steps (10.83 -> 11.10), as llama3.2-1b's full bf16
+# model's did at 1e-3
 FAMILY_TRAIN = dict(steps=3, batch=4, seq=512, lr=3e-4)
-FAMILY_TRAIN_LAYERS = {FAMILY_MOE: 1, FAMILY_SSM: 32}
+FAMILY_TRAIN_LAYERS = {FAMILY_MOE: 1, FAMILY_SSM: 32, FAMILY_VLM: 10, FAMILY_AUDIO: 6}
+FAMILY_TRAIN_LR = {FAMILY_VLM: 2e-5}
+FAMILY_TRAIN_INPUTS = {FAMILY_VLM: dict(patches=64), FAMILY_AUDIO: dict(frames=1500)}
 
 
 @contextlib.contextmanager
-def record_routing(layers):
+def record_routing(layers, keep_inputs=False):
     """Record each ``layers.moe`` call's top-k expert ids and probabilities
-    (as the call computes them) while the context is open."""
+    (as the call computes them), and with ``keep_inputs`` its input, while
+    the context is open."""
     calls = []
     moe = layers.moe
 
     def recording(x, p, cfg):
         probs, _ = layers._route(x.reshape(-1, x.shape[-1]), p, cfg)
         vals, ids = layers.top_k(probs, cfg.top_k + 1)
-        calls.append({"ids": ids[:, :cfg.top_k].cpu(), "probs": vals.cpu()})
+        calls.append({"ids": ids[:, :cfg.top_k].cpu(), "probs": vals.cpu(),
+                      "input": x.detach().clone() if keep_inputs else None})
         return moe(x, p, cfg)
 
     layers.moe = recording
@@ -2143,6 +2269,13 @@ def record_routing(layers):
         yield calls
     finally:
         layers.moe = moe
+
+
+def routing_flips(a_calls, b_calls):
+    """Per MoE call, the tokens whose set of top-k experts differs between
+    two recordings."""
+    return [int((a["ids"].sort(dim=-1).values != b["ids"].sort(dim=-1).values)
+                .any(dim=-1).sum()) for a, b in zip(a_calls, b_calls)]
 
 
 def _free_card():
@@ -2154,13 +2287,31 @@ def _free_card():
     torch.cuda.empty_cache()
 
 
+def family_inputs(cfg, batch, patches=0, frames=0, zeros=False, device="cpu", seed=3):
+    """The stub frontends' inputs for ``batch`` rows: ``patches`` patch
+    embeddings (the VLM's prefix) and ``frames`` frame embeddings (the
+    encoder's input), normals at FAMILY_INPUT_STD drawn on the cpu (the
+    same on every device), or zeros as the serve and train drivers give."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, n in (("patches", patches), ("frames", frames)):
+        if n:
+            shape = (batch, n, cfg.d_model)
+            t = (torch.zeros(shape) if zeros
+                 else FAMILY_INPUT_STD * torch.randn(shape, generator=gen))
+            out[key] = t.to(device)
+    return out
+
+
 def families_parity(device):
-    """(a) phi3.5-moe and mamba2 at full width, 2 fp32 layers: the same
+    """(a) each FAMILY_PARITY model at full width in fp32: the same
     parameters (drawn on the card, a copy moved to the cpu) through
-    ``forward_train`` on 1 x 256 tokens on cpu and on cuda: logits within
-    LM_LOGIT_TOL, every MoE layer's top-k expert ids equal (the tokens
-    whose ids differ are counted, with the gap between their k-th and
-    next expert's probability, before the check fails)."""
+    ``forward_train`` on the same tokens (and patches or frames) on cpu and
+    on cuda: logits within LM_LOGIT_TOL, every MoE layer's top-k expert ids
+    equal (the tokens whose ids differ are counted, with the gap between
+    their k-th and next expert's probability, before the check fails)."""
     import copy
 
     import numpy as np
@@ -2171,20 +2322,21 @@ def families_parity(device):
     from repro_torch.models import forward_train, init_params
     from repro_torch.models import layers
 
-    fp = FAMILY_PARITY
     out = {}
-    for arch in (FAMILY_MOE, FAMILY_SSM):
+    for arch, fp in FAMILY_PARITY.items():
         cfg = get_config(arch).replace(n_layers=fp["n_layers"], dtype=torch.float32)
         tokens = make_federated_lm_data(1, cfg.vocab, fp["tokens"] + 8, seed=0)[0]
         tokens = torch.from_numpy(tokens[None, :fp["tokens"]].astype(np.int64))
+        extra = family_inputs(cfg, 1, fp.get("patches", 0), fp.get("frames", 0))
         on_card = init_params(cfg, seed=0, device=device)
         copies = {"cpu": copy.deepcopy(on_card).cpu(), "cuda": on_card}
         runs = {}
         for name, params in copies.items():
             dev = params.embed.device
+            batch = {"tokens": tokens.to(dev), **{k: v.to(dev) for k, v in extra.items()}}
             t0 = time.perf_counter()
             with torch.no_grad(), record_routing(layers) as calls:
-                logits, aux = forward_train(params, cfg, {"tokens": tokens.to(dev)})
+                logits, aux = forward_train(params, cfg, batch)
             runs[name] = {"logits": logits.cpu(), "aux": float(aux), "routing": calls,
                           "seconds": time.perf_counter() - t0}
             del logits
@@ -2199,12 +2351,17 @@ def families_parity(device):
             k = cfg.top_k
             gaps += (b["probs"][bad, k - 1] - b["probs"][bad, k]).tolist()
         out[arch] = {
-            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "tokens": fp["tokens"],
+            "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "d_model": cfg.d_model, "tokens": fp["tokens"],
+            "inputs": {k: list(v.shape) for k, v in extra.items()},
+            "logits_shape": list(card["logits"].shape),
             "max_logit_diff": diff, "tol": LM_LOGIT_TOL,
             "aux": {k: r["aux"] for k, r in runs.items()},
             "moe_layers": len(card["routing"]), "routing_tokens_differing": flipped,
             "routing_gaps_of_differing": gaps,
             "seconds": {k: r["seconds"] for k, r in runs.items()}}
+        if card["logits"].shape != (1, fp["tokens"], cfg.vocab):
+            raise AssertionError(f"families (a) {arch}: logits {tuple(card['logits'].shape)}")
         if not (torch.isfinite(card["logits"]).all() and diff <= LM_LOGIT_TOL):
             raise AssertionError(f"families (a) {arch}: logits differ by {diff}")
         if flipped or len(card["routing"]) != len(cpu["routing"]):
@@ -2213,13 +2370,13 @@ def families_parity(device):
     return out
 
 
-def _prompts(vocab):
+def _prompts(vocab, prompt_len=SERVE_PROMPT):
     import numpy as np
 
     from repro_torch.data import make_federated_lm_data
 
-    clients = make_federated_lm_data(SERVE_BATCH, vocab, SERVE_PROMPT + 8, seed=0)
-    return np.stack([c[:SERVE_PROMPT] for c in clients]).astype(np.int32)
+    clients = make_federated_lm_data(SERVE_BATCH, vocab, prompt_len + 8, seed=0)
+    return np.stack([c[:prompt_len] for c in clients]).astype(np.int32)
 
 
 def moe_bitwise(params, cfg, device):
@@ -2244,27 +2401,35 @@ def moe_bitwise(params, cfg, device):
 
 def families_serve(ops, device, arch):
     """(b) one model at its depth cut in bf16 with the flash kernel through
-    ``serve_prompts``: 4 x 2,048-token prompts, 32 greedy tokens (cold,
-    counted; warm; under the profiler); the prompts' NLL through
-    ``forward_train`` with the kernel and with plain attention, an end-to-end
-    check and not the kernel's (the kernels phase holds the kernel element by
-    element at these prefill shapes), with the largest logit gap reported
-    beside it; the MoE layer twice, bitwise."""
+    ``serve_prompts``: 4 prompts of 2,048 tokens (whisper's 416), 32
+    greedy tokens (cold, counted; warm; under the profiler); the prompts'
+    NLL through ``forward_train`` with the kernel and with plain attention
+    (behind the serve's zero patches or frames), an end-to-end check and
+    not the kernel's (the kernels phase holds the kernel element by element
+    at these prefill shapes), with the largest logit gap reported beside
+    it and, for a MoE, the tokens routed to other experts in the two runs
+    and the gap between the runs' inputs of each MoE layer; the MoE layer
+    twice, bitwise."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_prompts
     from repro_torch.models import (cache_nbytes, cache_spec, forward_train, init_params,
-                                    lm_loss, param_count, uncounted_conv_bias)
+                                    layers, lm_loss, param_count, uncounted_params)
 
     cfg = get_config(arch).replace(n_layers=FAMILY_SERVE_LAYERS[arch], use_pallas=True)
-    attn_layers = cfg.mixer_kinds().count("attn")
+    prompt_len = FAMILY_SERVE_PROMPT.get(arch, SERVE_PROMPT)
+    # one flash launch a self-attention layer, the encoder's included
+    attn_layers = cfg.mixer_kinds().count("attn") + cfg.encoder_layers
+    # the previous model's serve leaves its parameters in a reference cycle
+    # until a collection: without one here its bytes count in this peak
+    _free_card()
     steps = {}   # seconds of each step of this part, on the host's clock
     steps["init"], params = _sync_seconds(lambda: init_params(cfg, seed=0, device=device))
     n_params = sum(p.numel() for p in params.parameters())
-    prompts = _prompts(cfg.vocab)
-    kv_len = SERVE_PROMPT + SERVE_GEN + 1
+    prompts = _prompts(cfg.vocab, prompt_len)
+    kv_len = cfg.n_patches + prompt_len + SERVE_GEN + 1
     torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launch_counts()
     wall, (tokens, sched) = _sync_seconds(lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
@@ -2279,38 +2444,54 @@ def families_serve(ops, device, arch):
     def rates(timing):
         pre_s, dec_s = timing["prefill_seconds"], timing["decode_seconds"]
         return {"prefill_seconds": pre_s,
-                "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / pre_s,
+                "prefill_tokens_per_s": SERVE_BATCH * prompt_len / pre_s,
                 "decode_seconds": dec_s,
                 "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / dec_s,
                 "decode_ms_per_step": 1e3 * dec_s / SERVE_GEN}
 
     batch = torch.from_numpy(prompts).to(device).long()
-    nll, logits = {}, {}
+    # the serve's zero patches or frames in front of the prompts
+    stub = family_inputs(cfg, SERVE_BATCH, cfg.n_patches, cfg.encoder_seq * cfg.is_encdec,
+                         zeros=True, device=device)
+    nll, logits, routing = {}, {}, {}
     for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas=False))):
         if name == "plain" and not attn_layers:
             break
-        with torch.no_grad():
+        with torch.no_grad(), record_routing(layers, keep_inputs=True) as calls:
             steps["nll_" + name], (logits[name], _) = _sync_seconds(
-                lambda c=c: forward_train(params, c, {"tokens": batch[:, :-1]}))
-            nll[name] = float(lm_loss(logits[name], batch[:, 1:]))
+                lambda c=c: forward_train(params, c, {"tokens": batch[:, :-1], **stub}))
+        nll[name] = float(lm_loss(logits[name], batch[:, 1:]))
+        routing[name] = calls
     # the largest logit gap, row by row (jamba's logits are 1 GB each)
     logit_gap = (max(float((a.float() - b.float()).abs().max())
                      for a, b in zip(logits["kernel"], logits["plain"]))
                  if attn_layers else None)
-    del logits
+    flips = input_gaps = None
+    if cfg.n_experts and attn_layers:
+        flips = routing_flips(routing["kernel"], routing["plain"])
+        input_gaps = [float((a["input"].float() - b["input"].float()).abs().max())
+                      for a, b in zip(routing["kernel"], routing["plain"])]
+    del logits, routing
     steps["moe_twice"], moe = _sync_seconds(
         lambda: moe_bitwise(params, cfg, device) if cfg.n_experts else None)
     out = {
         "arch": arch, "n_layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+        "encoder_layers": cfg.encoder_layers,
         "kinds": [list(k) for k in cfg.sublayer_kinds()], "d_model": cfg.d_model,
         "dtype": "bfloat16", "params": n_params, "param_count": param_count(cfg),
-        "uncounted_conv_bias": uncounted_conv_bias(cfg), "step_seconds": steps,
-        "requests": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
-        "cache_bytes": cache_nbytes(cache_spec(cfg, SERVE_BATCH, kv_len)),
+        "uncounted_params": uncounted_params(cfg), "step_seconds": steps,
+        "requests": SERVE_BATCH, "prompt_len": prompt_len, "gen": SERVE_GEN,
+        "stub_inputs": {k: list(v.shape) for k, v in stub.items()},
+        "kv_len": kv_len, "cache_bytes": cache_nbytes(cache_spec(cfg, SERVE_BATCH, kv_len)),
         "peak_memory_bytes": peak, "cold": rates(cold), "warm": rates(warm),
         "cold_serve_wall_seconds": wall, "kernels": counts,
         "flash_launches_want": attn_layers, "prompt_nll": nll,
         "kernel_vs_plain_logits_max_abs_diff": logit_gap,
+        # a MoE's tokens whose top-k experts differ between the kernel's and
+        # plain attention's runs, by MoE layer, and the largest gap between
+        # the two runs' inputs to each MoE layer
+        "kernel_vs_plain_routing_flips": flips,
+        "kernel_vs_plain_moe_input_max_abs_diff": input_gaps,
         "moe_twice": moe, "tokens_head": tokens[:, :8].tolist(),
         # the profiler's own cost dwarfs a serve's wall (as in ``deep`` (b)),
         # so the busy share is the profiled serve's device seconds over the
@@ -2320,18 +2501,18 @@ def families_serve(ops, device, arch):
         "profile": {k: profile[k] for k in ("wall_seconds", "device_seconds",
                                             "device_launches", "by_kernel")},
     }
-    del params
+    del params, stub
     _free_card()
-    if n_params != param_count(cfg) + uncounted_conv_bias(cfg):
+    if n_params != param_count(cfg) + uncounted_params(cfg):
         raise AssertionError(f"families (b) {arch}: {n_params} parameters, param_count "
-                             f"{param_count(cfg)} + conv biases {uncounted_conv_bias(cfg)}")
+                             f"{param_count(cfg)} + uncounted {uncounted_params(cfg)}")
     if tokens.shape != (SERVE_BATCH, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
         raise AssertionError(f"families (b) {arch}: tokens {tokens.shape} outside the vocabulary")
     if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
         raise AssertionError(f"families (b) {arch}: a repeat of the serve generated other tokens")
     if counts["flash_attention"] != attn_layers or sum(counts.values()) != attn_layers:
         raise AssertionError(f"families (b) {arch}: launches {counts}, want {attn_layers} "
-                             "flash (one per attention layer, one prefill) and no other")
+                             "flash (one per self-attention layer, one prefill) and no other")
     if not all(math.isfinite(v) for v in nll.values()):
         raise AssertionError(f"families (b) {arch}: prompt NLL {nll}")
     if attn_layers and not abs(nll["kernel"] - nll["plain"]) <= BF16_RTOL * abs(nll["plain"]):
@@ -2343,12 +2524,14 @@ def families_serve(ops, device, arch):
 
 
 def families_cache(device):
-    """(c) phi3.5-moe (through the fp32 flash kernel) and mamba2 at full
-    width, 2 fp32 layers: prefill 96 tokens, then decode the next 32 of
-    the same sequence; each step's logits against ``forward_train``'s at
-    that position. Then one mamba2 mixer at chunk 256 on 1 x 512 tokens:
-    finite, and its chunked output against the token-by-token recurrence
-    (decode steps through the same mixer)."""
+    """(c) phi3.5-moe (through the fp32 flash kernel), mamba2, llava (64
+    random patches in front of the prompt) and whisper (1,500 random
+    frames; the decoder's cross-attention reads ``xk`` and ``xv`` from the
+    cache) at full width, 2 fp32 layers: prefill 96 tokens, then decode the
+    next 32 of the same sequence; each step's logits against
+    ``forward_train``'s at that position. Then one mamba2 mixer at chunk 256
+    on 1 x 512 tokens: finite, and its chunked output against the
+    token-by-token recurrence (decode steps through the same mixer)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2362,28 +2545,36 @@ def families_cache(device):
     fc = FAMILY_CACHE
     total = fc["prompt"] + fc["gen"]
     out = {}
-    for arch in (FAMILY_MOE, FAMILY_SSM):
+    for arch in (FAMILY_MOE, FAMILY_SSM, FAMILY_VLM, FAMILY_AUDIO):
         cfg = get_config(arch).replace(n_layers=fc["n_layers"], dtype=torch.float32,
                                        use_pallas=True)
         params = init_params(cfg, seed=0, device=device)
         seqs = make_federated_lm_data(fc["batch"], cfg.vocab, total + 8, seed=1)
         seq = torch.from_numpy(np.stack([s[:total] for s in seqs]).astype(np.int64)).to(device)
+        extra = family_inputs(cfg, fc["batch"], fc["patches"] * bool(cfg.n_patches),
+                              fc["frames"] * cfg.is_encdec, device=device)
+        prefix = extra["patches"].shape[1] if "patches" in extra else 0
         with torch.no_grad():
-            full, _ = forward_train(params, cfg, {"tokens": seq})
-            cache = init_cache(cfg, fc["batch"], total + 1, device=device)
-            logits, cache = forward_prefill(params, cfg, {"tokens": seq[:, :fc["prompt"]]}, cache)
+            full, _ = forward_train(params, cfg, {"tokens": seq, **extra})
+            cache = init_cache(cfg, fc["batch"], prefix + total + 1, device=device)
+            logits, cache = forward_prefill(
+                params, cfg, {"tokens": seq[:, :fc["prompt"]], **extra}, cache)
             gaps = [float((logits - full[:, fc["prompt"] - 1]).abs().max())]
             for t in range(fc["prompt"], total - 1):
                 logits, cache = forward_decode(params, cfg, seq[:, t:t + 1], cache)
                 gaps.append(float((logits - full[:, t]).abs().max()))
         out[arch] = {"batch": fc["batch"], "prompt": fc["prompt"], "decode_steps": len(gaps) - 1,
+                     "inputs": {k: list(v.shape) for k, v in extra.items()},
+                     "cache_step": cache["step"],
                      "max_logit_diff": max(gaps), "tol": LM_LOGIT_TOL,
                      "finite": bool(torch.isfinite(full).all())}
-        del params, cache, full
+        del params, cache, full, extra
         _free_card()
         if not (out[arch]["finite"] and max(gaps) <= LM_LOGIT_TOL):
             raise AssertionError(f"families (c) {arch}: decode against the full forward "
                                  f"{gaps}")
+        if out[arch]["cache_step"] != prefix + total - 1:
+            raise AssertionError(f"families (c) {arch}: cache step {out[arch]['cache_step']}")
     fs = FAMILY_SSD
     cfg = get_config(FAMILY_SSM).replace(n_layers=1, dtype=torch.float32,
                                          ssm_chunk=fs["chunk"])
@@ -2413,11 +2604,12 @@ def families_cache(device):
 
 
 def families_train(ops, device):
-    """(d) phi3.5-moe and mamba2 at FAMILY_TRAIN_LAYERS' depths, full
-    width in bf16, ``make_train_step`` with ``launch.train``'s optimizer,
-    3 steps of 4 x 512 tokens at lr 3e-4: losses and aux finite, aux > 0
-    for the MoE, step 1's batch loss lower after the steps than before, no
-    kernel launched; s/step (steps 2-3) and peak memory."""
+    """(d) each FAMILY_TRAIN_LAYERS model at its depth, full width in bf16,
+    ``make_train_step`` with ``launch.train``'s optimizer, 3 steps of 4 x
+    512 tokens at lr 3e-4 (llava's at 2e-5 behind 64 random patches,
+    whisper's with 1,500 random frames): losses and aux finite, aux > 0 for the MoE,
+    step 1's batch loss lower after the steps than before, no kernel
+    launched; s/step (steps 2-3) and peak memory."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2430,29 +2622,35 @@ def families_train(ops, device):
         cfg = get_config(arch).replace(n_layers=n_layers)
         windows = _windows(cfg.vocab, ft["batch"], ft["seq"], ft["steps"])
         params = init_params(cfg, seed=0, device=device, trainable=True)
-        opt = make_optimizer(ft["lr"])
+        lr = FAMILY_TRAIN_LR.get(arch, ft["lr"])
+        opt = make_optimizer(lr)
         state = opt.init(param_tree(params))
         step, evaluate = make_train_step(cfg, opt), make_eval_step(cfg)
-        first = _lm_batch(windows[0], device)
+        extra = family_inputs(cfg, ft["batch"], device=device,
+                              **FAMILY_TRAIN_INPUTS.get(arch, {}))
+        first = {**_lm_batch(windows[0], device), **extra}
         before = float(evaluate(params, first))
         torch.cuda.reset_peak_memory_stats(device)
         ops.reset_launch_counts()
         secs, metrics = [], []
         for w in windows:
             s, (params, state, m) = _sync_seconds(
-                lambda w=w: step(params, state, _lm_batch(w, device)))
+                lambda w=w: step(params, state, {**_lm_batch(w, device), **extra}))
             secs.append(s)
             metrics.append({k: float(v) for k, v in m.items()})
         peak = torch.cuda.max_memory_allocated(device)
         launched = sum(ops.launch_counts().values())
         after = float(evaluate(params, first))
         out[arch] = {"n_layers": n_layers, "of_layers": get_config(arch).n_layers,
-                     "dtype": "bfloat16", **ft, "seconds_per_step": secs,
+                     "encoder_layers": cfg.encoder_layers,
+                     "params": sum(p.numel() for p in params.parameters()),
+                     "inputs": {k: list(v.shape) for k, v in extra.items()},
+                     "dtype": "bfloat16", **ft, "lr": lr, "seconds_per_step": secs,
                      "seconds_per_step_warm": mean(secs[1:]),
                      "tokens_per_s_warm": ft["batch"] * ft["seq"] / mean(secs[1:]),
                      "metrics": metrics, "first_batch_loss": {"before": before, "after": after},
                      "peak_memory_bytes": peak, "kernel_launches": launched}
-        del params, state
+        del params, state, extra, first
         _free_card()
         values = [v for m in metrics for v in m.values()] + [before, after]
         if not all(math.isfinite(v) for v in values):
@@ -3026,9 +3224,10 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# a call at least this long is timed by its sizing call alone: turns guard
-# against the host's drift between short runs, which one second outlasts
-# (the plain SDCA at the ideal takes ~11 s a call)
+# a call at least this long is timed by one call alone (its warm-up, or else
+# its sizing call): turns guard against the host's drift between short
+# runs, which one second outlasts, and a first call's set-up is lost in it
+# (the plain SDCA at the ideal takes ~9 s a call)
 SLOW_CALL_MS = 1000.0
 
 
@@ -3037,8 +3236,9 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     each turn a run of back-to-back calls (L2 warm) sized to ~budget_ms
     from one call made after a warm-up call; with ``library``, its two
     turns go between the kernel's (plain, kernel, library, library,
-    kernel, plain). A version whose sizing call took SLOW_CALL_MS or more
-    takes no turns: that call is its one measurement."""
+    kernel, plain). A version whose warm-up or sizing call took
+    SLOW_CALL_MS or more takes no turns: that call is its one
+    measurement."""
     import torch
 
     fns = {"plain": plain, "kernel": kernel}
@@ -3048,8 +3248,10 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
         order[2:2] = ["library", "library"]
     reps, turns = {}, {}
     for label, fn in fns.items():
-        fn(*args)                                # warm-up: a first call pays set-up
-        torch.cuda.synchronize()
+        first = _time_ms(lambda: fn(*args), 1)   # warm-up: a first call pays set-up
+        if first >= SLOW_CALL_MS:   # set-up is lost in a call this long: its one measurement
+            reps[label], turns[label] = 1, [first]
+            continue
         once = _time_ms(lambda: fn(*args), 1)   # then size the run
         reps[label] = max(1, min(200, int(budget_ms / max(once, 1e-3))))
         turns[label] = [once] if once >= SLOW_CALL_MS else []
@@ -3100,7 +3302,9 @@ TIMING_CASES = {
     "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32"),
     "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230", "fleet d8 b32 k4 n40"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
-                        "serve b4 s2048 h32 k8 hd64 causal float32"),
+                        "serve b4 s2048 h32 k8 hd64 causal float32",
+                        "llava prefill b4 s4928 h32 k8 hd128 causal bfloat16",
+                        "whisper encoder b4 s1500 h8 k8 hd64 non-causal bfloat16"),
 }
 LIBRARY = {"flash_attention": sdpa_library}
 
@@ -3115,7 +3319,7 @@ def phase_timing(ops, device, rng, names):
 
     from repro_torch.obs.profile import kernel_bound, kernel_cost
 
-    cases = {name: dict(c) for name, c in kernel_cases(rng, ops).items()}
+    cases = {name: dict(c) for name, c in shared_cases(ops).items()}
     rows = []
     for name, labels in TIMING_CASES.items():
         if name not in names:
@@ -3178,7 +3382,7 @@ def sdca_step_ns(ops, device, rng, epochs=1250):
 PROFILE_FRAC_MAX = 1.05   # a span's roofline share: the bound over event-timed seconds
 
 
-def phase_profile(ops, device, rng, names, timing_rows, make_dataset, run_protocol, trace):
+def phase_profile(ops, device, names, timing_rows, make_dataset, run_protocol, trace):
     """Every ``TIMING_CASES`` call once more through its dispatcher under a
     tracer: the traced result bitwise the untraced one, the span's
     ``flops`` and ``bytes_accessed`` > 0, ``0 < roofline_frac <=
@@ -3192,7 +3396,7 @@ def phase_profile(ops, device, rng, names, timing_rows, make_dataset, run_protoc
 
     from repro_torch.obs.profile import kernel_bound
 
-    cases = {name: dict(c) for name, c in kernel_cases(rng, ops).items()}
+    cases = {name: dict(c) for name, c in shared_cases(ops).items()}
     rows, failed = [], []
     for name, labels in TIMING_CASES.items():
         if name not in names:
@@ -3310,7 +3514,7 @@ def main(argv=None) -> int:
                 out, logs = phase_build(native)
                 detail["nvcc"] = logs
             elif phase == "kernels":
-                out, errs = phase_kernels(ops, device, np.random.default_rng(0), names)
+                out, errs = phase_kernels(ops, device, names)
             elif phase == "parity":
                 out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
@@ -3354,7 +3558,7 @@ def main(argv=None) -> int:
             else:
                 bounds = {(r["kernel"], r["case"]): r["bound_ms"]
                           for r in detail.get("timing", {}).get("rows", [])}
-                out = phase_profile(ops, device, np.random.default_rng(0), names, bounds,
+                out = phase_profile(ops, device, names, bounds,
                                     make_dataset, run_protocol, trace)
         except Exception as e:
             emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})

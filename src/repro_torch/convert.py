@@ -110,17 +110,25 @@ def lm_params_from_arrays(tree, cfg: ModelConfig, device="cuda", trainable: bool
     layout, leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray, p)``)
     -> the port's parameter module on ``device``. Layer ``i`` of the port
     is superblock ``i // period`` of the reference's sub-layer kind
-    ``i % period``. Values are carried exactly (bf16 through fp32). The
-    parameters require grad when ``trainable`` (for ``make_train_step``)."""
+    ``i % period``; encoder layer ``i`` is index ``i`` of the reference's
+    stacked ``encoder/blocks``. Values are carried exactly (bf16 through
+    fp32). The parameters require grad when ``trainable`` (for
+    ``make_train_step``)."""
     dev = resolve_device(device)
     period = len(cfg.sublayer_kinds())
 
+    def stacked(node, keys, index):
+        for key in keys:
+            node = node[key]
+        return np.asarray(node)[index]
+
     def leaf(path, spec):
         if path[0] == "blocks":
-            node = tree["blocks"][path[1] % period]
-            for key in path[2:]:
-                node = node[key]
-            arr = np.asarray(node)[path[1] // period]
+            arr = stacked(tree["blocks"][path[1] % period], path[2:], path[1] // period)
+        elif path[:2] == ("encoder", "blocks"):
+            arr = stacked(tree["encoder"]["blocks"], path[3:], path[2])
+        elif path[0] == "encoder":
+            arr = np.asarray(tree["encoder"][path[1]])
         else:
             arr = np.asarray(tree[path[0]])
         if tuple(arr.shape) != spec.shape:

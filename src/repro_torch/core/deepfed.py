@@ -22,9 +22,11 @@ members are trainable, and the CUDA flash kernel (``use_pallas``) has no
 backward, so its wrapper refuses inputs that require grad under grad
 mode.
 
-The dense, MoE, SSM and hybrid families run (a MoE member's or
-student's router aux loss enters its step's loss, as in the
-reference); VLM and audio raise (``check_buildable``).
+Every family runs (a MoE member's or student's router aux loss enters
+its step's loss, as in the reference). The round feeds tokens alone, as
+the reference's does: the VLM runs without its patch prefix, and the
+encoder-decoder, which needs frames, raises ``KeyError`` naming them
+(the reference raises ``KeyError: 'frames'``).
 """
 from __future__ import annotations
 

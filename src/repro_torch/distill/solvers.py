@@ -18,8 +18,8 @@ runs on ``device`` (the plain versions of the kernels on the CPU):
            reference's.
   nystrom  m seeded landmarks Z; the normal equations
            (Kxz^T Kxz + l eps Kzz) beta = Kxz^T soft, their products
-           ``torch.matmul`` in fp32 (TF32 off on the card). The student
-           shrinks to the m landmarks.
+           ``torch.matmul`` in fp32 (TF32 off on the card), the solve in
+           fp64. The student shrinks to the m landmarks.
   auto     dense for l <= dense_max, nystrom for l >= nystrom_min, cg
            in between.
 
@@ -164,7 +164,10 @@ def nystrom_solve(soft, xp, gamma: float, cfg: DistillConfig, seed: int = 0,
     # near-duplicate landmark draws
     eye = torch.eye(m, dtype=A.dtype, device=dev)
     reg = l * cfg.eps * Kzz + (1e-7 * torch.trace(A) / m) * eye
-    beta = torch.linalg.solve(A + reg, Kxz.T @ _on(soft, dev))
+    # solved in fp64: the system's condition reaches ~1e6 (2.4e6 on emnist's
+    # 4,096 proxy rows), where an fp32 LU's answer moves with the host's
+    # thread count by ~1e-2
+    beta = torch.linalg.solve((A + reg).double(), (Kxz.T @ _on(soft, dev)).double()).float()
     return _student(z, beta, gamma, dev)
 
 

@@ -29,8 +29,10 @@ round's artifact deployed behind the multi-tenant fleet
 simulated-ms events on their own process track, pid 2).
 
 ``--engine sharded`` and ``--mesh`` raise: the sharded tier is ROADMAP
-queue 1 item 15. ``--mode lm`` runs the dense, MoE, SSM and hybrid
-``--arch``s; VLM and audio raise (``check_buildable``).
+queue 1 item 15. ``--mode lm`` feeds tokens alone, as the reference
+does: the VLM runs without patches, and ``whisper-base``, whose encoder
+needs frames, raises ``KeyError`` naming them (the reference raises
+``KeyError: 'frames'``).
 """
 from __future__ import annotations
 

@@ -10,11 +10,12 @@ it runs on the card unless the caller passes ``device="cpu"``::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --batch 4 --prompt-len 32 --gen 32
 
-The dense, MoE, SSM and hybrid families run (``llama3.2-1b``,
-``llama3.2-1b-swa8k``, ``qwen2-1.5b``, ``qwen2.5-14b``, ``glm4-9b``,
-``mixtral-8x22b``, ``phi3.5-moe-42b-a6.6b``, ``mamba2-2.7b``,
-``jamba-1.5-large-398b``); the VLM and audio families raise naming
-their ROADMAP item.
+Every architecture of ``configs`` runs. The VLM (``llava-next-mistral-7b``)
+gets zero patch embeddings and the audio family (``whisper-base``) zero
+frame embeddings, the stub frontends' inputs, as in the reference. The
+KV cache holds the patch prefix, the prompt and the generated tokens:
+the reference sizes it ``prompt_len + gen + 1``, without the prefix, so
+its ring-slot cache overwrites the prefix during decode.
 """
 from __future__ import annotations
 
@@ -39,7 +40,9 @@ def make_lm_score_fn(cfg, params, prefill, decode, gen: int):
 
     Runs batched prefill then greedy decode on the device that holds
     ``params``; padded (all-zero) prompt rows decode garbage that the
-    scheduler discards. Each call appends ``{"bucket", "prompt_len",
+    scheduler discards. The VLM's prefill gets zero patches and the
+    encoder-decoder's zero frames, and the cache has room for the patch
+    prefix. Each call appends ``{"bucket", "prompt_len",
     "gen", "prefill_seconds", "decode_seconds"}`` to ``score_fn.timings``:
     host seconds that end when the device is done (the first token's
     copy to the host ends the prefill; a synchronise ends the decode).
@@ -49,7 +52,12 @@ def make_lm_score_fn(cfg, params, prefill, decode, gen: int):
     def score_fn(prompts: np.ndarray) -> np.ndarray:
         bucket, prompt_len = prompts.shape
         batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32), device=device)}
-        cache = init_cache(cfg, bucket, kv_len=prompt_len + gen + 1, device=device)
+        if cfg.n_patches:
+            batch["patches"] = torch.zeros((bucket, cfg.n_patches, cfg.d_model), device=device)
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros((bucket, cfg.encoder_seq, cfg.d_model), device=device)
+        cache = init_cache(cfg, bucket, kv_len=cfg.n_patches + prompt_len + gen + 1,
+                           device=device)
         elapsed = stopwatch()
         logits, cache = prefill(params, batch, cache)
         tok = torch.argmax(logits, dim=-1)[:, None]

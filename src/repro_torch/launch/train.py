@@ -17,9 +17,10 @@ back every step, so a span ends when the step's work on the card is
 done.
 
 Only ``--mesh none`` runs: the sharded tier is ROADMAP queue 1 item 15.
-``--fsdp`` without a mesh has no effect, as in the reference. The
-dense, MoE, SSM and hybrid families train (the MoE's router aux loss in
-the loss); VLM and audio raise (``check_buildable``).
+``--fsdp`` without a mesh has no effect, as in the reference. Every
+family trains (the MoE's router aux loss in the loss); the VLM's batches
+carry zero patches and the encoder-decoder's zero frames, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -79,13 +80,18 @@ def main(argv=None, device="cuda"):
     # pooled synthetic federated LM data (per-client Markov sources)
     clients = make_federated_lm_data(8, cfg.vocab, 20_000, seed=args.seed)
     stream = token_batches(np.concatenate(clients), args.batch, args.seq, seed=args.seed)
+    extra = {}
+    if cfg.n_patches:
+        extra["patches"] = torch.zeros((args.batch, cfg.n_patches, cfg.d_model), device=dev)
+    if cfg.is_encdec:
+        extra["frames"] = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model), device=dev)
 
     ckpt = CheckpointManager(args.ckpt) if args.ckpt else None
     tracer = current_tracer()
     elapsed = stopwatch()
     for step in range(args.steps):
         window = torch.from_numpy(next(stream)).to(dev)
-        batch = {"tokens": window[:, :-1], "labels": window[:, 1:]}
+        batch = {"tokens": window[:, :-1], "labels": window[:, 1:], **extra}
         with tracer.span("train.step", cat="train", step=step):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])

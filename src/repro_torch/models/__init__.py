@@ -1,15 +1,17 @@
 """The LM of the deep path: config, parameters, layers, forward passes
-(ports of ``repro.models``: the dense, MoE, SSM and hybrid families)."""
+(ports of ``repro.models``: the dense, MoE, SSM, hybrid, VLM and
+encoder-decoder families)."""
 from repro_torch.models.config import (
     ModelConfig,
     active_param_count,
     param_count,
-    uncounted_conv_bias,
+    uncounted_params,
 )
 from repro_torch.models.layers import blocked_attention
 from repro_torch.models.model import (
     cache_nbytes,
     cache_spec,
+    encode,
     forward_decode,
     forward_prefill,
     forward_train,
@@ -26,12 +28,13 @@ __all__ = [
     "ModelConfig",
     "param_count",
     "active_param_count",
-    "uncounted_conv_bias",
+    "uncounted_params",
     "init_params",
     "model_specs",
     "param_tree",
     "blocked_attention",
     "forward_train",
+    "encode",
     "forward_prefill",
     "forward_decode",
     "init_cache",

@@ -213,8 +213,10 @@ def active_param_count(cfg: ModelConfig) -> int:
     return param_count(cfg) - n_moe_layers * (dense_moe - active_moe)
 
 
-def uncounted_conv_bias(cfg: ModelConfig) -> int:
+def uncounted_params(cfg: ModelConfig) -> int:
     """Parameters that both packages build and ``param_count`` (the
     reference's formula, kept as it is) leaves out: each Mamba layer's
-    conv bias, ``d_inner + 2 * ssm_state``."""
-    return sum(cfg.d_inner + 2 * cfg.ssm_state for m in cfg.mixer_kinds() if m == "mamba")
+    conv bias, ``d_inner + 2 * ssm_state``, and the encoder's learned
+    positions, ``encoder_seq * d_model``."""
+    conv_bias = sum(cfg.d_inner + 2 * cfg.ssm_state for m in cfg.mixer_kinds() if m == "mamba")
+    return conv_bias + (cfg.encoder_seq * cfg.d_model if cfg.is_encdec else 0)

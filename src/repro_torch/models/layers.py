@@ -9,7 +9,10 @@ reference's layouts: q/k/v ``(B, S, heads, hd)``, ``wq`` ``(d, H, hd)``,
 parameter names. The port has no mesh, so the reference's ``ShardCtx``
 constraints have no counterpart here (ROADMAP queue 1 item 15).
 
-Attention takes one of three routes, as in the reference
+The audio family's decoder adds ``cross_attention`` over the encoder's
+keys and values (``encode_kv``), dense ``_sdpa`` as in the reference.
+
+Self-attention takes one of three routes, as in the reference
 (``_self_attention_out``): with ``cfg.use_pallas`` the ``flash_attention``
 kernel (``repro_torch.kernels.ops``: the hand-written CUDA kernel on a
 CUDA tensor, its plain version on a CPU tensor); otherwise, above
@@ -244,6 +247,28 @@ def attention_decode(x, p, cfg: ModelConfig, step: int, cache: dict, window: int
         valid &= cpos > step - window
     out = _sdpa(q, cache["k"], cache["v"], valid[:, None, :])  # (B, 1, W) mask
     return _out_proj(out, p), cache
+
+
+def cross_attention(x, p, cfg: ModelConfig, enc_kv):
+    """Decoder cross-attention over the encoder's keys and values
+    (``encode_kv``): no RoPE and no mask, dense ``_sdpa`` as in the
+    reference, which reaches no kernel here either."""
+    q = torch.matmul(x, p.wq.flatten(1)).unflatten(-1, p.wq.shape[1:])
+    if cfg.qkv_bias:
+        q = q + p.bq
+    k, v = enc_kv
+    return _out_proj(_sdpa(q, k, v, None), p)
+
+
+def encode_kv(enc_out, p, cfg: ModelConfig):
+    """The encoder output's keys and values for one cross-attention layer,
+    (B, S_enc, K, hd) each; the cache keeps them for decode."""
+    k = torch.matmul(enc_out, p.wk.flatten(1)).unflatten(-1, p.wk.shape[1:])
+    v = torch.matmul(enc_out, p.wv.flatten(1)).unflatten(-1, p.wv.shape[1:])
+    if cfg.qkv_bias:
+        k = k + p.bk
+        v = v + p.bv
+    return k, v
 
 
 # ----------------------------------------------------------------------

@@ -21,6 +21,20 @@ the reference's per-layer layout as a list with one entry per layer,
 and ``step`` as a Python int. Prefill and decode update the cache's
 tensors in place and return the same dict.
 
+The VLM (``cfg.n_patches``) takes ``batch["patches"]``, the stub vision
+frontend's projected patch embeddings (B, P, d), as a prefix in front of
+the token embeddings: positions run over the whole sequence, the prefill
+caches the prefix with the prompt (a cache of ``kv_len >= P + prompt +
+gen`` keeps it through decode) and sets ``step`` to P + prompt, and
+``forward_train`` drops the prefix before the logits. Without patches in
+the batch the model reads tokens alone, as the reference's does. The
+audio family (``cfg.is_encdec``) runs ``encode`` over ``batch["frames"]``
+(B, S_enc, d) first: the learned ``pos``, non-causal self-attention
+blocks and ``rms_norm``; each decoder layer then adds a cross-attention
+over the encoder's output, whose keys and values the prefill stores in
+the layer's cache entry as ``xk`` and ``xv`` (B, S_enc, K, hd) for
+decode to read.
+
 The reference's train-only knobs act in train mode as its XLA path
 makes them act: ``cast_grads`` casts the trunk's gradient to
 ``cfg.dtype`` at the top of the stack (``_GradCast``, the reference's
@@ -54,7 +68,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import check_buildable, param_tree
 from repro_torch.models.ssm import mamba_mixer
-from repro_torch.optim import apply_updates
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import tree_leaves, tree_structure, tree_unflatten
 
@@ -94,15 +107,17 @@ def _remat_context(remat: str):
 # sub-layer
 # ----------------------------------------------------------------------
 
-def _apply_sublayer(x, p, kind, cfg: ModelConfig, *, mode: str, positions, cache, step):
-    """One (mixer + ffn) sub-layer with pre-norm residuals. Returns (x,
-    the MoE's aux loss or None)."""
+def _apply_sublayer(x, p, kind, cfg: ModelConfig, *, mode: str, positions, cache, step,
+                    enc_out=None, causal: bool = True):
+    """One (mixer + ffn) sub-layer with pre-norm residuals, and between
+    them the cross-attention over ``enc_out`` where the layer has one.
+    Returns (x, the MoE's aux loss or None)."""
     mixer, ffn = kind
     h = rms_norm(x, p.norm1, cfg.rms_eps)
     if mixer == "attn":
         w = cfg.sliding_window
         if mode == "train":
-            h = L.attention_dense(h, p.mixer, cfg, positions, causal=True, window=w)
+            h = L.attention_dense(h, p.mixer, cfg, positions, causal=causal, window=w)
         elif mode == "prefill":
             h, _ = L.attention_prefill(h, p.mixer, cfg, positions, cache["attn"], window=w)
         else:  # decode
@@ -111,6 +126,16 @@ def _apply_sublayer(x, p, kind, cfg: ModelConfig, *, mode: str, positions, cache
         h, _ = mamba_mixer(h, p.mixer, cfg, cache=None if cache is None else cache["mamba"],
                            decode=mode == "decode")
     x = x + h
+    if hasattr(p, "xattn"):   # the encoder-decoder's cross-attention
+        h = rms_norm(x, p.norm_x, cfg.rms_eps)
+        if mode == "decode":
+            enc_kv = (cache["xk"], cache["xv"])
+        else:
+            enc_kv = L.encode_kv(enc_out, p.xattn, cfg)
+            if cache is not None:
+                cache["xk"].copy_(enc_kv[0])
+                cache["xv"].copy_(enc_kv[1])
+        x = x + L.cross_attention(h, p.xattn, cfg, enc_kv)
     aux = None
     if ffn != "none":
         h = rms_norm(x, p.norm2, cfg.rms_eps)
@@ -122,7 +147,8 @@ def _apply_sublayer(x, p, kind, cfg: ModelConfig, *, mode: str, positions, cache
     return x, aux
 
 
-def _run_blocks(x, blocks, cfg: ModelConfig, *, mode: str, positions, blocks_cache, step):
+def _run_blocks(x, blocks, cfg: ModelConfig, *, mode: str, positions, blocks_cache, step,
+                enc_out=None):
     """Returns (x, the sum of the MoE layers' aux losses, fp32)."""
     kinds = cfg.sublayer_kinds()
     remat = mode == "train" and cfg.remat != "none" and torch.is_grad_enabled()
@@ -131,7 +157,8 @@ def _run_blocks(x, blocks, cfg: ModelConfig, *, mode: str, positions, blocks_cac
     for i, p in enumerate(blocks):
         cache = blocks_cache[i] if blocks_cache is not None else None
         block = functools.partial(_apply_sublayer, p=p, kind=kinds[i % len(kinds)], cfg=cfg,
-                                  mode=mode, positions=positions, cache=cache, step=step)
+                                  mode=mode, positions=positions, cache=cache, step=step,
+                                  enc_out=enc_out)
         x, a = checkpoint(block, x, use_reentrant=False, context_fn=context) if remat else block(x)
         if a is not None:
             aux = aux + a
@@ -147,37 +174,79 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# encoder (audio / enc-dec)
+# ----------------------------------------------------------------------
+
+def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder (``params``: the model's ``encoder`` node) over the
+    stub frontend's frame embeddings, frames (B, S_enc, d): the learned
+    ``pos`` added, one non-causal (attn, mlp) sub-layer per encoder layer
+    (RoPE over the frames' positions, as in the reference; the flash
+    kernel with ``use_pallas``), then ``rms_norm``."""
+    frames = torch.as_tensor(frames, device=params.pos.device)
+    x = frames.to(cfg.dtype) + params.pos[None, :frames.shape[1]]
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for p in params.blocks:
+        x, _ = _apply_sublayer(x, p, ("attn", "mlp"), cfg, mode="train", positions=positions,
+                               cache=None, step=None, causal=False)
+    return rms_norm(x, params.norm, cfg.rms_eps)
+
+
+def _inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """The decoder's input embeddings with the VLM's patch prefix in front
+    when the config has patches and the batch brings them, the prefix's
+    length, the positions over the whole sequence and, for an
+    encoder-decoder, the encoder's output."""
+    x = params.embed[_tokens(batch["tokens"], params)]
+    n_prefix = 0
+    if cfg.n_patches and "patches" in batch:
+        patches = torch.as_tensor(batch["patches"], device=x.device).to(cfg.dtype)
+        n_prefix = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    enc_out = None
+    if cfg.is_encdec:
+        if "frames" not in batch:
+            raise KeyError(f"{cfg.name}: the encoder-decoder needs batch['frames'], the "
+                           f"frontend's (B, {cfg.encoder_seq}, {cfg.d_model}) frame "
+                           "embeddings; the batch has only " + ", ".join(sorted(batch)))
+        enc_out = encode(params.encoder, batch["frames"], cfg)
+    return x, n_prefix, _positions(x.shape[0], x.shape[1], x.device), enc_out
+
+
+# ----------------------------------------------------------------------
 # forward passes
 # ----------------------------------------------------------------------
 
 def forward_train(params, cfg: ModelConfig, batch: Dict[str, Any]):
-    """Returns (logits over all positions, aux loss: the MoE layers' Switch
-    losses summed, 0 without MoE layers)."""
-    tokens = _tokens(batch["tokens"], params)
-    B, S = tokens.shape
-    x = params.embed[tokens]
-    x, aux = _run_blocks(x, params.blocks, cfg, mode="train",
-                         positions=_positions(B, S, x.device), blocks_cache=None, step=None)
+    """Returns (logits over the token positions, aux loss: the MoE layers'
+    Switch losses summed, 0 without MoE layers). ``batch`` holds
+    ``tokens`` (B, S) and, as the config asks, ``patches`` (the VLM's
+    prefix, dropped before the logits) and ``frames`` (the encoder's
+    input)."""
+    x, n_prefix, positions, enc_out = _inputs(params, cfg, batch)
+    x, aux = _run_blocks(x, params.blocks, cfg, mode="train", positions=positions,
+                         blocks_cache=None, step=None, enc_out=enc_out)
     if cfg.cast_grads:
         x = _GradCast.apply(x, cfg.dtype)
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     logits = torch.matmul(x, params.lm_head)
     return logits, aux
 
 
 @torch.no_grad()
 def forward_prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache):
-    """tokens (B, S) -> (logits of the last position (B, V), cache), the
-    cache filled in place and its ``step`` set to S."""
-    tokens = _tokens(batch["tokens"], params)
-    B, S = tokens.shape
-    x = params.embed[tokens]
-    x, _ = _run_blocks(x, params.blocks, cfg, mode="prefill",
-                       positions=_positions(B, S, x.device), blocks_cache=cache["blocks"],
-                       step=None)
+    """tokens (B, S) (and ``patches`` / ``frames`` as in ``forward_train``)
+    -> (logits of the last position (B, V), cache), the cache filled in
+    place and its ``step`` set to the whole length, prefix included."""
+    x, _, positions, enc_out = _inputs(params, cfg, batch)
+    x, _ = _run_blocks(x, params.blocks, cfg, mode="prefill", positions=positions,
+                       blocks_cache=cache["blocks"], step=None, enc_out=enc_out)
+    total = x.shape[1]
     x = rms_norm(x[:, -1:], params.final_norm, cfg.rms_eps)
     logits = torch.matmul(x, params.lm_head)[:, 0]
-    cache["step"] = S
+    cache["step"] = total
     return logits, cache
 
 
@@ -203,9 +272,13 @@ def _sublayer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, kv_len: int) 
     if mixer == "attn":
         W = min(cfg.sliding_window, kv_len) if cfg.sliding_window else kv_len
         K, hd = cfg.n_kv_heads, cfg.head_dim
-        return {"attn": {"k": ((batch, W, K, hd), cfg.dtype),
+        spec = {"attn": {"k": ((batch, W, K, hd), cfg.dtype),
                          "v": ((batch, W, K, hd), cfg.dtype),
                          "pos": ((batch, W), torch.int32)}}
+        if cfg.is_encdec:   # the cross-attention's keys and values
+            spec["xk"] = ((batch, cfg.encoder_seq, K, hd), cfg.dtype)
+            spec["xv"] = ((batch, cfg.encoder_seq, K, hd), cfg.dtype)
+        return spec
     H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
     return {"mamba": {"ssm": ((batch, H, N, P), torch.float32),
                       "conv": ((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * N), cfg.dtype)}}
@@ -213,8 +286,8 @@ def _sublayer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, kv_len: int) 
 
 def cache_spec(cfg: ModelConfig, batch: int, kv_len: int):
     """The cache's tree with (shape, dtype) leaves: one entry per layer
-    under ``blocks`` (``{"attn": ...}`` or ``{"mamba": ...}``), then
-    ``step``."""
+    under ``blocks`` (``{"attn": ...}``, with ``xk`` and ``xv`` beside it
+    in an encoder-decoder, or ``{"mamba": ...}``), then ``step``."""
     check_buildable(cfg)
     kinds = cfg.sublayer_kinds()
     blocks = [_sublayer_cache_spec(cfg, kinds[i % len(kinds)][0], batch, kv_len)
@@ -222,16 +295,31 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int):
     return {"blocks": blocks, "step": ((), torch.int32)}
 
 
+def _map_spec(fn, spec):
+    """``fn`` of each (shape, dtype) leaf of a sub-layer's cache spec, in
+    its nesting of dicts."""
+    if isinstance(spec, dict):
+        return {key: _map_spec(fn, sub) for key, sub in spec.items()}
+    return fn(spec)
+
+
+def _spec_leaves(spec):
+    if isinstance(spec, dict):
+        for sub in spec.values():
+            yield from _spec_leaves(sub)
+    else:
+        yield spec
+
+
 def cache_nbytes(spec) -> int:
     """The bytes of a ``cache_spec``'s tensors."""
     return sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-               for sub in spec["blocks"] for entry in sub.values()
-               for shape, dtype in entry.values())
+               for sub in spec["blocks"] for shape, dtype in _spec_leaves(sub))
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
-    """An empty cache on ``device``: k, v and the SSM and conv states
-    zeros, pos -1, step 0."""
+    """An empty cache on ``device``: k, v, xk, xv and the SSM and conv
+    states zeros, pos -1, step 0."""
     dev = resolve_device(device)
 
     def mk(leaf):
@@ -241,9 +329,7 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     spec = cache_spec(cfg, batch, kv_len)
-    blocks = [{kind: {name: mk(leaf) for name, leaf in entry.items()}
-               for kind, entry in sub.items()} for sub in spec["blocks"]]
-    return {"blocks": blocks, "step": 0}
+    return {"blocks": [_map_spec(mk, sub) for sub in spec["blocks"]], "step": 0}
 
 
 # ----------------------------------------------------------------------
@@ -264,9 +350,9 @@ def optimizer_step(params, opt_state, optimizer, loss_fn):
     """One step on ``loss_fn(params) -> (loss, metrics)``: the loss's
     gradients with respect to every parameter come from
     ``torch.autograd``, ``optimizer`` (a ``repro_torch.optim.Optimizer``
-    over ``param_tree(params)``) turns them into updates, and
-    ``apply_updates``' new values are copied into ``params`` (built with
-    ``trainable=True``). Returns ``(params, opt_state, metrics)``, the
+    over ``param_tree(params)``) turns them into updates, and each is
+    added into its parameter in place, ``apply_updates``' arithmetic
+    (``params`` built with ``trainable=True``). Returns ``(params, opt_state, metrics)``, the
     metrics detached."""
     tree = param_tree(params)
     leaves = tree_leaves(tree)
@@ -277,8 +363,8 @@ def optimizer_step(params, opt_state, optimizer, loss_fn):
     with torch.no_grad():
         updates, opt_state = optimizer.update(grads, opt_state, tree)
         del grads
-        for p, new in zip(leaves, tree_leaves(apply_updates(tree, updates))):
-            p.copy_(new)
+        for p, u in zip(leaves, tree_leaves(updates)):
+            p.add_(u)   # apply_updates' (p + u) in p's dtype, in place: the same bits
     return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
 

@@ -15,10 +15,13 @@ and loops over them.
 Serving builds frozen parameters (``requires_grad=False``); training
 builds them with ``trainable=True`` and reads them as a tree through
 ``param_tree``, the form the optimizers (``repro_torch.optim``) take.
-The dense, MoE, SSM (Mamba2) and hybrid (Jamba) families build: every
-(mixer, ffn) sub-layer of ``("attn" | "mamba") x ("mlp" | "moe" |
-"none")``. The cross-attention (audio) and patch-prefix (VLM) families
-raise until their ROADMAP item lands.
+Every family of the reference builds: every (mixer, ffn) sub-layer of
+``("attn" | "mamba") x ("mlp" | "moe" | "none")``; the VLM's layers are
+the dense family's (its patch prefix has no parameters here: the vision
+frontend is a stub that hands the model projected patch embeddings), and
+the audio family's decoder layers add ``norm_x`` and the cross-attention
+``xattn``, with the encoder's ``pos``, one ``(attn, mlp)`` sub-layer per
+encoder layer under ``blocks`` and its final ``norm`` in ``encoder``.
 """
 from __future__ import annotations
 
@@ -33,12 +36,7 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.device import resolve_device
 
-# families that need modules the port does not have yet
-_UNPORTED_FAMILIES = {
-    "vlm": "the patch-embedding prefix",
-    "audio": "the encoder and cross-attention",
-}
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # a normal leaf is drawn in blocks of at most this many fp32 bytes along
 # its first axis (jamba's (16, 8192, 24576) experts: 12.9 GB in one draw)
 _DRAW_BLOCK_BYTES = 1 << 31
@@ -52,11 +50,7 @@ class ParamSpec:
 
 
 def check_buildable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot run yet."""
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs {_UNPORTED_FAMILIES[cfg.family]}, "
-            "not ported yet (ROADMAP queue 1 item 13)")
+    """Raise ``ValueError`` for a family the reference does not have."""
     if cfg.family not in _PORTED_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
@@ -126,11 +120,14 @@ def _norm(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), "ones", torch.float32)
 
 
-def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool = False) -> dict:
     if mixer not in ("attn", "mamba") or ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"{cfg.name}: unknown sub-layer ({mixer}, {ffn})")
     specs = {"norm1": _norm(cfg),
              "mixer": _attn_specs(cfg) if mixer == "attn" else _mamba_specs(cfg)}
+    if cross:   # the encoder-decoder's cross-attention
+        specs["norm_x"] = _norm(cfg)
+        specs["xattn"] = _attn_specs(cfg)
     if ffn != "none":
         specs["norm2"] = _norm(cfg)
         specs["ffn"] = _moe_specs(cfg) if ffn == "moe" else _mlp_specs(cfg)
@@ -139,16 +136,26 @@ def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
 
 def model_specs(cfg: ModelConfig) -> dict:
     """The spec tree: embed, one entry per layer under ``blocks``,
-    final_norm, lm_head."""
+    final_norm, lm_head, and for an encoder-decoder the ``encoder``
+    (``pos``, one entry per encoder layer under ``blocks``, ``norm``)."""
     check_buildable(cfg)
     kinds = cfg.sublayer_kinds()
     d, V = cfg.d_model, cfg.vocab
-    return {
+    cross = cfg.is_encdec
+    specs = {
         "embed": ParamSpec((V, d), 0.02, cfg.dtype),
-        "blocks": [_sublayer_specs(cfg, *kinds[i % len(kinds)]) for i in range(cfg.n_layers)],
+        "blocks": [_sublayer_specs(cfg, *kinds[i % len(kinds)], cross=cross)
+                   for i in range(cfg.n_layers)],
         "final_norm": _norm(cfg),
         "lm_head": ParamSpec((d, V), 1 / np.sqrt(d), cfg.dtype),
     }
+    if cross:
+        specs["encoder"] = {
+            "pos": ParamSpec((cfg.encoder_seq, d), 0.02, cfg.dtype),
+            "blocks": [_sublayer_specs(cfg, "attn", "mlp") for _ in range(cfg.encoder_layers)],
+            "norm": _norm(cfg),
+        }
+    return specs
 
 
 class ParamNode(nn.Module):

@@ -16,7 +16,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 
 class Optimizer(NamedTuple):
@@ -71,17 +71,34 @@ def adamw(
     def update(grads, state, params):
         step = state["step"] + 1
         lr = lr_fn(step)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()), state["nu"], grads)
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
 
-        def upd(m, v, p):
-            mhat = m / bc1
-            vhat = v / bc2
-            return -lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float())
+        # each leaf's mu, nu and update are
+        #   b1 * m + (1 - b1) * g,   b2 * v + (1 - b2) * g^2,
+        #   -lr * (mu / bc1 / (sqrt(nu / bc2) + eps) + weight_decay * p),
+        # op for op, with one scratch tensor for the intermediates: a fresh
+        # tensor for each costs its page faults on the host
+        def leaf(m, v, g, p):
+            g = g.float()
+            mu = torch.mul(m, b1)
+            tmp = torch.mul(g, 1 - b1)
+            mu.add_(tmp)
+            nu = torch.mul(v, b2)
+            torch.square(g, out=tmp)
+            nu.add_(tmp.mul_(1 - b2))
+            upd = torch.div(mu, bc1)
+            torch.div(nu, bc2, out=tmp)
+            upd.div_(tmp.sqrt_().add_(eps))
+            upd.add_(torch.mul(p.float(), weight_decay, out=tmp))
+            return mu, nu, upd.mul_(-lr)
 
-        updates = tree_map(upd, mu, nu, params)
+        trees = (state["mu"], state["nu"], grads, params)
+        struct = tree_structure(trees[0])
+        if any(tree_structure(t) != struct for t in trees[1:]):
+            raise ValueError("adamw: moments, gradients and parameters of different structures")
+        out = [leaf(*leaves) for leaves in zip(*map(tree_leaves, trees))]
+        mu, nu, updates = (tree_unflatten(struct, [t[i] for t in out]) for i in range(3))
         return updates, {"step": step, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)

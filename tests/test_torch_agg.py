@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro import agg as ref_agg
 from repro.comm import wire as ref_wire
@@ -41,6 +42,10 @@ from repro_torch.core.svm import ConstantModel
 from repro_torch.data.federated import DeviceData
 from repro_torch.sim import PopulationConfig, make_federation, run_population, train_population
 from repro_torch.sim.engine import DeviceOutcome
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 DIM = 5

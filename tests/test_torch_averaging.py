@@ -38,6 +38,10 @@ from repro_torch.sim.engine import train_population as pt_train
 from repro_torch.utils import threefry
 from repro_torch.utils import trees as pt_trees
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 PEGASOS_TOL = 1e-5
 AUC_TOL = 1e-4
 

@@ -27,6 +27,10 @@ from repro_torch.utils.trees import (
     tree_unflatten,
 )
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 
 def _rng(purpose: str) -> np.random.Generator:
     return np.random.default_rng(derive_stream_seed(29, purpose))

@@ -23,6 +23,10 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.utils.seeds import derive_stream_seed
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 NAMES = sorted(ops.KERNEL_REGISTRY)
 pytestmark = pytest.mark.cuda
 
@@ -530,6 +534,45 @@ def test_flash_tc_matches_plain_at_smoke_shapes(cuda_device, case):
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ops.KERNEL_REGISTRY["flash_attention"].plain(q, k, v, causal, window)
     assert got.dtype == torch.bfloat16 and _bf16_close(got, want)
+
+
+# the VLM's prefill (2,880 patches + 2,048 tokens) and the audio encoder's
+# (1,500 frames, non-causal, ragged against the 128-row tile)
+FAMILY_PREFILLS = [c for c in SMOKE_FLASH if c[0].startswith(("llava", "whisper"))]
+
+
+@pytest.mark.parametrize("case", FAMILY_PREFILLS, ids=[c[0] for c in FAMILY_PREFILLS])
+def test_flash_fp32_matches_plain_at_the_vlm_and_audio_prefills(cuda_device, case):
+    """The fp32 kernel at the new families' prefill shapes within the
+    registry's 2e-5 (the bf16 kernel's cases are in the test above)."""
+    _, (B, S, H, K, hd), causal, window = case
+    rng = _rng("flash-fp32-" + case[0])
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+               .to(cuda_device) for h in (H, K, K))
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = spec.plain(q, k, v, causal, window)
+    assert float((got - want).abs().max()) <= spec.tol
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-base"])
+def test_reduced_vlm_and_audio_serve_matches_cpu(cuda_device, arch):
+    """The reduced VLM (zero patches) and encoder-decoder (zero frames)
+    through ``serve_prompts`` with the flash kernel on the card and its
+    plain version on the CPU: equal greedy tokens, one flash launch per
+    attention layer, the encoder's included."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch).reduced().replace(use_pallas=True)
+    prompts = _rng("serve-" + arch).integers(1, cfg.vocab, size=(3, 48)).astype(np.int32)
+    params = init_params(cfg, seed=0, device="cpu")
+    cpu, _ = serve_prompts(cfg, params, prompts, 6)
+    ops.reset_launch_counts()
+    card, _ = serve_prompts(cfg, params.to(cuda_device), prompts, 6)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers + cfg.encoder_layers
+    np.testing.assert_array_equal(card, cpu)
 
 
 @pytest.mark.parametrize("shape", ["registry", "ragged"])

@@ -2,6 +2,7 @@
 reference's answers byte for byte."""
 import numpy as np
 import pytest
+import torch
 
 from repro.data import federated as ref_fed
 from repro.data import partition as ref_part
@@ -11,6 +12,10 @@ from repro_torch.data import federated as pt_fed
 from repro_torch.data import partition as pt_part
 from repro_torch.utils import metrics as pt_metrics
 from repro_torch.utils import seeds as pt_seeds
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 DATASETS = ("emnist", "gleam", "sent140")
 SCALES = {"emnist": 0.01, "gleam": 0.5, "sent140": 0.01}

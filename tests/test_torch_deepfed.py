@@ -49,6 +49,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, chain, clip_by_global_norm
 from repro_torch.utils.trees import tree_leaves
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 SHAPE = dict(name="t", n_layers=2, d_model=48, n_heads=4, n_kv_heads=2, head_dim=12, d_ff=96,
              vocab=61)
 M, STEPS, BATCH, SEQ, LR = 3, 25, 4, 24, 4e-3
@@ -224,13 +228,32 @@ def test_few_shot_matches_reference(monkeypatch):
     assert all(np.isfinite(got.round_nll))
 
 
-def test_non_dense_families_raise():
-    """The families still to port (VLM, audio) raise; MoE, SSM and hybrid
-    build (``tests/test_torch_families.py`` runs a MoE round's pieces)."""
+def test_vlm_and_audio_in_the_deep_round():
+    """The round feeds tokens alone, in both packages: the reduced llava's
+    members (the reference's draws) give the reference's ensemble
+    log-probabilities (magnitude ~5 at the reduced width) within the
+    training logits' 1e-5 and held-out NLL within 1e-6, without their patch
+    prefix; whisper's encoder needs frames, and both packages raise
+    ``KeyError`` naming them."""
+    ref_cfg = ref_configs.get_config("llava-next-mistral-7b").reduced()
     cfg = pt_configs.get_config("llava-next-mistral-7b").reduced()
-    window = np.zeros((1, 2, 9), np.int32)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        deepfed.stacked_init(cfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        deepfed.distill_to_student(cfg, cfg, [], window, steps=1, device="cpu")
-    assert ref_configs.get_config("llava-next-mistral-7b").family == cfg.family == "vlm"
+    tree = _np(ref_deepfed.stacked_init(ref_cfg, 2, jax.random.PRNGKey(0)))
+    members = lm_stacked_from_arrays(tree, cfg, device="cpu")
+    windows = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 2, 13)).astype(np.int32)
+    stacked = jax.tree.map(jnp.asarray, tree)
+    want = ref_deepfed.ensemble_log_probs(stacked, ref_cfg, jnp.asarray(windows[0, :, :-1]))
+    got = deepfed.ensemble_log_probs(members, cfg, torch.from_numpy(windows[0, :, :-1]))
+    assert got.shape == (2, 12, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    want_nll = ref_deepfed.ensemble_eval_loss(stacked, ref_cfg, jnp.asarray(windows))
+    assert abs(deepfed.ensemble_eval_loss(members, cfg, windows) - want_nll) <= NLL_TOL
+
+    ref_cfg = ref_configs.get_config("whisper-base").reduced()
+    cfg = pt_configs.get_config("whisper-base").reduced()
+    tree = _np(ref_deepfed.stacked_init(ref_cfg, 1, jax.random.PRNGKey(0)))
+    with pytest.raises(KeyError, match="frames"):
+        ref_deepfed.ensemble_log_probs(jax.tree.map(jnp.asarray, tree), ref_cfg,
+                                       jnp.asarray(windows[0, :, :-1]))
+    with pytest.raises(KeyError, match="frames"):
+        deepfed.ensemble_log_probs(lm_stacked_from_arrays(tree, cfg, device="cpu"), cfg,
+                                   torch.from_numpy(windows[0, :, :-1]))

@@ -6,6 +6,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import distill as ref_core_distill
 from repro.core import ensemble as ref_ens
@@ -25,6 +26,10 @@ from repro_torch.distill import solvers as pt_solvers
 from repro_torch.distill import sweep as pt_sweep
 from repro_torch.distill.config import DistillConfig as PtConfig
 from repro_torch.sim.engine import train_population as pt_train
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 D = 16
 TOL = 1e-4

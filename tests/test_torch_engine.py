@@ -9,6 +9,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import svm as ref_svm
 from repro.data import make_dataset as ref_make
@@ -17,6 +18,10 @@ from repro.utils.seeds import derive_stream_seed
 from repro_torch.core import svm as pt_svm
 from repro_torch.data import make_dataset as pt_make
 from repro_torch.sim import engine as pt_engine
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 
 def _rng(purpose: str, index: int = 0) -> np.random.Generator:

@@ -50,6 +50,10 @@ from repro_torch.utils.trees import (
     tree_unflatten,
 )
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 MOE_ARCH, SSM_ARCH = "phi3.5-moe-42b-a6.6b", "mamba2-2.7b"
 MOE_TOL = SSD_TOL = 1e-5
 RECURRENCE_TOL = 1e-3

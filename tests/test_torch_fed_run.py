@@ -22,6 +22,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as ref_configs
 from repro import models as ref_models
@@ -32,6 +33,10 @@ from repro_torch.convert import lm_params_from_arrays, lm_stacked_from_arrays
 from repro_torch.core import deepfed
 from repro_torch.launch import fed_run
 from repro_torch.obs.trace import SCHEMA
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 AUC_TOL = 1e-4   # docs/ARCHITECTURE.md:375
 NLL_TOL = 1e-4
@@ -186,6 +191,12 @@ def test_lm_mode_runs_the_moe_and_ssm_families(arch, monkeypatch, tmp_path):
     _check_lm_mode(arch, "kl", monkeypatch, tmp_path)
 
 
+def test_lm_mode_runs_the_vlm_family(monkeypatch, tmp_path):
+    """``--mode lm --arch llava-next-mistral-7b``: tokens alone, no patch
+    prefix, in both packages."""
+    _check_lm_mode("llava-next-mistral-7b", "kl", monkeypatch, tmp_path)
+
+
 def _check_lm_mode(arch, loss, monkeypatch, tmp_path):
     ref_cfg = ref_configs.get_config(arch).reduced()
     tree = lambda t: jax.tree.map(np.asarray, t)
@@ -217,6 +228,10 @@ def test_sharded_tier_is_not_ported(argv):
                      device="cpu")
 
 
-def test_lm_mode_refuses_families_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fed_run.main(["--arch", "whisper-base"] + LM_ARGV, device="cpu")
+def test_lm_mode_refuses_audio_without_frames():
+    """``--mode lm`` feeds tokens alone; whisper's encoder needs frames, and
+    both packages raise ``KeyError`` naming them."""
+    with pytest.raises(KeyError, match="frames"):
+        ref_fed_run.main(["--mode", "lm", "--arch", "whisper-base"] + LM_ARGV)
+    with pytest.raises(KeyError, match="frames"):
+        fed_run.main(["--mode", "lm", "--arch", "whisper-base"] + LM_ARGV, device="cpu")

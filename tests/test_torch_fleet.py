@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro import fleet as ref_fleet
 from repro.agg import WeightedEnsemble as RefWeighted
@@ -36,6 +37,10 @@ from repro_torch.obs import registry as pt_registry
 from repro_torch.obs import trace as pt_trace
 from repro_torch.serve import EnsembleScorer, ServeConfig
 from repro_torch.serve.cache import query_key
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 SCORE_TOL = 1e-4   # the scorers' registry tol

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 

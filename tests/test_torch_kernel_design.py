@@ -66,6 +66,10 @@ from repro_torch.kernels import rbf_gram_q8 as q8
 from repro_torch.kernels import sdca as sdca_mod
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4   # chip_smoke.py's bf16 tolerance
 BQ, BK = 128, 64                         # query rows and keys per tile, as the kernel

@@ -19,6 +19,10 @@ from repro.utils.seeds import derive_stream_seed
 from repro_torch.kernels import native
 from repro_torch.kernels import ops
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 NAMES = sorted(ops.KERNEL_REGISTRY)
 JAX_DISPATCH = {
     "batched_rbf_gram": ref_ops.batched_rbf_gram,

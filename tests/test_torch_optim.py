@@ -24,6 +24,10 @@ from repro_torch.core import distill as pt_distill
 from repro_torch.utils import metrics as pt_metrics
 from repro_torch.utils import trees as pt_trees
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 UPDATE_TOL, SCHEDULE_TOL, LOSS_TOL = 1e-6, 1e-7, 1e-6
 N_UPDATES = 5
 

@@ -14,6 +14,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.distill import DistillConfig as RefDistill
 from repro.sim import PopulationConfig as RefConfig
@@ -21,6 +22,10 @@ from repro.sim import run_population as ref_run
 from repro_torch.distill import DistillConfig as PtDistill
 from repro_torch.sim import PopulationConfig as PtConfig
 from repro_torch.sim import run_population as pt_run
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 TOL = 1e-4   # the reference's engine-tier tolerance
 CASES = {

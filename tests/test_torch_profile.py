@@ -33,6 +33,10 @@ from repro_torch.roofline import analytic as pt_analytic
 from repro_torch.roofline import report as pt_report
 from test_sharding import HLO_SAMPLE, FakeMesh
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 ROOFLINE_KEYS = ("flops", "bytes_accessed", "achieved_gflops", "roofline_bound_us",
                  "roofline_frac", "dominant")
 

@@ -8,6 +8,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.protocol import run_protocol as ref_run
 from repro.data import make_dataset as ref_make
@@ -15,6 +16,10 @@ from repro.distill import DistillConfig as RefDistill
 from repro_torch.core.protocol import run_protocol as pt_run
 from repro_torch.data import make_dataset as pt_make
 from repro_torch.distill import DistillConfig as PtDistill
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 GLEAM = dict(data="gleam", scale=0.4, ks=(1, 3, 10), random_trials=2)
 EMNIST = dict(data="emnist", scale=0.02, ks=(1, 10, 50), random_trials=2)

@@ -9,6 +9,7 @@ import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from repro.data import lm_data as ref_lm
 from repro.serve import cache as ref_cache
@@ -17,6 +18,10 @@ from repro.utils.seeds import derive_stream_seed
 from repro_torch.data import lm_data as pt_lm
 from repro_torch.serve import cache as pt_cache
 from repro_torch.serve import scheduler as pt_sched
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 PKGS = {"ref": (ref_sched, ref_cache), "pt": (pt_sched, pt_cache)}
 

@@ -16,6 +16,7 @@ import tracemalloc
 
 import numpy as np
 import pytest
+import torch
 
 from repro.comm import channel as ref_channel
 from repro.comm.ledger import CommLedger as RefLedger
@@ -35,6 +36,10 @@ from repro_torch.core.selection import (
 from repro_torch.distill import proxy as pt_proxy
 from repro_torch.sim import engine as pt_engine
 from repro_torch.sim import scenarios as pt_scenarios
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 ALL_SCENARIOS = tuple(sorted(pt_scenarios.SCENARIOS))
 STREAM_KW = dict(n_devices=12, seed=5, mean_samples=30, min_samples=20, dim=8)

@@ -11,8 +11,9 @@ where a gradient is near zero (|g| < 1e-6, within 100x of AdamW's eps
 1e-8), ``m / (sqrt(v) + eps)`` turns the last-place rounding of the
 gradient into a visible change of the update. The test names them and
 bounds their number and size. Reduced phi3.5-moe (the router's aux loss
-in the loss) and mamba2 are held to the same bars step by step, each
-step from the reference's own state. ``cast_grads`` and
+in the loss), mamba2, llava (random patch embeddings in front of each
+batch) and whisper (random frames through the encoder) are held to the
+same bars step by step, each step from the reference's own state. ``cast_grads`` and
 ``remat`` full / dots give the ``remat="none"`` losses within 1e-6 (for
 the two families too), and ``launch.train.main``
 on the CPU gets the loss below 6.0 in 180 steps, as
@@ -42,6 +43,10 @@ from repro_torch.models import forward_train, init_params, lm_loss, make_train_s
 from repro_torch.obs.trace import Tracer, use_tracer
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves
 
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
+
 ARCH, STEPS, BATCH, SEQ, LR = "llama3.2-1b", 3, 4, 32, 1e-3
 LOSS_RTOL, PARAM_TOL, KNOB_TOL = 1e-5, 1e-5, 1e-6
 # AdamW's normalisation amplifies the rounding of a gradient within 100x of eps
@@ -50,8 +55,9 @@ MAX_AMPLIFIED = 16            # elements of 426,624 (7 seen)
 MAX_AMPLIFIED_DIFF = 2 * STEPS * LR   # the most 3 steps can move two parameters apart
 
 
-# the MoE and SSM families' reduced train steps, held as llama3.2-1b's
-FAMILIES = ("phi3.5-moe-42b-a6.6b", "mamba2-2.7b")
+# the MoE, SSM, VLM and audio families' reduced train steps, held as
+# llama3.2-1b's
+FAMILIES = ("phi3.5-moe-42b-a6.6b", "mamba2-2.7b", "llava-next-mistral-7b", "whisper-base")
 
 
 def _cfgs(arch=ARCH):
@@ -64,12 +70,21 @@ def _ref_tree(arch=ARCH):
     return jax.tree.map(np.asarray, ref_models.init_params(ref_cfg, jax.random.PRNGKey(0)))
 
 
-def _batches(vocab: int):
-    clients = make_federated_lm_data(8, vocab, 2000, seed=0)
+def _batches(cfg):
+    """STEPS windows of the pooled synthetic data, with the VLM's patch
+    embeddings and the encoder's frames (seeded normals) as the config
+    asks."""
+    clients = make_federated_lm_data(8, cfg.vocab, 2000, seed=0)
     stream = token_batches(np.concatenate(clients), BATCH, SEQ, seed=0)
+    rng = np.random.default_rng(1)
     for _ in range(STEPS):
         w = next(stream)
-        yield {"tokens": w[:, :-1], "labels": w[:, 1:]}
+        b = {"tokens": w[:, :-1], "labels": w[:, 1:]}
+        if cfg.n_patches:
+            b["patches"] = rng.normal(size=(BATCH, cfg.n_patches, cfg.d_model))
+        if cfg.encoder_layers:
+            b["frames"] = rng.normal(size=(BATCH, cfg.encoder_seq, cfg.d_model))
+        yield {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in b.items()}
 
 
 def _port_losses(cfg, steps=STEPS, arch=ARCH):
@@ -78,7 +93,7 @@ def _port_losses(cfg, steps=STEPS, arch=ARCH):
     state = opt.init(param_tree(params))
     step = make_train_step(cfg, opt)
     losses = []
-    for b in _batches(cfg.vocab):
+    for b in _batches(cfg):
         params, state, m = step(params, state, {k: torch.from_numpy(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
     return losses, params
@@ -107,7 +122,7 @@ def test_train_step_matches_reference():
     pt_s = pt_opt.init(param_tree(pt_p))
     pt_step = make_train_step(pt_cfg, pt_opt)
     near_zero = None   # per leaf: some step's reference gradient was near zero
-    for b in _batches(ref_cfg.vocab):
+    for b in _batches(ref_cfg):
         jb = {k: jnp.asarray(v) for k, v in b.items()}
         g = lm_params_from_arrays(jax.tree.map(np.asarray, ref_grad(ref_p, jb)), pt_cfg,
                                   device="cpu")
@@ -188,7 +203,7 @@ def test_family_train_step_matches_reference(arch):
         return torch.cat([v.flatten() for _, v in _flat(params)])
 
     amplified = []
-    for i, b in enumerate(_batches(ref_cfg.vocab)):
+    for i, b in enumerate(_batches(ref_cfg)):
         adam = ref_s[1]
         state = ({}, {"step": torch.tensor(int(adam["step"]), dtype=torch.int32),
                       "mu": param_tree(port(adam["mu"])), "nu": param_tree(port(adam["nu"]))})
@@ -256,7 +271,7 @@ def test_remat_recomputes_in_the_backward():
     (their outputs were saved), the whole blocks with "full"."""
     _, cfg = _cfgs()
     params = lm_params_from_arrays(_ref_tree(), cfg, device="cpu", trainable=True)
-    b = next(_batches(cfg.vocab))
+    b = next(_batches(cfg))
     counts = {}
     for remat in ("none", "dots", "full"):
         logits, _ = forward_train(params, cfg.replace(remat=remat), b)
@@ -281,7 +296,7 @@ def test_remat_dots_recomputes_the_experts_products():
     arch = FAMILIES[0]
     _, cfg = _cfgs(arch)
     params = lm_params_from_arrays(_ref_tree(arch), cfg, device="cpu", trainable=True)
-    b = next(_batches(cfg.vocab))
+    b = next(_batches(cfg))
     counts = {}
     for remat in ("none", "dots"):
         logits, aux = forward_train(params, cfg.replace(remat=remat), b)
@@ -326,7 +341,7 @@ def test_frozen_params_refused():
     _, cfg = _cfgs()
     params = init_params(cfg, seed=0, device="cpu")
     opt = pt_train.make_optimizer(LR)
-    b = next(_batches(cfg.vocab))
+    b = next(_batches(cfg))
     with pytest.raises(ValueError, match="trainable=True"):
         make_train_step(cfg, opt)(params, opt.init(param_tree(params)), b)
 
@@ -366,9 +381,23 @@ def test_bf16_params_checkpoint_round_trip(tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     (["--arch", "llama3.2-1b", "--reduced", "--mesh", "debug"], "queue 1 item 15"),
-    (["--arch", "llava-next-mistral-7b", "--reduced"], "not ported yet"),
 ])
 def test_train_driver_refuses_what_is_not_ported(argv, err):
     with pytest.raises(NotImplementedError, match=err):
         pt_train.main(argv + ["--steps", "1"], device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-base"])
+def test_train_driver_runs_the_vlm_and_audio_families(arch):
+    """``launch.train.main`` on the reduced VLM (zero patches in each
+    batch) and encoder-decoder (zero frames), as the reference's driver
+    feeds them: 3 steps, each loss finite and within 1 of ln(vocab), the
+    cross-entropy of a model at its random init."""
+    tracer = Tracer()
+    with use_tracer(tracer):
+        loss = pt_train.main(["--arch", arch, "--reduced", "--steps", "3", "--batch", "2",
+                              "--seq", "16", "--lr", "3e-3"], device="cpu")
+    losses = [e["args"]["loss"] for e in tracer.events if e["name"] == "train.metrics"]
+    assert len(losses) == 3 and losses[-1] == loss
+    assert all(abs(x - np.log(_cfgs(arch)[1].vocab)) < 1.0 for x in losses), losses
 

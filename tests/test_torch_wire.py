@@ -2,6 +2,7 @@
 between the reference and the port unchanged, on the CPU."""
 import numpy as np
 import pytest
+import torch
 
 from repro.comm import wire as ref_wire
 from repro.core import ensemble as ref_ens
@@ -13,6 +14,10 @@ from repro_torch.comm import wire as pt_wire
 from repro_torch.core import ensemble as pt_ens
 from repro_torch.core import selection as pt_sel
 from repro_torch.core import svm as pt_svm
+
+# one intra-op thread: pytest-xdist workers run whole files side by side,
+# and torch's default of a thread a core would oversubscribe the host
+torch.set_num_threads(1)
 
 
 def _rng(purpose: str, index: int = 0) -> np.random.Generator:
