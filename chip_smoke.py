@@ -76,7 +76,12 @@ It imports the port and nothing of JAX or of the reference package
            round once more under ``torch.profiler`` for the device's busy
            share and the device time of ``batched_rbf_gram`` (its 39
            launches) and ``rbf_gram`` beside the bound of the round's own
-           launch shapes (``ops.round_gram_launches``);
+           launch shapes (``ops.round_gram_launches``); then the same round
+           with ``engine="sharded"`` in this process, a one-rank ``nccl``
+           world started by ``launch.mesh.make_sim_mesh``: one shard,
+           ``round_signature`` and every AUC bitwise the bucketed round's,
+           ``batched_rbf_gram`` and ``sdca`` launched, its seconds and
+           ``engine.gather`` spans beside the bucketed round's;
   main_q8  the same federation with the int8 codec and CG distillation on
            4,096 validation-pool proxy rows: spans (``distill.round``
            included), AUCs (the distilled student's included), the
@@ -219,7 +224,16 @@ It imports the port and nothing of JAX or of the reference package
            ledgers, AUCs within 1e-4 (the distilled one where the CG
            converged), the fleet summaries byte for byte, the trace's
            ``round.*``, ``engine.*`` and fleet (pid 2) tracks, and the
-           seven SVM kernels launched; ``--mode lm`` at its defaults: the
+           seven SVM kernels launched; then the fp32 run with ``--engine
+           sharded --mesh 2`` on two ranks sharing the one card: two
+           processes (``torch.multiprocessing``, ``spawn``), both on
+           ``cuda:0``, each joining a ``gloo`` world itself (NCCL refuses
+           two ranks on one GPU): rank 0's JSON equal to the bucketed
+           cuda run's but for ``engine``, the mesh keys and the timings,
+           ``mesh`` 2, and ``batched_rbf_gram`` and ``sdca`` launched on
+           each rank (a rank that hangs past its deadline or exits
+           non-zero fails the phase), then each rank's second run's
+           seconds (warm); ``--mode lm`` at its defaults: the
            reference's keys, equal byte counts, finite NLLs;
   fleet    the SVM serving path and the multi-tenant fleet
            (``repro_torch.serve``, ``repro_torch.fleet``): (1) the emnist
@@ -276,8 +290,9 @@ for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
 ``launches_fleet``, in ``train`` (b)'s steps as ``launches_train``, in
 ``deep`` (b)'s round as ``launches_deep``, in ``families`` (b)'s
-counted serves as ``launches_families`` and in the ``cli`` runs on
-cuda as ``launches_cli``;
+counted serves as ``launches_families``, in the ``cli`` runs on
+cuda as ``launches_cli`` and in ``main``'s sharded round as
+``launches_sharded``;
 the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
@@ -293,6 +308,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -871,12 +887,68 @@ def phase_parity(make_dataset, run_protocol, DistillConfig):
     return out
 
 
-def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False, **kw):
+SHARDED_KERNELS = ("batched_rbf_gram", "sdca")   # what each rank of the sharded tier runs
+
+
+def sharded_round(ds, run_protocol, ops, trace, bucketed, bucketed_seconds):
+    """``main``'s round again with ``engine="sharded"`` in this process, on
+    a one-rank ``nccl`` world that ``make_sim_mesh`` starts: one shard,
+    the bucketed round's ``round_signature`` and AUC bits, the fit and
+    SDCA kernels launched."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sim import make_shard_ctx
+
+    n_shards = make_shard_ctx(device="cuda").n_shards
+    tracer = trace.Tracer()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device="cuda", engine="sharded")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    spans = tracer.span_seconds()
+    begun, gathers = [], []   # each engine.gather span's seconds, in order
+    for e in tracer.events:
+        if e["name"] == "engine.gather":
+            if e["ph"] == "B":
+                begun.append(e["ts"])
+            else:
+                gathers.append((e["ts"] - begun.pop()) / 1e6)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "n_shards": n_shards,
+           "round_seconds": wall, "bucketed_round_seconds": bucketed_seconds,
+           "spans": {k: v for k, v in sorted(spans.items())}, "gathers": len(gathers),
+           "gather_seconds": {"first": gathers[0] if gathers else None,
+                              "median_rest": float(np.median(gathers[1:])) if gathers[1:] else None,
+                              "max_rest": max(gathers[1:], default=None),
+                              "total": sum(gathers)},
+           "signature_equal": round_signature(res) == round_signature(bucketed),
+           "aucs_bitwise": auc_values(res).tobytes() == auc_values(bucketed).tobytes(),
+           "kernels": counts}
+    if n_shards != 1 or "nccl" not in out["backend"]:
+        raise AssertionError(f"main [sharded]: {n_shards} shards on {out['backend']}, "
+                             "want 1 on nccl")
+    if not (out["signature_equal"] and out["aucs_bitwise"]):
+        raise AssertionError("main [sharded]: the sharded round's ledger, ids, best k or "
+                             "AUCs differ from the bucketed round's")
+    idle = [k for k in SHARDED_KERNELS if counts[k] <= 0]
+    if idle or not gathers:
+        raise AssertionError(f"main [sharded]: kernels {idle} not launched, "
+                             f"{len(gathers)} gathers: {counts}")
+    return out
+
+
+def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False,
+               sharded=False, **kw):
     """One full-scale emnist round on cuda with ``kw`` (codec, distill),
     then the same round under the profiler. ``must_launch`` names the
     kernels that must have launched at least once in the measured round;
     with ``gram``, rows 1 and 3's device time in the profiled round beside
-    the bound of its launches (``gram_round``)."""
+    the bound of its launches (``gram_round``); with ``sharded``, the
+    round on the sharded tier (``sharded_round``)."""
     import numpy as np
     import torch
 
@@ -926,6 +998,8 @@ def phase_main(make_dataset, run_protocol, ops, trace, must_launch, gram=False, 
         if cg and sum(cg) != counts["gram_matvec"]:
             raise AssertionError(f"main: gram_matvec launched {counts['gram_matvec']} "
                                  f"times for {sum(cg)} CG iterations")
+    if sharded:
+        out["sharded"] = sharded_round(ds, run_protocol, ops, trace, res, wall)
     out["profile"], _ = profile_call(lambda: run_protocol(ds, ks=MAIN_KS, random_trials=3,
                                                           device="cuda", **kw),
                                      functions=tuple(DEVICE_FUNCTIONS) if gram else ())
@@ -2724,6 +2798,122 @@ def sim_aucs(report, distilled=True):
     return vals
 
 
+# the cli phase's sharded run: CLI_RUNS[SHARDED_CLI_RUN] with ``--engine
+# sharded`` on SHARDED_CLI_RANKS ranks sharing the one card
+SHARDED_CLI_RUN = "fp32"
+SHARDED_CLI_RANKS = 2
+SHARDED_CLI_GROUP_TIMEOUT = datetime.timedelta(seconds=120)   # a collective waiting longer fails
+SHARDED_CLI_DEADLINE = datetime.timedelta(seconds=300)        # a rank running longer is killed
+SHARDED_CLI_SKIP = ("engine", "mesh", "mesh_requested", "train_seconds", "devices_per_second")
+
+
+def comparable_report(report):
+    """``fed_run``'s sim JSON without what a sharded run may change: the
+    engine, the mesh keys, the timings and the process's metrics registry."""
+    out = {k: v for k, v in report.items() if k not in SHARDED_CLI_SKIP + ("obs",)}
+    out["obs"] = {k: v for k, v in report["obs"]["sections"].items() if k != "metrics"}
+    return json.loads(json.dumps(out))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_cli_rank(rank, world, port, argv, out_dir):
+    """One spawned rank of the cli phase's sharded run: join the ``gloo``
+    world on localhost, run ``fed_run.main`` on cuda:0 twice (the second
+    run's seconds without the process's start-up) and write the first
+    run's JSON and launches, both runs' seconds (or the traceback) under
+    ``out_dir``."""
+    out = Path(out_dir)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.kernels import ops
+        from repro_torch.launch import fed_run
+        from repro_torch.utils.device import resolve_device
+
+        device = resolve_device("cuda:0")
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=SHARDED_CLI_GROUP_TIMEOUT)
+        report, counts, _, seconds = cli_main(fed_run, ops, argv, device)
+        warm, _, _, warm_seconds = cli_main(fed_run, ops, argv, device)   # started up
+        torch.cuda.synchronize()
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            {"report": report, "kernels": counts, "seconds": seconds, "device": str(device),
+             "backend": dist.get_backend(), "warm_seconds": warm_seconds,
+             "warm_train_seconds": warm["train_seconds"]}))
+        dist.barrier()   # no rank tears the world down under another's feet
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def sharded_cli(bucketed_report):
+    """``CLI_RUNS[SHARDED_CLI_RUN]`` with ``--engine sharded --mesh 2`` on two
+    spawned ranks sharing cuda:0 over ``gloo``: every rank's ``mesh`` 2,
+    rank 0's JSON ``comparable_report``-equal to the bucketed cuda run's,
+    the fit and SDCA kernels launched on each rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = SHARDED_CLI_RANKS
+    argv = CLI_RUNS[SHARDED_CLI_RUN][0] + ["--engine", "sharded", "--mesh", str(n)]
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fed_run_sharded_") as tmp:
+        port = free_port()
+        procs = [ctx.Process(target=sharded_cli_rank, args=(r, n, port, argv, tmp))
+                 for r in range(n)]
+        for proc in procs:
+            proc.start()
+        timeout = SHARDED_CLI_DEADLINE.total_seconds()
+        for proc in procs:
+            proc.join(timeout)
+            if proc.is_alive():
+                timeout = 0.0   # one rank hung: the others are checked, not waited for
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        errors = {r: (Path(tmp) / f"rank{r}.err").read_text()[-3000:] for r in range(n)
+                  if (Path(tmp) / f"rank{r}.err").exists()}
+        if hung or codes != [0] * n:
+            raise AssertionError(f"cli [sharded]: hung ranks {hung}, exit codes {codes}, "
+                                 f"errors {errors}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+    want = comparable_report(bucketed_report)
+    out = {"argv": argv, "ranks": n, "seconds": time.perf_counter() - t0,
+           "rank_seconds": [r["seconds"] for r in ranks], "devices": [r["device"] for r in ranks],
+           "backend": ranks[0]["backend"], "mesh": [r["report"]["mesh"] for r in ranks],
+           "bucketed_train_seconds": bucketed_report["train_seconds"],
+           "train_seconds": [r["report"]["train_seconds"] for r in ranks],
+           "warm_rank_seconds": [r["warm_seconds"] for r in ranks],
+           "warm_train_seconds": [r["warm_train_seconds"] for r in ranks],
+           "rank0_equal": comparable_report(ranks[0]["report"]) == want,
+           "every_rank_equal": all(comparable_report(r["report"]) == want for r in ranks),
+           "kernels": [r["kernels"] for r in ranks]}
+    if out["mesh"] != [n] * n or not out["rank0_equal"]:
+        raise AssertionError(f"cli [sharded]: mesh {out['mesh']}, rank 0's JSON equal to the "
+                             f"bucketed run's: {out['rank0_equal']}")
+    idle = [(r, k) for r, c in enumerate(out["kernels"]) for k in SHARDED_KERNELS if not c.get(k)]
+    if idle:
+        raise AssertionError(f"cli [sharded]: (rank, kernel) {idle} not launched: "
+                             f"{out['kernels']}")
+    return out
+
+
 def phase_cli(ops, device):
     """Each ``CLI_RUNS`` round through ``fed_run.main`` with ``--trace`` on
     cuda and on cpu (the plain versions): equal ``comm`` blocks and ledger
@@ -2737,12 +2927,13 @@ def phase_cli(ops, device):
 
     from repro_torch.launch import fed_run
 
-    out, total = {}, {}
+    out, total, bucketed = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="fed_run_") as tmp:
         for name, (argv, kernels) in CLI_RUNS.items():
             runs = {dev: cli_main(fed_run, ops, argv, dev, Path(tmp) / f"{name}_{dev}.json")
                     for dev in ("cuda", "cpu")}
             (card, counts, doc, card_s), (cpu, _, cpu_doc, cpu_s) = runs["cuda"], runs["cpu"]
+            bucketed[name] = card
             _add_counts(total, counts)
             cg = {dev: [e["args"]["iterations"] for e in d["traceEvents"]
                         if e["name"] == "distill.cg"]
@@ -2786,6 +2977,7 @@ def phase_cli(ops, device):
             idle = [k for k in kernels if not counts.get(k)]
             if idle:
                 raise AssertionError(f"cli [{name}]: kernels {idle} not launched: {counts}")
+        out["sharded"] = sharded_cli(bucketed[SHARDED_CLI_RUN])
         lm = {dev: cli_main(fed_run, ops, [], dev) for dev in ("cuda", "cpu")}
     (card, counts, _, card_s), (cpu, _, _, cpu_s) = lm["cuda"], lm["cpu"]
     _add_counts(total, counts)
@@ -3519,8 +3711,9 @@ def main(argv=None) -> int:
                 out = phase_parity(make_dataset, run_protocol, DistillConfig)
             elif phase == "main":
                 out, artifacts[phase] = phase_main(make_dataset, run_protocol, ops, trace,
-                                                   FP32_KERNELS, gram=True)
+                                                   FP32_KERNELS, gram=True, sharded=True)
                 counts[phase] = out["kernels"]
+                counts["sharded"] = out["sharded"]["kernels"]
             elif phase == "main_q8":
                 out, artifacts[phase] = phase_main(
                     make_dataset, run_protocol, ops, trace, FP32_KERNELS + Q8_KERNELS,
@@ -3571,6 +3764,11 @@ def main(argv=None) -> int:
             out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
         emit(out)
 
+    import torch.distributed as dist
+
+    if dist.is_initialized():   # main's sharded round started a one-rank world
+        dist.destroy_process_group()
+
     # each kernel's launches come from the run it was ported for: the fp32
     # round's four from ``main``, the int8 + distillation round's three from
     # ``main_q8``, flash attention from ``serve`` (every phase line carries
@@ -3587,6 +3785,7 @@ def main(argv=None) -> int:
             "launches_deep": counts.get("deep", {}).get(name),
             "launches_families": counts.get("families", {}).get(name),
             "launches_cli": counts.get("cli", {}).get(name),
+            "launches_sharded": counts.get("sharded", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -31,8 +31,9 @@ is the best cell's AGGREGATED scorer.
 Everything runs on ``device`` (default the card; ``"cpu"`` runs the
 kernels' plain versions). ``engine="streamed"`` trains the materialised
 dataset through the streamed tier (``train_population`` wraps it as a
-stream), with the bucketed tier's results. ``engine="sharded"`` raises
-``NotImplementedError`` naming its ROADMAP item.
+stream), and ``engine="sharded"`` over the ranks of a
+``torch.distributed`` world (``sim.engine.make_shard_ctx``; every rank
+runs the whole round), both with the bucketed tier's results.
 """
 from __future__ import annotations
 
@@ -112,10 +113,7 @@ def _mean_auc_over_devices(devices: Sequence, scores_fn, chunk: int = 8192) -> t
 
 
 def _check_engine(engine) -> None:
-    if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP queue 1 item 15)")
-    if engine not in ("bucketed", "loop", "streamed"):
+    if engine not in ("bucketed", "loop", "sharded", "streamed"):
         raise ValueError(f"unknown engine mode {engine!r}")
 
 

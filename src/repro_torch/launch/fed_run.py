@@ -15,7 +15,8 @@ one round::
 
 ``--mode sim``: the population-scale SVM round (``sim.run_population``)
 on any registered scenario, with the engines (``bucketed``, ``loop``,
-``streamed`` with ``--chunk-devices``), the wire codecs (``--codec``),
+``sharded`` with ``--mesh``, ``streamed`` with ``--chunk-devices``), the
+wire codecs (``--codec``),
 the per-selection byte cap (``--budget-bytes``), server-side
 distillation (``--distill-*``, ``--proxy-source``, ``--student-codec``),
 the aggregators (``--aggregator``) and, with ``--serve-fleet``, the
@@ -28,11 +29,19 @@ round's artifact deployed behind the multi-tenant fleet
 ``--trace PATH`` writes a Chrome trace-event JSON of the run (the fleet's
 simulated-ms events on their own process track, pid 2).
 
-``--engine sharded`` and ``--mesh`` raise: the sharded tier is ROADMAP
-queue 1 item 15. ``--mode lm`` feeds tokens alone, as the reference
-does: the VLM runs without patches, and ``whisper-base``, whose encoder
-needs frames, raises ``KeyError`` naming them (the reference raises
-``KeyError: 'frames'``).
+``--engine sharded`` lays the bucket groups over the ranks of a
+``torch.distributed`` world (``--mesh N`` caps the mesh; results are
+bitwise the bucketed tier's). Every rank runs the whole round; rank 0
+alone prints the JSON and writes ``--out`` and ``--trace``. Two ranks,
+one card each::
+
+  torchrun --nproc_per_node 2 -m repro_torch.launch.fed_run --mode sim \\
+      --scenario dirichlet --devices 4096 --engine sharded --mesh 2
+
+``--mode lm`` ignores ``--engine`` and ``--mesh`` and feeds tokens
+alone, as the reference does: the VLM runs without patches, and
+``whisper-base``, whose encoder needs frames, raises ``KeyError`` naming
+them (the reference raises ``KeyError: 'frames'``).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import json
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import deepfed
@@ -52,6 +62,11 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("fed_run")
+
+
+def _writes_output() -> bool:
+    """Rank 0 of a ``torch.distributed`` world, or a process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def run_sim(args, device) -> dict:
@@ -82,6 +97,7 @@ def run_sim(args, device) -> dict:
         mean_samples=args.mean_samples,
         ks=tuple(args.k),
         engine=args.engine,
+        mesh_shards=args.mesh,
         chunk_devices=args.chunk_devices,
         scenario_params=params,
         codec=args.codec,
@@ -93,6 +109,14 @@ def run_sim(args, device) -> dict:
     def progress(u):
         log.info("bucket %4d: +%3d devices (%d/%d done)",
                  u.bucket, len(u.outcomes), u.done, u.total)
+
+    # the shard count actually built (make_sim_mesh caps the request at
+    # the world size and floors it to a power of two), not the flag
+    mesh_used = None
+    if args.engine == "sharded":
+        from repro_torch.sim import make_shard_ctx
+
+        mesh_used = make_shard_ctx(args.mesh, device=device).n_shards
 
     # --trace: one wall-clock tracer for the round, one explicit-ts
     # sub-tracer (pid 2, its own process track) for the fleet's
@@ -110,7 +134,7 @@ def run_sim(args, device) -> dict:
         "mode": "sim",
         "scenario": report.scenario,
         "engine": args.engine,
-        "mesh": None,
+        "mesh": mesh_used,
         "mesh_requested": args.mesh,
         "devices": report.n_devices,
         "available": report.n_available,
@@ -168,6 +192,8 @@ def run_sim(args, device) -> dict:
         comm=report.ledger,
         fleet=out.get("fleet"),
     )
+    if not _writes_output():
+        return out
     if tracer is not None:
         tracer.merge(fleet_tracer)
         if tracer.export(args.trace):
@@ -262,11 +288,13 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--k", type=int, nargs="+", default=[10], help="sim mode")
     ap.add_argument("--engine", default="bucketed",
                     choices=["bucketed", "sharded", "loop", "streamed"],
-                    help="sim mode: bucketed (one device) | loop (sequential "
-                         "oracle) | streamed (lazy chunked federation, "
-                         "O(chunk) host memory); sharded is not ported yet")
+                    help="sim mode: bucketed (one device) | sharded "
+                         "(mesh-parallel over the torch.distributed world) | "
+                         "loop (sequential oracle) | streamed (lazy "
+                         "chunked federation, O(chunk) host memory)")
     ap.add_argument("--mesh", type=int, default=None,
-                    help="sim mode, --engine sharded (not ported yet)")
+                    help="sim mode, --engine sharded: cap the sim mesh "
+                         "at this many ranks (default: the whole world)")
     ap.add_argument("--chunk-devices", type=int, default=1024,
                     help="sim mode, --engine streamed: devices resident "
                          "at once (peak host memory is O(this))")
@@ -323,9 +351,6 @@ def main(argv=None, device="cuda"):
                          "open at https://ui.perfetto.dev)")
     args = ap.parse_args(argv)
 
-    if args.engine == "sharded" or args.mesh is not None:
-        raise NotImplementedError("--engine sharded / --mesh: the sharded tier is not ported "
-                                  "yet (ROADMAP queue 1 item 15)")
     dev = resolve_device(device)
     if args.mode == "sim":
         return run_sim(args, dev)
@@ -334,3 +359,5 @@ def main(argv=None, device="cuda"):
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():   # a world the sharded engine started ends with the run
+        dist.destroy_process_group()

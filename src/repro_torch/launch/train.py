@@ -16,7 +16,7 @@ decay 0.1. Data are the pooled synthetic federated LM tokens
 back every step, so a span ends when the step's work on the card is
 done.
 
-Only ``--mesh none`` runs: the sharded tier is ROADMAP queue 1 item 15.
+Only ``--mesh none`` runs: the LM mesh is ROADMAP queue 1 item 15.2.
 ``--fsdp`` without a mesh has no effect, as in the reference. Every
 family trains (the MoE's router aux loss in the loss); the VLM's batches
 carry zero patches and the encoder-decoder's zero frames, as the
@@ -64,8 +64,8 @@ def main(argv=None, device="cuda"):
     args = ap.parse_args(argv)
 
     if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: the sharded tier is not ported yet "
-                                  "(ROADMAP queue 1 item 15)")
+        raise NotImplementedError(f"--mesh {args.mesh}: the LM mesh is not ported yet "
+                                  "(ROADMAP queue 1 item 15.2)")
     dev = resolve_device(device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -6,8 +6,9 @@ Ports of ``repro/models/layers.py``, function for function and with the
 reference's layouts: q/k/v ``(B, S, heads, hd)``, ``wq`` ``(d, H, hd)``,
 ``wo`` ``(H, hd, d)``. ``p`` is a ``ParamNode`` of
 ``repro_torch.models.params`` whose attributes carry the reference's
-parameter names. The port has no mesh, so the reference's ``ShardCtx``
-constraints have no counterpart here (ROADMAP queue 1 item 15).
+parameter names. The reference's ``ShardCtx`` constraints have no
+counterpart here yet: the LM mesh is ROADMAP queue 1 item 15.2 (the sim
+mesh of ``launch.mesh`` shards the SVM round only).
 
 The audio family's decoder adds ``cross_attention`` over the encoder's
 keys and values (``encode_kv``), dense ``_sdpa`` as in the reference.

@@ -4,6 +4,8 @@ engine.py      device-parallel local training: batched Gram + SDCA
                passes a bucket of devices at a time, streaming
                GroupUpdates; the sequential loop survives as
                ``mode="loop"``, the oracle for equivalence tests;
+               ``mode="sharded"`` lays the passes over the ranks of a
+               ``torch.distributed`` world (``make_shard_ctx``);
                ``mode="streamed"`` consumes a lazy DeviceStream in
                bounded chunks — O(chunk) host memory, the same
                per-device results as ``mode="bucketed"``
@@ -21,6 +23,7 @@ from repro_torch.sim.engine import (
     GroupUpdate,
     PopulationResult,
     iter_population,
+    make_shard_ctx,
     train_device,
     train_population,
     train_selected,
@@ -39,7 +42,7 @@ from repro_torch.sim.scenarios import (
 
 __all__ = [
     "DeviceOutcome", "GroupUpdate", "PopulationResult",
-    "iter_population", "train_device", "train_population", "train_selected",
+    "iter_population", "make_shard_ctx", "train_device", "train_population", "train_selected",
     "DeviceStream", "Federation", "SCENARIOS", "ScenarioSpec",
     "device_stream", "list_scenarios", "make_federation", "register_scenario",
     "PopulationConfig", "PopulationReport", "run_population",

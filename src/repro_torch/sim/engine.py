@@ -1,18 +1,19 @@
-"""Device-parallel local training engine: the loop, bucketed and
-streamed tiers.
+"""Device-parallel local training engine: the loop, bucketed, sharded
+and streamed tiers.
 
 Port of ``repro.sim.engine``:
 
   mode="loop"      sequential per-device oracle: one Gram, one SDCA
                    solve, one scoring pass per device
   mode="bucketed"  whole cohorts per batched pass on one card
+  mode="sharded"   the bucketed passes laid out over the sim mesh
+                   (``launch.mesh.make_sim_mesh``: the ranks of a
+                   ``torch.distributed`` world), data-parallel over the
+                   group axis, one gather a pass
   mode="streamed"  the bucketed passes over BOUNDED CHUNKS of a lazy
                    ``DeviceStream``: devices are generated, trained and
                    released chunk by chunk, so peak host memory is
                    O(chunk_devices), not O(population)
-
-(``mode="sharded"`` raises: the multi-GPU tier is ROADMAP queue 1 item
-15.)
 
 The bucketed tier fits whole cohorts of devices at once:
 
@@ -44,6 +45,15 @@ the streamed tier is bitwise the bucketed tier, on the card and on the
 CPU. ``train_selected`` regenerates only a chosen id set through the
 same math: the server-side rebuild of the k selected models after a
 streamed selection pass.
+
+The sharded tier runs the bucketed tier's host code on every rank of the
+world, byte for byte (seeds, bucketing, padding; the group axis also pads
+to at least the mesh size), and swaps each fit and score pass for its
+``ShardCtx`` twin: mesh rank r runs ``_fit_group`` / ``_score_group`` on
+its contiguous ``g / n_shards`` groups on its own device, and one
+all-gather a pass hands every rank the whole group's alphas or scores.
+Group composition is all that changes, so the sharded tier is bitwise the
+bucketed tier at every shard count, as the streamed tier is.
 """
 from __future__ import annotations
 
@@ -64,8 +74,10 @@ from repro_torch.core.svm import (
 from repro_torch.data.federated import DeviceData, FederatedDataset
 from repro_torch.data.partition import derive_device_seed, split_train_test_val
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import make_sim_mesh, mesh_chips
 from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import current_tracer, stopwatch
+from repro_torch.sharding.rules import group_shard_specs
 from repro_torch.sim.scenarios import DeviceStream, ScenarioSpec
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -199,17 +211,78 @@ def _score_group(xq, sup, coef, gammas) -> torch.Tensor:
     return _row_dot(Kq, coef)
 
 
+# ----------------------------------------------------------------------
+# sharded (mesh-parallel) dispatch
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh-parallel dispatch for one engine run: ``_fit_group`` and
+    ``_score_group`` split over the sim mesh's ``devices`` axis on the
+    leading group dim, by ``sharding.rules.group_shard_specs``.
+
+    Every group member's SDCA problem is independent, so laying groups
+    out along the mesh is pure data parallelism: each mesh rank fits and
+    scores its slice of the group on its own device, and the only
+    collective is the gather of the results (no reduction crosses
+    ranks before selection). Ranks outside the mesh train nothing and
+    receive the gathered arrays."""
+
+    mesh: object   # launch.mesh.SimMesh
+    epochs: int
+
+    @property
+    def n_shards(self) -> int:
+        return mesh_chips(self.mesh)
+
+    def fit(self, xp, yp, n_real, gammas, lam: float) -> np.ndarray:
+        """alpha (g, b) of ``_fit_group`` on host arrays."""
+        return self._run(lambda *a: _fit_group(*a, self.epochs), (xp, yp, n_real, gammas, lam),
+                         group_shard_specs(self.mesh, (3, 2, 1, 1, 0)), yp.shape)
+
+    def score(self, xq, sup, coef, gammas) -> np.ndarray:
+        """Scores (g, q) of ``_score_group`` on host arrays."""
+        return self._run(_score_group, (xq, sup, coef, gammas),
+                         group_shard_specs(self.mesh, (3, 3, 2, 1)), xq.shape[:2])
+
+    def _run(self, fn, args, specs, shape) -> np.ndarray:
+        """``fn`` on this rank's rows of the group-sharded ``args``, then
+        the gather. Its ``engine.gather`` span holds the gather and the
+        copy to the host, which waits for the rank's kernels too."""
+        mesh = self.mesh
+        part = None
+        if mesh.rank is not None:
+            rows = shape[0] // self.n_shards
+            lo = mesh.rank * rows
+            part = fn(*(torch.from_numpy(a[lo : lo + rows]).to(mesh.device) if spec else a
+                        for a, spec in zip(args, specs)))
+        with current_tracer().span("engine.gather", cat="engine", shards=self.n_shards,
+                                   rows=int(shape[0])):
+            return mesh.gather(part, tuple(shape)).cpu().numpy()
+
+
+def make_shard_ctx(shards: Optional[int] = None, epochs: int = 20,
+                   device="cuda") -> ShardCtx:
+    """The sharded dispatch context on ``launch.mesh.make_sim_mesh``'s
+    mesh (``shards`` caps it; default the whole world; cached there)."""
+    return ShardCtx(make_sim_mesh(shards, device), epochs)
+
+
 def _pad_pow2(n: int, lo: int = 8) -> int:
     return max(lo, 1 << (n - 1).bit_length())
 
 
 def _train_bucket_group(
     members: List[tuple], bucket: int, lam: float, epochs: int,
-    device: torch.device, pad_floor: int = 8,
+    device: torch.device, pad_floor: int = 8, shard: Optional[ShardCtx] = None,
 ) -> List[DeviceOutcome]:
     """members: [(dev_id, splits)] sharing one SDCA bucket size. Packing
     is host numpy, as in the reference; the group pads to a power of two
-    of devices (at least ``pad_floor``)."""
+    of devices (at least ``pad_floor``). With a ``shard`` context the
+    group also pads to at least the mesh size (a power of two) and the
+    fit and scoring passes run mesh-parallel."""
+    if shard is not None:
+        pad_floor = max(pad_floor, shard.n_shards)
     g_real = len(members)
     g = _pad_pow2(g_real, lo=pad_floor)
     trains = [sp["train"] for _, sp in members]
@@ -229,12 +302,16 @@ def _train_bucket_group(
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    xp_d, gammas_d = dev(xp), dev(gammas)
-    alpha = _fit_group(xp_d, dev(yp), dev(n_real), gammas_d, lam, epochs).cpu().numpy()
+    if shard is None:
+        xp_d, gammas_d = dev(xp), dev(gammas)
+        alpha = _fit_group(xp_d, dev(yp), dev(n_real), gammas_d, lam, epochs).cpu().numpy()
+    else:
+        alpha = shard.fit(xp, yp, n_real, gammas, lam)
     # coef = alpha * y / (lam * n); zero-label padding zeroes padded coefs
     y0 = np.where(np.arange(bucket)[None, :] < n_real[:, None], yp, 0.0)
     coef = alpha * y0 / (lam * np.maximum(n_real, 1)[:, None])
-    coef_d = dev(coef.astype(np.float32))
+    coef32 = coef.astype(np.float32)
+    coef_d = dev(coef32) if shard is None else None
 
     scores: Dict[str, np.ndarray] = {}
     for split in ("val", "test"):
@@ -243,7 +320,10 @@ def _train_bucket_group(
         xq = np.zeros((g, q, xp.shape[2]), np.float32)
         for i, a in enumerate(qs):
             xq[i, : len(a)] = a
-        scores[split] = _score_group(dev(xq), xp_d, coef_d, gammas_d).cpu().numpy()
+        if shard is None:
+            scores[split] = _score_group(dev(xq), xp_d, coef_d, gammas_d).cpu().numpy()
+        else:
+            scores[split] = shard.score(xq, xp, coef32, gammas)
 
     outcomes = []
     for i, (dev_id, splits) in enumerate(members):
@@ -275,27 +355,30 @@ def _classify_device(dev_id, dev, min_samples, seed=0):
     return bucket, splits
 
 
-def _bucket_group_caps(bucket: int, group_cap: int) -> int:
-    """Power-of-two group size under the Gram memory budget."""
-    cap = max(1, min(group_cap, GRAM_ELEM_BUDGET // (bucket * bucket)))
+def _bucket_group_caps(bucket: int, group_cap: int, shard: Optional[ShardCtx] = None) -> int:
+    """Power-of-two group size under the Gram memory budget. The budget
+    is a device's: a sharded run holds 1/n_shards of each group on each
+    device, so its groups grow n_shards x larger (fewer passes)."""
+    budget = GRAM_ELEM_BUDGET * (shard.n_shards if shard else 1)
+    cap = max(1, min(group_cap, budget // (bucket * bucket)))
     return 1 << (cap.bit_length() - 1)
 
 
-def _train_buckets(by_bucket, lam, epochs, group_cap, device):
+def _train_buckets(by_bucket, lam, epochs, group_cap, device, shard=None):
     """Yield (bucket, outcomes, seconds) for every bucket group; each
     group is one ``cat="engine"`` span, closed before the yield."""
     tracer = current_tracer()
     reg = default_registry()
     for bucket in sorted(by_bucket):
         members = by_bucket[bucket]
-        cap = _bucket_group_caps(bucket, group_cap)
+        cap = _bucket_group_caps(bucket, group_cap, shard)
         for lo in range(0, len(members), cap):
             elapsed = stopwatch()
             with tracer.span("engine.group", cat="engine", bucket=bucket,
                              members=len(members[lo : lo + cap]), cap=cap):
                 outs = _train_bucket_group(
                     members[lo : lo + cap], bucket, lam, epochs, device,
-                    pad_floor=min(8, cap),
+                    pad_floor=min(8, cap), shard=shard,
                 )
             secs = elapsed()
             reg.counter("engine.groups").inc()
@@ -314,6 +397,7 @@ def iter_population(
     epochs: int = 20,
     group_cap: int = 256,
     available: Optional[np.ndarray] = None,
+    shards: Optional[int] = None,
     chunk_devices: int = 1024,
     device="cuda",
 ) -> Iterator[GroupUpdate]:
@@ -329,14 +413,18 @@ def iter_population(
     devices entirely — they neither train nor report. A stream's own
     lazy availability mask composes with it (logical AND).
 
+    ``mode="sharded"`` runs the bucketed passes mesh-parallel over the
+    ranks of the ``torch.distributed`` world (``shards`` caps how many;
+    default all, see ``make_shard_ctx``). Every rank calls this with the
+    same arguments and gets every update; bucketing, seeds and padding
+    are the bucketed tier's, and so is every result, bit for bit.
+
     ``mode="streamed"`` generates, trains and releases devices in
     ``chunk_devices``-sized chunks: peak host memory is O(chunk), and
-    per-device results equal the bucketed tier's.
+    per-device results equal the bucketed tier's. Pass ``shards`` to run
+    each chunk's passes mesh-parallel as well.
     """
-    if mode == "sharded":
-        raise NotImplementedError(
-            "engine mode 'sharded' is not ported yet (ROADMAP queue 1, item 15)")
-    if mode not in ("bucketed", "loop", "streamed"):
+    if mode not in ("bucketed", "loop", "sharded", "streamed"):
         raise ValueError(f"unknown engine mode {mode!r}")
     dev = resolve_device(device)
 
@@ -346,7 +434,7 @@ def iter_population(
             stream, lam=lam, seed=seed,
             min_samples=stream.min_samples if min_samples is None else min_samples,
             epochs=epochs, group_cap=group_cap, available=available,
-            chunk_devices=chunk_devices, device=dev,
+            shards=shards, chunk_devices=chunk_devices, device=dev,
         )
         return
 
@@ -357,6 +445,7 @@ def iter_population(
             mask = mask & np.asarray(available, bool)
         dataset, available = fed.dataset, mask
 
+    shard = make_shard_ctx(shards, epochs, dev) if mode == "sharded" else None
     min_samples = dataset.min_samples if min_samples is None else min_samples
     ids = [
         i for i in range(dataset.n_devices)
@@ -391,7 +480,7 @@ def iter_population(
         done += len(fallback)
         yield GroupUpdate(0, fallback, elapsed(), done, total)
 
-    for bucket, outs, secs in _train_buckets(by_bucket, lam, epochs, group_cap, dev):
+    for bucket, outs, secs in _train_buckets(by_bucket, lam, epochs, group_cap, dev, shard):
         done += len(outs)
         yield GroupUpdate(bucket, outs, secs, done, total)
 
@@ -407,10 +496,11 @@ def _dataset_as_stream(dataset: FederatedDataset) -> DeviceStream:
 
 def _iter_streamed(
     stream: DeviceStream, *, lam, seed, min_samples, epochs, group_cap, available,
-    chunk_devices, device,
+    shards, chunk_devices, device,
 ) -> Iterator[GroupUpdate]:
     if chunk_devices < 1:
         raise ValueError(f"chunk_devices must be >= 1, got {chunk_devices}")
+    shard = make_shard_ctx(shards, epochs, device) if shards is not None else None
 
     def admitted(i: int) -> bool:
         if available is not None and not bool(available[i]):
@@ -444,7 +534,7 @@ def _iter_streamed(
                 done += len(fallback)
                 yield GroupUpdate(0, fallback, elapsed(), done, total)
             for bucket, outs, secs in _train_buckets(by_bucket, lam, epochs,
-                                                     group_cap, device):
+                                                     group_cap, device, shard):
                 done += len(outs)
                 yield GroupUpdate(bucket, outs, secs, done, total)
         reg.counter("engine.chunks").inc()
@@ -461,6 +551,7 @@ def train_selected(
     min_samples: Optional[int] = None,
     epochs: int = 20,
     group_cap: int = 256,
+    shards: Optional[int] = None,
     device="cuda",
 ) -> Dict[int, DeviceOutcome]:
     """Regenerate and train ONLY the given device ids from a stream.
@@ -470,10 +561,11 @@ def train_selected(
     instead of re-streaming everyone. Same classification, bucketing
     and fit/score math as every other tier, so the outcomes equal what
     the full pass produced for those ids (group-composition invariance
-    again).
+    again). With ``shards`` the passes run mesh-parallel.
     """
     dev = resolve_device(device)
     min_samples = stream.min_samples if min_samples is None else min_samples
+    shard = make_shard_ctx(shards, epochs, dev) if shards is not None else None
     out: Dict[int, DeviceOutcome] = {}
     by_bucket: Dict[int, List[tuple]] = {}
     for i in sorted(set(int(i) for i in ids)):
@@ -483,7 +575,7 @@ def train_selected(
             out[payload.device_id] = payload
         else:
             by_bucket.setdefault(bucket, []).append((i, payload))
-    for _, outs, _ in _train_buckets(by_bucket, lam, epochs, group_cap, dev):
+    for _, outs, _ in _train_buckets(by_bucket, lam, epochs, group_cap, dev, shard):
         for o in outs:
             out[o.device_id] = o
     return out

@@ -24,7 +24,9 @@ reference's exactly. Every aggregator of ``repro_torch.agg`` runs on
 every tier: its extras ride the wire beside each cell's uploads, priced
 at ``len(encode())`` on the materialised paths and at the equal shape
 price ``agg_extra_wire_nbytes`` on the streamed one.
-``engine="sharded"`` raises, naming ROADMAP queue 1 item 15.
+``engine="sharded"`` trains over the ranks of a ``torch.distributed``
+world (``mesh_shards`` caps the mesh) with the bucketed round's results,
+bit for bit; every rank runs the whole round and returns the report.
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class PopulationConfig:
     scenario_params: Mapping = dataclasses.field(default_factory=dict)
     # training
     lam: float = 0.01
-    engine: str = "bucketed"        # "bucketed" | "loop" | "streamed"
+    engine: str = "bucketed"        # "bucketed" | "sharded" | "loop" | "streamed"
+    mesh_shards: Optional[int] = None  # sim mesh size cap (None = the whole world)
     chunk_devices: int = 1024       # streamed engine: devices resident at once
     # selection + evaluation
     ks: Sequence[int] = (10,)
@@ -165,10 +168,11 @@ def run_population(
     only the devices a selection actually picks are regenerated for
     upload and ensembling (``_run_streamed``). Its report equals the
     materialised round's in every field.
+
+    ``engine="sharded"``, and ``engine="streamed"`` with ``mesh_shards``,
+    train over the sim mesh (``sim.engine.make_shard_ctx``); every rank
+    of the world calls this with the same config.
     """
-    if cfg.engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP queue 1 item 15)")
     agg = get_aggregator(cfg.aggregator)
     dev = resolve_device(device)
     if cfg.engine == "streamed":
@@ -199,7 +203,8 @@ def run_population(
                      devices=ds.n_devices):
         pop = train_population(
             ds, on_update=on_update, lam=cfg.lam, seed=cfg.seed,
-            mode=cfg.engine, available=federation.available, device=dev,
+            mode=cfg.engine, available=federation.available,
+            shards=cfg.mesh_shards, device=dev,
         )
     outcomes, train_s = pop.outcomes, pop.seconds
 
@@ -359,7 +364,7 @@ def _run_streamed(
                      chunk_devices=cfg.chunk_devices):
         for update in iter_population(
             stream, lam=cfg.lam, seed=cfg.seed, mode="streamed",
-            chunk_devices=cfg.chunk_devices, device=device,
+            shards=cfg.mesh_shards, chunk_devices=cfg.chunk_devices, device=device,
         ):
             for o in update.outcomes:
                 r = o.report
@@ -398,8 +403,8 @@ def _run_streamed(
     def _regenerate(want: Sequence[int]) -> None:
         missing = [int(i) for i in want if int(i) not in regen]
         if missing:
-            regen.update(train_selected(stream, missing, lam=cfg.lam,
-                                        seed=cfg.seed, device=device))
+            regen.update(train_selected(stream, missing, lam=cfg.lam, seed=cfg.seed,
+                                        shards=cfg.mesh_shards, device=device))
 
     def provider(want: Sequence[int]) -> Dict[int, object]:
         _regenerate(want)

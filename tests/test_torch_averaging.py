@@ -364,14 +364,14 @@ def test_validation_auc_and_list_solvers_are_the_references():
                - ref_validation_auc(ref_out[0].model, va.x, va.y)) <= AUC_TOL
 
 
-# the reference's names the port does not export yet: the mesh factories
-# of ``repro.launch`` (the sharded tier, ROADMAP queue 1 item 15); ``core``,
+# the reference's names the port does not export yet: the LM mesh
+# factories of ``repro.launch`` (ROADMAP queue 1 item 15.2); ``core``,
 # ``utils`` and ``obs`` are whole
 UNPORTED_EXPORTS = {
     "core": set(),
     "utils": set(),
     "obs": set(),
-    "launch": {"make_production_mesh", "make_debug_mesh", "make_sim_mesh", "mesh_chips"},
+    "launch": {"make_production_mesh", "make_debug_mesh"},
 }
 
 

@@ -821,3 +821,31 @@ def test_reduced_family_on_the_card_matches_cpu(cuda_device, arch):
     assert float((runs["cuda"][0] - runs["cpu"][0]).abs().max()) <= 1e-4
     assert abs(runs["cuda"][1] - runs["cpu"][1]) <= 1e-5
     assert np.array_equal(runs["cuda"][2], runs["cpu"][2])
+
+
+def test_sharded_population_on_the_card_is_the_bucketed_one(cuda_device):
+    """The sharded tier on a one-rank ``nccl`` world that ``make_sim_mesh``
+    starts in this process: the bucketed tier's outcomes on the card, bit
+    for bit, with the fit and SDCA kernels launched."""
+    import torch.distributed as dist
+
+    from repro_torch.sim import engine, make_federation, make_shard_ctx
+
+    fed = make_federation("quantity_skew", n_devices=48, seed=3, mean_samples=60,
+                          min_samples=40, dim=8, sigma=1.2)
+    want = engine.train_population(fed.dataset, mode="bucketed", seed=3,
+                                   device=cuda_device).outcomes
+    assert make_shard_ctx(device=cuda_device).n_shards == 1
+    assert "nccl" in dist.get_backend()
+    ops.reset_launch_counts()
+    got = engine.train_population(fed.dataset, mode="sharded", seed=3,
+                                  device=cuda_device).outcomes
+    counts = ops.launch_counts()
+    assert counts["batched_rbf_gram"] > 0 and counts["sdca"] > 0
+    assert [o.device_id for o in got] == [o.device_id for o in want]
+    for a, b in zip(got, want):
+        assert a.report == b.report
+        assert a.val_scores.tobytes() == b.val_scores.tobytes()
+        assert a.local_test_scores.tobytes() == b.local_test_scores.tobytes()
+        if hasattr(b.model, "coef"):
+            assert a.model.coef.tobytes() == b.model.coef.tobytes()

@@ -77,7 +77,7 @@ def test_train_population_matches_reference(name, scale, mode):
 
 def test_bucketed_groups_follow_the_reference_caps():
     for bucket in (64, 128, 192, 256, 2048, 8192):
-        assert (pt_engine._bucket_group_caps(bucket, 256)
+        assert (pt_engine._bucket_group_caps(bucket, 256, None)
                 == ref_engine._bucket_group_caps(bucket, 256, None))
     assert pt_engine.QUERY_PAD == ref_engine.QUERY_PAD
     assert pt_engine.GRAM_ELEM_BUDGET == ref_engine.GRAM_ELEM_BUDGET
@@ -85,6 +85,16 @@ def test_bucketed_groups_follow_the_reference_caps():
 
 @pytest.mark.parametrize("mode", ["sharded"])
 def test_unported_engine_tiers_raise(mode):
-    ds = pt_make("gleam", seed=0, scale=0.2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_engine.train_population(ds, mode=mode, device="cpu")
+    """Once a raise, now the sharded tier (a one-rank gloo world in this
+    process): the bucketed tier's outcomes, bit for bit, on gleam."""
+    ds = pt_make("gleam", seed=0, scale=0.6)
+    want = pt_engine.train_population(ds, mode="bucketed", device="cpu").outcomes
+    got = pt_engine.train_population(ds, mode=mode, device="cpu").outcomes
+    assert [o.device_id for o in got] == [o.device_id for o in want]
+    assert sum(o.report.eligible for o in want) >= 1
+    for a, b in zip(got, want):
+        assert a.report == b.report
+        assert a.val_scores.tobytes() == b.val_scores.tobytes()
+        assert a.local_test_scores.tobytes() == b.local_test_scores.tobytes()
+        if hasattr(b.model, "coef"):
+            assert a.model.coef.tobytes() == b.model.coef.tobytes()

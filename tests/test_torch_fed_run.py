@@ -220,12 +220,22 @@ def _check_lm_mode(arch, loss, monkeypatch, tmp_path):
     assert {"lm.local_train", "lm.distill"} <= spans
 
 
-@pytest.mark.parametrize("argv", [["--engine", "sharded"], ["--mesh", "4"]],
+@pytest.mark.parametrize("argv,mesh", [(["--engine", "sharded"], 1), (["--mesh", "4"], None)],
                          ids=["engine_sharded", "mesh"])
-def test_sharded_tier_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        fed_run.main(["--mode", "sim", "--scenario", "iid", "--devices", "8"] + argv,
-                     device="cpu")
+def test_sharded_tier_is_not_ported(argv, mesh):
+    """Once raises, now the sharded tier (a one-rank gloo world in this
+    process): ``--engine sharded`` builds a mesh of 1 shard and ``--mesh 4``
+    alone caps nothing on the bucketed engine, and the JSON equals the
+    bucketed run's but for the mesh keys, the engine and the timings."""
+    base = ["--mode", "sim", "--scenario", "iid", "--devices", "16", "--k", "3"]
+    want = fed_run.main(base, device="cpu")
+    got = fed_run.main(base + argv, device="cpu")
+    assert (got["mesh"], got["mesh_requested"]) == (mesh, 4 if mesh is None else None)
+    skip = ("engine", "mesh", "mesh_requested", "train_seconds", "devices_per_second", "obs")
+    assert {k: v for k, v in got.items() if k not in skip} == \
+        {k: v for k, v in want.items() if k not in skip}
+    assert got["obs"]["sections"]["comm"] == want["obs"]["sections"]["comm"]
+    assert got["engine"] == ("sharded" if mesh else "bucketed")
 
 
 def test_lm_mode_refuses_audio_without_frames():

@@ -113,10 +113,16 @@ def test_the_budget_and_the_channel_bind():
 
 
 def test_unported_options_raise():
+    """``engine="sharded"`` (once a raise; a one-rank gloo world here) is
+    the bucketed round for every aggregator; an unknown engine raises."""
     base = dict(scenario="iid", n_devices=12, ks=(2,))
+    fields = ("n_eligible", "mean_val_auc", "mean_local_auc", "ensemble_auc", "comm",
+              "aggregator")
     for agg in ("mean", "fisher", "reweight", "feature_stats"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-            pt_run(PtConfig(engine="sharded", aggregator=agg, **base), device="cpu")
+        want = pt_run(PtConfig(engine="bucketed", aggregator=agg, **base), device="cpu")
+        got = pt_run(PtConfig(engine="sharded", aggregator=agg, **base), device="cpu")
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        assert _upload_ids(got) == _upload_ids(want)
     with pytest.raises(ValueError, match="unknown engine"):
         pt_run(PtConfig(engine="warp", **base), device="cpu")
 

@@ -292,11 +292,13 @@ def test_train_selected_matches_the_full_pass():
 
 
 def test_streamed_engine_rejects_a_bad_chunk_and_the_sharded_tier():
+    """A chunk of 0 devices raises; the sharded tier (once a raise; a
+    one-rank gloo world here) takes a stream and equals the bucketed tier."""
     with pytest.raises(ValueError, match="chunk_devices"):
         list(pt_engine.iter_population(_skew_stream(), mode="streamed", chunk_devices=0,
                                        device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        list(pt_engine.iter_population(_skew_stream(), mode="sharded", device="cpu"))
+    sharded = pt_engine.train_population(_skew_stream(), mode="sharded", seed=3, device="cpu")
+    _assert_outcomes_bitwise(_bucketed(), sharded.outcomes)
 
 
 def test_streamed_tier_counts_chunks_and_opens_a_span_a_chunk():
