@@ -157,7 +157,20 @@ It imports the port and nothing of JAX or of the reference package
            profiler (busy share, GEMM seconds),
            the roofline share against ``roofline_report`` on ``H100_SXM``
            (6 N T + attention FLOPs); and a ``use_pallas`` step, which must
-           raise and leave the parameters as they were;
+           raise and leave the parameters as they were; (c) the LM mesh
+           (``ShardCtx``, ``launch.mesh.make_debug_mesh``: a 1 x 1 mesh on a
+           one-rank nccl world on cuda:0): ``launch.train.main --mesh
+           debug``, 4 steps at batch 4, seq 1,024, against the same seed's
+           ``--mesh none`` run (bitwise expected; else the forward's and the
+           loss's bits named, and held within 2^-8 relative); the sharded
+           prefill of 4 x 2,048 tokens and 8 decode steps with the flash
+           kernel (``use_pallas``, through ``_attend``'s ``local_map``),
+           their logits against the unsharded run's, the flash launches
+           equal to the unsharded run's (and above 0), the kernel against
+           its plain version at that prefill's shape; and the full-depth
+           dry-run of llama3.2-1b ``train_4k`` on the 16 x 16 fake mesh
+           (``python -m repro_torch.launch.dryrun``, its own process,
+           beside (c)'s other parts), its record and seconds;
   deep     the deep one-shot round (``core/deepfed.py``, ``fed_run --mode
            lm``'s path): (a) llama3.2-1b at full width cut to 2 layers,
            fp32, 2 members (drawn on the card, copies moved to the cpu) 2
@@ -289,6 +302,7 @@ for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
 ``serve`` for flash attention, named in ``launches_path``, each
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
 ``launches_fleet``, in ``train`` (b)'s steps as ``launches_train``, in
+``train`` (c)'s sharded prefill and decode as ``launches_mesh``, in
 ``deep`` (b)'s round as ``launches_deep``, in ``families`` (b)'s
 counted serves as ``launches_families``, in the ``cli`` runs on
 cuda as ``launches_cli`` and in ``main``'s sharded round as
@@ -1960,7 +1974,184 @@ def train_full(ops, trace, device):
 
 
 def phase_train(ops, trace, device):
-    return {"parity": train_parity(ops, device), "full": train_full(ops, trace, device)}
+    return {"parity": train_parity(ops, device), "full": train_full(ops, trace, device),
+            "mesh": train_mesh(ops, trace, device)}
+
+
+# train (c): the LM mesh on one card, a 1 x 1 mesh; the serve part at
+# the serve phase's shape, 8 greedy tokens
+MESH_TRAIN = ["--steps", "4", "--batch", "4", "--seq", "1024"]
+MESH_GEN = 8
+MESH_DRYRUN_TIMEOUT = 300
+
+
+def _main_steps(trace, argv):
+    """(seconds of each step, losses) of ``launch.train.main`` on cuda."""
+    from repro_torch.launch.train import main as train_main
+
+    tracer = trace.Tracer()
+    with trace.use_tracer(tracer):
+        train_main(["--arch", TRAIN_ARCH, *argv], device="cuda")
+    return step_spans(tracer)
+
+
+def _serve_run(params, cfg, prompts, feed, device, ctx=None):
+    """Prefill ``prompts`` and decode ``MESH_GEN`` tokens (the greedy ones,
+    or ``feed``'s); (logits of each step, the tokens fed)."""
+    import torch
+
+    from repro_torch.models import (cache_logical_axes, init_cache, make_decode_step,
+                                    make_prefill_step)
+    from repro_torch.sharding.rules import distribute
+
+    kw = {} if ctx is None else {"ctx": ctx}
+    B, P = prompts.shape
+    kv_len = P + MESH_GEN + 1
+    cache = init_cache(cfg, B, kv_len, device=device)
+    if ctx is not None:
+        cache["blocks"] = distribute(cache["blocks"], ctx.mesh,
+                                     cache_logical_axes(cfg, B, kv_len)["blocks"], ctx.rules)
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    logits, cache = make_prefill_step(cfg, **kw)(params, {"tokens": prompts}, cache)
+    out, fed = [whole(logits)], []
+    decode = make_decode_step(cfg, **kw)
+    for i in range(MESH_GEN):
+        tok = feed[i] if feed is not None else torch.argmax(out[-1], dim=-1)[:, None]
+        fed.append(tok)
+        logits, cache = decode(params, tok, cache)
+        out.append(whole(logits))
+    torch.cuda.synchronize()
+    return out, fed
+
+
+def train_mesh(ops, trace, device):
+    """(c) the LM mesh on a 1 x 1 mesh: ``--mesh debug`` training against
+    ``--mesh none``, the sharded prefill and decode through the flash
+    kernel against the unsharded ones, and the full-depth dry-run, which
+    runs in its own process (its fake world must not meet this one's)
+    while the rest of (c) runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import ShardCtx, forward_train, init_params, lm_loss
+    from repro_torch.models.params import distribute_params
+    from repro_torch.sharding.rules import ShardingRules, distribute
+
+    t0 = time.perf_counter()
+    dry_dir = Path(os.environ.get("TMPDIR", "/tmp")) / f"chip_smoke_dryrun_{os.getpid()}"
+    dry_dir.mkdir(parents=True, exist_ok=True)
+    dry_json = dry_dir / "dryrun.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                            TRAIN_ARCH, "--shape", "train_4k", "--out", str(dry_json)],
+                           env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out = {}
+        # (a) --mesh debug against --mesh none, the same seed and windows
+        base_secs, base = _main_steps(trace, MESH_TRAIN)
+        mesh_secs, mesh_losses = _main_steps(trace, MESH_TRAIN + ["--mesh", "debug"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, base)]
+        a = {"argv": MESH_TRAIN, "losses": {"none": base, "debug": mesh_losses},
+             "bitwise": mesh_losses == base, "loss_rel_diff": rel,
+             "step_seconds": {"none": base_secs, "debug": mesh_secs}}
+        mesh = make_debug_mesh(device=device)
+        rules = ShardingRules()
+        ctx = ShardCtx(mesh, rules)
+        cfg = get_config(TRAIN_ARCH)
+        if not a["bitwise"]:
+            # which part of step 1 parts them: the forward's logits or the loss
+            w = torch.from_numpy(_windows(cfg.vocab, 4, 1024, 1)[0]).to(device)
+            batch = {"tokens": w[:, :-1], "labels": w[:, 1:]}
+            plain = init_params(cfg, seed=0, device=device)
+            sharded = distribute_params(init_params(cfg, seed=0, device=device), cfg, mesh, rules)
+            with torch.no_grad():
+                lp, _ = forward_train(plain, cfg, batch)
+                with ctx.scope():
+                    ls, _ = forward_train(sharded, cfg, distribute(
+                        batch, mesh, {"tokens": ("batch", "seq"), "labels": ("batch", "seq")},
+                        rules), ctx=ctx)
+                    loss_s = lm_loss(ls, batch["labels"]).full_tensor()
+                a["step1_logits_bitwise"] = bool(torch.equal(ls.full_tensor(), lp))
+                a["step1_loss_bitwise"] = bool(torch.equal(loss_s, lm_loss(lp, batch["labels"])))
+            del plain, sharded
+            if max(rel) > 2.0 ** -8:
+                raise AssertionError(f"train (c): --mesh debug losses {mesh_losses} against "
+                                     f"--mesh none {base}")
+        out["train"] = a
+        torch.cuda.empty_cache()
+
+        # (b) the sharded prefill and decode with the flash kernel
+        pcfg = cfg.replace(use_pallas=True)
+        clients = make_federated_lm_data(SERVE_BATCH, cfg.vocab, SERVE_PROMPT + 8, seed=0)
+        prompts = torch.from_numpy(np.stack([c[:SERVE_PROMPT] for c in clients])
+                                   .astype(np.int64)).to(device)
+        params = init_params(pcfg, seed=0, device=device)
+        ops.reset_launch_counts()
+        want, fed = _serve_run(params, pcfg, prompts, None, device)
+        plain_counts = ops.launch_counts()
+        del params
+        params = distribute_params(init_params(pcfg, seed=0, device=device), pcfg, mesh, rules)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        got, _ = _serve_run(params, pcfg, prompts, fed, device, ctx)
+        mesh_seconds = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        gaps = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+        scale = max(float(w.float().abs().max()) for w in want)
+        # the flash kernel against its plain version at the prefill's shape
+        spec = ops.KERNEL_REGISTRY["flash_attention"]
+        gen = torch.Generator(device=device).manual_seed(0)
+        H, K, hd = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+        q = torch.randn((SERVE_BATCH, SERVE_PROMPT, H, hd), generator=gen, device=device)
+        k, v = (torch.randn((SERVE_BATCH, SERVE_PROMPT, K, hd), generator=gen, device=device)
+                for _ in range(2))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        with torch.no_grad():
+            kern = spec.kernel(q, k, v, True, 0)
+            ref = spec.plain(q, k, v, True, 0)
+        kernel_err, kernel_ok, kernel_tol = agreement(spec, kern, ref)
+        del params
+        torch.cuda.empty_cache()
+        out["serve"] = {
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": MESH_GEN,
+            "logits_bitwise": all(g.equal(w) for g, w in zip(got, want)),
+            "logits_max_abs_diff": gaps, "logits_scale": scale,
+            "flash_launches": counts["flash_attention"],
+            "flash_launches_unsharded": plain_counts["flash_attention"],
+            "sharded_seconds": mesh_seconds, "kernels": counts,
+            "flash_kernel_vs_plain_max_abs_err": kernel_err,
+            "flash_kernel_tol": kernel_tol}
+        if counts["flash_attention"] <= 0 or \
+                counts["flash_attention"] != plain_counts["flash_attention"]:
+            raise AssertionError(f"train (c): flash launched {counts['flash_attention']} times "
+                                 f"sharded, {plain_counts['flash_attention']} unsharded")
+        if max(gaps) > 2.0 ** -8 * scale:
+            raise AssertionError(f"train (c): sharded logits {gaps} off the unsharded ones")
+        if not kernel_ok:
+            raise AssertionError(f"train (c): flash kernel {kernel_err} off its plain version")
+        try:
+            stdout, stderr = dry.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("train (c): the dry-run did not end in "
+                                 f"{MESH_DRYRUN_TIMEOUT} s") from None
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    (rec,) = json.loads(dry_json.read_text()).values() if dry_json.exists() else (None,)
+    out["dryrun"] = {"returncode": dry.returncode, "seconds": time.perf_counter() - t0,
+                     "record": rec, "stderr_tail": stderr[-1500:]}
+    if dry.returncode != 0 or rec is None or rec["status"] != "ok":
+        raise AssertionError(f"train (c): dry-run rc {dry.returncode}: {stdout[-500:]} "
+                             f"{stderr[-1500:]}")
+    if not (rec["hlo_flops_per_chip"] > 0 and rec["collectives"]["total"] > 0):
+        raise AssertionError(f"train (c): dry-run record {rec}")
+    out["part_seconds"] = time.perf_counter() - t0
+    out["kernels"] = counts
+    return out
 
 
 # the deep phase: the deep one-shot round (``core/deepfed.py``, ``fed_run
@@ -2331,12 +2522,12 @@ def record_routing(layers, keep_inputs=False):
     calls = []
     moe = layers.moe
 
-    def recording(x, p, cfg):
+    def recording(x, p, cfg, **kw):
         probs, _ = layers._route(x.reshape(-1, x.shape[-1]), p, cfg)
         vals, ids = layers.top_k(probs, cfg.top_k + 1)
         calls.append({"ids": ids[:, :cfg.top_k].cpu(), "probs": vals.cpu(),
                       "input": x.detach().clone() if keep_inputs else None})
-        return moe(x, p, cfg)
+        return moe(x, p, cfg, **kw)
 
     layers.moe = recording
     try:
@@ -3733,6 +3924,7 @@ def main(argv=None) -> int:
             elif phase == "train":
                 out = phase_train(ops, trace, device)
                 counts[phase] = out["full"]["kernels"]
+                counts["mesh"] = out["mesh"]["kernels"]
             elif phase == "deep":
                 out = phase_deep(ops, device)
                 counts[phase] = out["full"]["kernels"]
@@ -3782,6 +3974,7 @@ def main(argv=None) -> int:
             "replaces": spec.replaces, "launches": counts.get(path, {}).get(name),
             "launches_path": path, "launches_fleet": counts.get("fleet", {}).get(name),
             "launches_train": counts.get("train", {}).get(name),
+            "launches_mesh": counts.get("mesh", {}).get(name),
             "launches_deep": counts.get("deep", {}).get(name),
             "launches_families": counts.get("families", {}).get(name),
             "launches_cli": counts.get("cli", {}).get(name),

@@ -7,7 +7,7 @@ there, not here.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -51,4 +51,28 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS) + sorted(VARIANTS)}")
 
 
-__all__ = ["ARCHS", "VARIANTS", "SHAPES", "InputShape", "get_config"]
+def arch_names() -> List[str]:
+    return list(ARCHS)
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """Sub-quadratic decode at 500k: SSM/hybrid state or sliding window."""
+    return cfg.family in ("ssm", "hybrid") or cfg.sliding_window > 0
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    if shape.name == "long_500k":
+        return supports_long_context(cfg)
+    return True
+
+
+__all__ = [
+    "ARCHS",
+    "VARIANTS",
+    "SHAPES",
+    "InputShape",
+    "get_config",
+    "arch_names",
+    "supports_long_context",
+    "shape_applicable",
+]

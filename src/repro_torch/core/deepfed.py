@@ -36,7 +36,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.core.distill import DISTILL_LOSSES
-from repro_torch.models import forward_train, init_params, make_train_step, param_tree
+from repro_torch.models import ShardCtx, forward_train, init_params, make_train_step, param_tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import optimizer_step
 from repro_torch.models.params import check_buildable
@@ -66,13 +66,14 @@ def _window(w, device) -> Dict[str, torch.Tensor]:
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
 
-def make_local_train(cfg: ModelConfig, lr: float = 1e-3):
+def make_local_train(cfg: ModelConfig, lr: float = 1e-3, ctx: ShardCtx = ShardCtx()):
     """``train_many(members, windows) -> (members, losses)``: member m
     takes ``steps`` steps of clip-1.0 + AdamW(lr) from a fresh optimizer
     state on ``windows[m]`` ((M, steps, B, S+1) int tokens), in place.
-    ``losses`` is (M, steps) fp32 on the members' device."""
+    ``losses`` is (M, steps) fp32 on the members' device. On a mesh
+    (``ctx``) each member's parameters are ``DTensor``s on it."""
     opt = _optimizer(lr)
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_train_step(cfg, opt, ctx=ctx)
 
     def train_many(members, windows):
         if len(windows) != len(members):
@@ -93,22 +94,26 @@ def make_local_train(cfg: ModelConfig, lr: float = 1e-3):
 
 
 @torch.no_grad()
-def member_log_probs(members, cfg: ModelConfig, tokens) -> torch.Tensor:
+def member_log_probs(members, cfg: ModelConfig, tokens,
+                     ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """(M, B, S, V) fp32 log-probs of each member on tokens (B, S)."""
     out = []
-    for params in members:
-        logits, _ = forward_train(params, cfg, {"tokens": tokens})
-        out.append(torch.log_softmax(logits.float(), dim=-1))
-        del logits
-    return torch.stack(out)
+    with ctx.scope():
+        for params in members:
+            logits, _ = forward_train(params, cfg, {"tokens": tokens}, ctx=ctx)
+            out.append(torch.log_softmax(logits.float(), dim=-1))
+            del logits
+        return torch.stack(out)
 
 
 @torch.no_grad()
-def ensemble_log_probs(members, cfg: ModelConfig, tokens) -> torch.Tensor:
+def ensemble_log_probs(members, cfg: ModelConfig, tokens,
+                       ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """Log of the mean member distribution (the paper's mean-prediction
     ensemble in token-distribution space), (B, S, V) fp32."""
-    lp = member_log_probs(members, cfg, tokens)
-    return torch.logsumexp(lp, dim=0) - math.log(lp.shape[0])
+    lp = member_log_probs(members, cfg, tokens, ctx)
+    with ctx.scope():
+        return torch.logsumexp(lp, dim=0) - math.log(lp.shape[0])
 
 
 @torch.no_grad()

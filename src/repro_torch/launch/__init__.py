@@ -1,16 +1,24 @@
-"""Launchers of the port: the sim mesh (``make_sim_mesh``,
-``mesh_chips``) and the command-line drivers (``python -m
-repro_torch.launch.<name>``): ``serve`` (batched prefill + greedy
-decode), ``train`` (LM training steps) and ``fed_run`` (the one-shot
-round: the deep LM round or the population-scale SVM round). The drivers
-load on first access, so ``python -m`` runs each without importing it
-twice."""
+"""Launchers of the port: the meshes (``make_sim_mesh``,
+``make_debug_mesh``, ``make_production_mesh``, ``mesh_chips``), the
+meta-tensor step specs (``specs``) and the command-line drivers
+(``python -m repro_torch.launch.<name>``): ``serve`` (batched prefill +
+greedy decode), ``train`` (LM training steps, on an LM mesh with
+``--mesh``), ``fed_run`` (the one-shot round: the deep LM round or the
+population-scale SVM round) and ``dryrun`` (every arch x shape x mesh
+step priced on a fake world of 256 or 512 ranks). The drivers load on
+first access, so ``python -m`` runs each without importing it twice."""
 import importlib
 
-from repro_torch.launch.mesh import make_sim_mesh, mesh_chips
+from repro_torch.launch.mesh import (
+    make_debug_mesh,
+    make_production_mesh,
+    make_sim_mesh,
+    mesh_chips,
+)
 
-_DRIVERS = ("serve", "train", "fed_run")
-__all__ = ["make_sim_mesh", "mesh_chips", *_DRIVERS]
+_DRIVERS = ("serve", "train", "fed_run", "dryrun")
+__all__ = ["make_production_mesh", "make_debug_mesh", "make_sim_mesh", "mesh_chips",
+           *_DRIVERS]
 
 
 def __getattr__(name):

@@ -16,9 +16,16 @@ decay 0.1. Data are the pooled synthetic federated LM tokens
 back every step, so a span ends when the step's work on the card is
 done.
 
-Only ``--mesh none`` runs: the LM mesh is ROADMAP queue 1 item 15.2.
-``--fsdp`` without a mesh has no effect, as in the reference. Every
-family trains (the MoE's router aux loss in the loss); the VLM's batches
+``--mesh`` picks the LM mesh, as in the reference: ``debug`` is
+``make_debug_mesh()`` (1 x 1; on one card a one-rank world), ``single``
+and ``multi`` the 16 x 16 and 2 x 16 x 16 production meshes, which need
+a world of 256 or 512 ranks (``torchrun``) and raise naming it
+otherwise. On a mesh the parameters are ``DTensor``s placed by the
+logical-axis rules (``--fsdp`` adds the data axis to each weight's
+``embed`` dim), the AdamW moments take their placements, each batch is
+sharded over the data axis, and the step runs on the mesh
+(``make_train_step(ctx=ShardCtx(mesh, rules))``). ``--fsdp`` without a
+mesh has no effect, as in the reference. Every family trains (the MoE's router aux loss in the loss); the VLM's batches
 carry zero patches and the encoder-decoder's zero frames, as the
 reference's do.
 """
@@ -32,19 +39,30 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import make_federated_lm_data, token_batches
-from repro_torch.models import init_params, make_train_step, param_tree
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+from repro_torch.launch.specs import make_optimizer
+from repro_torch.models import ShardCtx, init_params, make_train_step, param_tree
+from repro_torch.models.params import distribute_params
 from repro_torch.obs.trace import current_tracer, stopwatch
-from repro_torch.optim import adamw, chain, clip_by_global_norm
+from repro_torch.sharding.rules import ShardingRules, distribute
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("train")
 
+__all__ = ["build_mesh", "main", "make_optimizer"]
 
-def make_optimizer(lr: float = 3e-4):
-    """``repro.launch.specs.make_optimizer``: clip at global norm 1.0, then
-    AdamW with weight decay 0.1."""
-    return chain(clip_by_global_norm(1.0), adamw(lr, weight_decay=0.1))
+# each batch tensor's logical axes
+_BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+               "patches": ("batch", None, "embed"), "frames": ("batch", None, "embed")}
+
+
+def build_mesh(kind: str, device="cuda"):
+    if kind == "none":
+        return None
+    if kind == "debug":
+        return make_debug_mesh(device=device)
+    return make_production_mesh(multi_pod=(kind == "multi"), device=device)
 
 
 def main(argv=None, device="cuda"):
@@ -63,19 +81,21 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: the LM mesh is not ported yet "
-                                  "(ROADMAP queue 1 item 15.2)")
     dev = resolve_device(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = cfg.replace(remat=args.remat)
+    mesh = build_mesh(args.mesh, dev)
+    rules = ShardingRules(fsdp=args.fsdp)
+    ctx = ShardCtx(mesh=mesh, rules=rules)
 
     params = init_params(cfg, seed=args.seed, device=dev, trainable=True)
+    if mesh is not None:
+        distribute_params(params, cfg, mesh, rules)
     opt = make_optimizer(args.lr)
-    opt_state = opt.init(param_tree(params))
-    step_fn = make_train_step(cfg, opt)
+    opt_state = opt.init(param_tree(params))   # the moments take the parameters' placements
+    step_fn = make_train_step(cfg, opt, ctx=ctx)
 
     # pooled synthetic federated LM data (per-client Markov sources)
     clients = make_federated_lm_data(8, cfg.vocab, 20_000, seed=args.seed)
@@ -92,6 +112,8 @@ def main(argv=None, device="cuda"):
     for step in range(args.steps):
         window = torch.from_numpy(next(stream)).to(dev)
         batch = {"tokens": window[:, :-1], "labels": window[:, 1:], **extra}
+        if mesh is not None:
+            batch = distribute(batch, mesh, {k: _BATCH_AXES[k] for k in batch}, rules)
         with tracer.span("train.step", cat="train", step=step):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])

@@ -7,10 +7,14 @@ MoE) is expressed via periodic *layer kinds*.
 
 A copy of ``repro.models.config`` with ``dtype`` a ``torch.dtype``
 (bf16 by default, fp32 in ``reduced()``). ``remat`` and ``cast_grads``
-act in the train step (``models/model.py``); the knobs that only the
-reference's XLA path reads (``scan_unroll``, ``moe_local_dispatch``,
-``shard_attn_seq``) stay as fields so a config means the same in both
-packages, and the port's Python loop over layers ignores them. ``use_pallas``
+act in the train step (``models/model.py``), ``moe_local_dispatch`` picks
+the MoE's per-row dispatch (``models.layers.moe_local``), and
+``shard_attn_seq`` adds the reference's ``attn_q_seq`` constraint on
+the query above ``BLOCKED_ATTN_THRESHOLD`` tokens (on an LM mesh whose
+rules assign it, the query sequence is sharded over the model axis).
+``scan_unroll`` only the reference's XLA path reads: it stays as a field
+so a config means the same in both packages, and the port's Python loop
+over layers ignores it. ``use_pallas``
 means what it means in the reference: attention goes through the
 ``flash_attention`` kernel (on a CUDA tensor the hand-written kernel,
 on a CPU tensor its plain version).

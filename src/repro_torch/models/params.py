@@ -10,7 +10,11 @@ read the same names in both packages.
 One layout differs: the reference stacks each sub-layer kind's blocks on
 a leading ``n_superblocks`` axis for ``lax.scan``; the port keeps one
 entry per layer (``blocks[i]``, of kind ``sublayer_kinds()[i % period]``)
-and loops over them.
+and loops over them. So each spec's logical axes (``logical_axes``, the
+names ``sharding.rules`` maps onto a mesh) are the reference's without
+its leading ``"layers"`` entry, which maps to no mesh axis.
+``abstract_params`` gives the tree as ``meta`` tensors of the specs'
+shapes and dtypes, which allocate nothing (the dry-run's parameters).
 
 Serving builds frozen parameters (``requires_grad=False``); training
 builds them with ``trainable=True`` and reads them as a tree through
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ _DRAW_BLOCK_BYTES = 1 << 31
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # a logical axis name per dim (sharding.rules)
     init: Any  # float std | "zeros" | "ones" | "a_log" | "dt_bias"
     dtype: torch.dtype
 
@@ -60,15 +65,15 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     dt = cfg.dtype
     out_std = 1.0 / np.sqrt(H * hd) / np.sqrt(2.0 * cfg.n_layers)
     specs = {
-        "wq": ParamSpec((d, H, hd), 1 / np.sqrt(d), dt),
-        "wk": ParamSpec((d, K, hd), 1 / np.sqrt(d), dt),
-        "wv": ParamSpec((d, K, hd), 1 / np.sqrt(d), dt),
-        "wo": ParamSpec((H, hd, d), out_std, dt),
+        "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim"), 1 / np.sqrt(d), dt),
+        "wk": ParamSpec((d, K, hd), ("embed", "kv_heads", "head_dim"), 1 / np.sqrt(d), dt),
+        "wv": ParamSpec((d, K, hd), ("embed", "kv_heads", "head_dim"), 1 / np.sqrt(d), dt),
+        "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "embed"), out_std, dt),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((H, hd), "zeros", dt)
-        specs["bk"] = ParamSpec((K, hd), "zeros", dt)
-        specs["bv"] = ParamSpec((K, hd), "zeros", dt)
+        specs["bq"] = ParamSpec((H, hd), ("heads", "head_dim"), "zeros", dt)
+        specs["bk"] = ParamSpec((K, hd), ("kv_heads", "head_dim"), "zeros", dt)
+        specs["bv"] = ParamSpec((K, hd), ("kv_heads", "head_dim"), "zeros", dt)
     return specs
 
 
@@ -76,9 +81,9 @@ def _mlp_specs(cfg: ModelConfig) -> dict:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
     out_std = 1.0 / np.sqrt(f) / np.sqrt(2.0 * cfg.n_layers)
     return {
-        "wg": ParamSpec((d, f), 1 / np.sqrt(d), dt),
-        "wu": ParamSpec((d, f), 1 / np.sqrt(d), dt),
-        "wd": ParamSpec((f, d), out_std, dt),
+        "wg": ParamSpec((d, f), ("embed", "mlp"), 1 / np.sqrt(d), dt),
+        "wu": ParamSpec((d, f), ("embed", "mlp"), 1 / np.sqrt(d), dt),
+        "wd": ParamSpec((f, d), ("mlp", "embed"), out_std, dt),
     }
 
 
@@ -86,10 +91,10 @@ def _moe_specs(cfg: ModelConfig) -> dict:
     d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
     out_std = 1.0 / np.sqrt(f) / np.sqrt(2.0 * cfg.n_layers)
     return {
-        "router": ParamSpec((d, E), 1 / np.sqrt(d), torch.float32),
-        "wg": ParamSpec((E, d, f), 1 / np.sqrt(d), dt),
-        "wu": ParamSpec((E, d, f), 1 / np.sqrt(d), dt),
-        "wd": ParamSpec((E, f, d), out_std, dt),
+        "router": ParamSpec((d, E), ("embed", "experts"), 1 / np.sqrt(d), torch.float32),
+        "wg": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"), 1 / np.sqrt(d), dt),
+        "wu": ParamSpec((E, d, f), ("experts", "embed", "expert_mlp"), 1 / np.sqrt(d), dt),
+        "wd": ParamSpec((E, f, d), ("experts", "expert_mlp", "embed"), out_std, dt),
     }
 
 
@@ -101,23 +106,24 @@ def _mamba_specs(cfg: ModelConfig) -> dict:
     conv_dim = di + 2 * N
     out_std = 1.0 / np.sqrt(di) / np.sqrt(2.0 * cfg.n_layers)
     return {
-        "in_z": ParamSpec((d, di), 1 / np.sqrt(d), dt),
-        "in_x": ParamSpec((d, di), 1 / np.sqrt(d), dt),
-        "in_b": ParamSpec((d, N), 1 / np.sqrt(d), dt),
-        "in_c": ParamSpec((d, N), 1 / np.sqrt(d), dt),
-        "in_dt": ParamSpec((d, H), 1 / np.sqrt(d), dt),
-        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), 1 / np.sqrt(cfg.ssm_conv), dt),
-        "conv_b": ParamSpec((conv_dim,), "zeros", dt),
-        "a_log": ParamSpec((H,), "a_log", torch.float32),
-        "d_skip": ParamSpec((H,), "ones", torch.float32),
-        "dt_bias": ParamSpec((H,), "dt_bias", torch.float32),
-        "norm": ParamSpec((di,), "ones", torch.float32),
-        "out": ParamSpec((di, d), out_std, dt),
+        "in_z": ParamSpec((d, di), ("embed", "ssm_inner"), 1 / np.sqrt(d), dt),
+        "in_x": ParamSpec((d, di), ("embed", "ssm_inner"), 1 / np.sqrt(d), dt),
+        "in_b": ParamSpec((d, N), ("embed", "ssm_state"), 1 / np.sqrt(d), dt),
+        "in_c": ParamSpec((d, N), ("embed", "ssm_state"), 1 / np.sqrt(d), dt),
+        "in_dt": ParamSpec((d, H), ("embed", "ssm_heads"), 1 / np.sqrt(d), dt),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), ("conv", "ssm_inner"),
+                            1 / np.sqrt(cfg.ssm_conv), dt),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), "zeros", dt),
+        "a_log": ParamSpec((H,), ("ssm_heads",), "a_log", torch.float32),
+        "d_skip": ParamSpec((H,), ("ssm_heads",), "ones", torch.float32),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), "dt_bias", torch.float32),
+        "norm": ParamSpec((di,), ("ssm_inner",), "ones", torch.float32),
+        "out": ParamSpec((di, d), ("ssm_inner", "embed"), out_std, dt),
     }
 
 
 def _norm(cfg: ModelConfig) -> ParamSpec:
-    return ParamSpec((cfg.d_model,), "ones", torch.float32)
+    return ParamSpec((cfg.d_model,), ("norm",), "ones", torch.float32)
 
 
 def _sublayer_specs(cfg: ModelConfig, mixer: str, ffn: str, cross: bool = False) -> dict:
@@ -143,19 +149,41 @@ def model_specs(cfg: ModelConfig) -> dict:
     d, V = cfg.d_model, cfg.vocab
     cross = cfg.is_encdec
     specs = {
-        "embed": ParamSpec((V, d), 0.02, cfg.dtype),
+        # "vocab_in", not "vocab": the input table can be replicated
+        # apart from the lm_head (the dry-run's --replicate-embed)
+        "embed": ParamSpec((V, d), ("vocab_in", "embed"), 0.02, cfg.dtype),
         "blocks": [_sublayer_specs(cfg, *kinds[i % len(kinds)], cross=cross)
                    for i in range(cfg.n_layers)],
         "final_norm": _norm(cfg),
-        "lm_head": ParamSpec((d, V), 1 / np.sqrt(d), cfg.dtype),
+        "lm_head": ParamSpec((d, V), ("embed", "vocab"), 1 / np.sqrt(d), cfg.dtype),
     }
     if cross:
         specs["encoder"] = {
-            "pos": ParamSpec((cfg.encoder_seq, d), 0.02, cfg.dtype),
+            "pos": ParamSpec((cfg.encoder_seq, d), ("seq", "embed"), 0.02, cfg.dtype),
             "blocks": [_sublayer_specs(cfg, "attn", "mlp") for _ in range(cfg.encoder_layers)],
             "norm": _norm(cfg),
         }
     return specs
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, list):
+        return [_map_specs(fn, s) for s in specs]
+    if isinstance(specs, dict):
+        return {key: _map_specs(fn, s) for key, s in specs.items()}
+    return fn(specs)
+
+
+def logical_axes(cfg: ModelConfig):
+    """The spec tree with each leaf's logical axis tuple."""
+    return _map_specs(lambda s: s.logical, model_specs(cfg))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The spec tree with each leaf a ``meta`` tensor of its shape and
+    dtype: no storage, so a full-size model costs nothing."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                      model_specs(cfg))
 
 
 class ParamNode(nn.Module):
@@ -193,6 +221,29 @@ def param_tree(params: nn.Module):
     tree = dict(params.named_parameters(recurse=False))
     tree.update((key, param_tree(m)) for key, m in params.named_children())
     return tree
+
+
+def _put(module: nn.Module, tree) -> None:
+    if isinstance(module, nn.ModuleList):
+        for m, sub in zip(module, tree):
+            _put(m, sub)
+        return
+    for key, sub in tree.items():
+        if isinstance(sub, (dict, list)):
+            _put(getattr(module, key), sub)
+        else:
+            module._parameters[key] = nn.Parameter(sub, requires_grad=sub.requires_grad)
+
+
+def distribute_params(params: nn.Module, cfg: ModelConfig, mesh, rules) -> nn.Module:
+    """``params`` with each parameter replaced, in place, by a ``DTensor``
+    parameter on the LM mesh, placed by its logical axes
+    (``sharding.rules.distribute``: each rank keeps its own shard of the
+    tensor it holds whole). Returns ``params``."""
+    from repro_torch.sharding.rules import distribute
+
+    _put(params, distribute(param_tree(params), mesh, logical_axes(cfg), rules))
+    return params
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",

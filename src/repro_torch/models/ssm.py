@@ -31,12 +31,58 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import NO_SHARDING, ShardCtx, contiguous_grads, rms_norm
+
+
+def _heads_local(fn, x, dt, a_neg, bmat, cmat, h, n_out: int = 2):
+    """``fn(x, dt, a_neg, bmat, cmat, h, ...)`` on each rank's batch rows
+    and SSM heads: the SSD is independent across heads, so heads sharded
+    over the model axis stay local, and B and C, shared by every head,
+    come whole (their gradient the sum over the ranks' heads). ``x``
+    (B, ., H, P), ``dt`` (B, ., H), ``a_neg`` (H,), ``bmat`` / ``cmat``
+    (B, ., N), ``h`` (B, H, N, P); the outputs are laid out as ``x`` and
+    ``h``."""
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    a_neg, bmat, cmat, dt = (t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, whole)
+                             for t in (a_neg, bmat, cmat, dt))
+    pls = {"x": [], "dt": [], "a": [], "bc": [], "h": [], "bc_grad": [], "a_grad": []}
+    for xp in x.placements:
+        if isinstance(xp, Shard) and xp.dim == 0:     # batch rows: a's gradient summed
+            row = (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0), Shard(0), Partial())
+        elif isinstance(xp, Shard) and xp.dim == 2:   # heads: B's and C's gradient summed
+            row = (Shard(2), Shard(2), Shard(0), Replicate(), Shard(1), Partial(), Shard(0))
+        else:
+            row = (Replicate(),) * 7
+        for key, pl in zip(pls, row):
+            pls[key].append(pl)
+    if h is None:
+        h = torch.zeros((x.shape[0], x.shape[2], bmat.shape[-1], x.shape[3]),
+                        dtype=torch.float32, device=x.device)
+    if not isinstance(h, DTensor):
+        h = DTensor.from_local(h, mesh, whole)
+    ins = (pls["x"], pls["dt"], pls["a"], pls["bc"], pls["bc"], pls["h"])
+    grads = (pls["x"], pls["dt"], pls["a_grad"], pls["bc_grad"], pls["bc_grad"], pls["h"])
+    return local_map(lambda *a: fn(*contiguous_grads(*a)),
+                     out_placements=(pls["x"], pls["h"]), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(x, dt, a_neg, bmat, cmat, h)
 
 
 def ssd_chunked(x, dt, a_neg, bmat, cmat, chunk: int, h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan (``_ssd_chunked``); on a mesh on each rank's own
+    batch rows and heads (``_heads_local``)."""
+    if isinstance(x, DTensor):
+        return _heads_local(lambda *a: _ssd_chunked(*a[:5], chunk, a[5]),
+                            x, dt, a_neg, bmat, cmat, h0)
+    return _ssd_chunked(x, dt, a_neg, bmat, cmat, chunk, h0)
+
+
+def _ssd_chunked(x, dt, a_neg, bmat, cmat, chunk: int, h0: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
 
     x: (B, S, H, P) head inputs; dt: (B, S, H) discretisation steps
@@ -88,7 +134,18 @@ def ssd_chunked(x, dt, a_neg, bmat, cmat, chunk: int, h0: Optional[torch.Tensor]
 def ssd_decode_step(x, dt, a_neg, bmat, cmat, h):
     """One token of the recurrence. x: (B, H, P), dt: (B, H), bmat and
     cmat: (B, N), h: (B, H, N, P) fp32. Returns (y (B, H, P) in
-    ``x.dtype``, the new state)."""
+    ``x.dtype``, the new state); on a mesh on each rank's own heads."""
+    if isinstance(x, DTensor):
+        def one(x, dt, a, b, c, h):
+            y, h = _ssd_decode_step(x[:, 0], dt[:, 0], a, b[:, 0], c[:, 0], h)
+            return y[:, None], h
+
+        y, h = _heads_local(one, x[:, None], dt[:, None], a_neg, bmat[:, None], cmat[:, None], h)
+        return y[:, 0], h
+    return _ssd_decode_step(x, dt, a_neg, bmat, cmat, h)
+
+
+def _ssd_decode_step(x, dt, a_neg, bmat, cmat, h):
     a = torch.exp(dt.float() * a_neg)                                     # (B, H)
     upd = torch.einsum("bn,bhp->bhnp", bmat.float(), dt.float()[..., None] * x.float())
     h_new = a[:, :, None, None] * h + upd
@@ -98,7 +155,35 @@ def ssd_decode_step(x, dt, a_neg, bmat, cmat, h):
 
 def causal_conv(x, w, b):
     """Depthwise causal conv1d in fp32, left-padded by K - 1.
-    x: (B, S, C); w: (K, C); b: (C,). Returns (B, S, C) in ``x.dtype``."""
+    x: (B, S, C); w: (K, C); b: (C,). Returns (B, S, C) in ``x.dtype``.
+    On a mesh each rank convolves its own channels (the conv is
+    depthwise: channel-sharded is exact) of its own batch rows."""
+    if not isinstance(w, DTensor):
+        return _causal_conv(x, w, b)
+    mesh = w.device_mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim)
+    x_pl, w_pl, b_pl, wb_grad = [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(wp, Shard) and wp.dim == 1:
+            x_pl.append(Shard(2)), w_pl.append(wp), b_pl.append(Shard(0))
+            wb_grad.append(None)
+        elif isinstance(xp, Shard) and xp.dim == 0:
+            # each rank's rows give a part of the weights' gradient: summed
+            x_pl.append(xp), w_pl.append(Replicate()), b_pl.append(Replicate())
+            wb_grad.append(Partial())
+        else:
+            x_pl.append(Replicate()), w_pl.append(Replicate()), b_pl.append(Replicate())
+            wb_grad.append(Replicate())
+    w_grad = [g or p for g, p in zip(wb_grad, w_pl)]
+    b_grad = [g or p for g, p in zip(wb_grad, b_pl)]
+    return local_map(lambda x, w, b: _causal_conv(*contiguous_grads(x, w, b)),
+                     out_placements=x_pl, in_placements=(x_pl, w_pl, b_pl),
+                     in_grad_placements=(x_pl, w_grad, b_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w, b)
+
+
+def _causal_conv(x, w, b):
     K, C = w.shape
     lhs = F.pad(x.transpose(1, 2).float(), (K - 1, 0))                    # (B, C, S + K - 1)
     out = F.conv1d(lhs, w.t().float()[:, None, :], groups=C)              # (B, C, S)
@@ -119,7 +204,8 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_mixer(x, p, cfg: ModelConfig, cache: Optional[dict] = None, decode: bool = False):
+def mamba_mixer(x, p, cfg: ModelConfig, cache: Optional[dict] = None, decode: bool = False, *,
+                ctx: ShardCtx = NO_SHARDING):
     """The Mamba2 block's mixer. x: (B, S, d). Returns (out, cache): with
     a cache, prefill leaves the last K - 1 pre-conv samples (zero-padded
     at the front when S < K - 1) and the final SSD state in it, and decode
@@ -127,9 +213,10 @@ def mamba_mixer(x, p, cfg: ModelConfig, cache: Optional[dict] = None, decode: bo
     B, S, d = x.shape
     H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = cfg.d_inner
-    z = torch.matmul(x, p.in_z)
-    xbc_pre = torch.cat([torch.matmul(x, p.in_x), torch.matmul(x, p.in_b),
-                         torch.matmul(x, p.in_c)], dim=-1)                # (B, S, conv_dim)
+    xin = ctx.c(torch.matmul(x, p.in_x), "batch", "seq", "ssm_inner")
+    z = ctx.c(torch.matmul(x, p.in_z), "batch", "seq", "ssm_inner")
+    xbc_pre = torch.cat([xin, torch.matmul(x, p.in_b), torch.matmul(x, p.in_c)],
+                        dim=-1)                                           # (B, S, conv_dim)
     dtr = torch.matmul(x, p.in_dt)
     if decode:
         y_c, conv_state = conv_decode_step(xbc_pre[:, 0], p.conv_w, p.conv_b, cache["conv"])

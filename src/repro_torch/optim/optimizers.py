@@ -65,7 +65,8 @@ def adamw(
     lr_fn = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
 
     def init(params):
-        f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: on a mesh the moments take their parameter's placements
+        f32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"step": _step0(), "mu": tree_map(f32, params), "nu": tree_map(f32, params)}
 
     def update(grads, state, params):

@@ -13,11 +13,20 @@ divisible by the mesh-axis size (2 kv-heads on a 16-way model axis stay
 replicated), so one model definition stays valid on every mesh. The sim
 engine reads ``group_shard_specs``: its bucket groups lie on the logical
 "group" axis, which the table assigns to the sim mesh's ``devices``.
+
+The LM mesh (``launch.mesh.LmMesh``) reads ``spec_tree`` and
+``param_sharding``: a tree's specs, and each spec turned by
+``placements`` into the ``DTensor`` placements of the mesh's
+``DeviceMesh``, one per mesh dim; ``distribute`` places a tree of
+tensors by them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 Spec = Tuple[object, ...]
 
@@ -122,6 +131,66 @@ def logical_to_spec(shape, logical: Tuple[Optional[str], ...], mesh,
             used.update(key)
         spec.append(axis)
     return tuple(spec)
+
+
+def _map_leaves(fn, tree, logical):
+    """``fn(leaf, names)`` over a tree of tensors (dicts, lists, tuples)
+    and the tree of logical axis tuples that mirrors it."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, logical[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, n) for v, n in zip(tree, logical))
+    return fn(tree, logical)
+
+
+def spec_tree(mesh, shapes, logical_axes, rules: ShardingRules):
+    """The spec of each leaf of ``shapes`` (anything with ``.shape``: the
+    ``meta`` tensors of ``models.abstract_params``, real tensors)."""
+    return _map_leaves(lambda t, names: logical_to_spec(t.shape, names, mesh, rules),
+                       shapes, logical_axes)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """The ``DTensor`` placements of a spec on ``mesh``: for each mesh dim,
+    ``Shard(d)`` where tensor dim d is sharded over it, else
+    ``Replicate()``. A tensor dim sharded over several mesh axes
+    (``("pod", "data")``) must name them in the mesh's order, major axis
+    first, which is how ``DTensor`` splits a dim that more than one mesh
+    dim shards."""
+    owner = {}
+    for dim, axis in enumerate(spec):
+        axes = () if axis is None else (axis,) if isinstance(axis, str) else tuple(axis)
+        order = [mesh.axis_names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: dim {dim} names {axes} out of the mesh's "
+                             f"order {mesh.axis_names}")
+        for a in axes:
+            owner[a] = dim
+    return tuple(Shard(owner[a]) if a in owner else Replicate() for a in mesh.axis_names)
+
+
+def param_sharding(mesh, params, logical_axes, rules: ShardingRules):
+    """The ``placements`` of each leaf of ``params`` (or of optimizer
+    state mirroring them), a tree of tuples with one placement per mesh
+    dim: the port's ``NamedSharding`` tree."""
+    return _map_leaves(
+        lambda t, names: placements(logical_to_spec(t.shape, names, mesh, rules), mesh),
+        params, logical_axes)
+
+
+def distribute(tree, mesh, logical_axes, rules: ShardingRules):
+    """Each tensor of ``tree`` as a ``DTensor`` on ``mesh.device_mesh``,
+    placed by ``param_sharding``. Every rank holds the whole tensor (the
+    same seed or the same file), so each keeps its own shard and nothing
+    moves (``src_data_rank=None``). A leaf that requires grad stays a
+    leaf that requires grad."""
+    def one(t, names):
+        pl = placements(logical_to_spec(t.shape, names, mesh, rules), mesh)
+        with torch.no_grad():
+            out = distribute_tensor(t.detach(), mesh.device_mesh, pl, src_data_rank=None)
+        return out.requires_grad_(t.requires_grad)
+
+    return _map_leaves(one, tree, logical_axes)
 
 
 def group_shard_specs(mesh, ranks: Sequence[int],
