@@ -6,7 +6,7 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs sixteen phases, each printing one JSON line on stdout:
+``repro``, and runs seventeen phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together; count
@@ -128,6 +128,29 @@ It imports the port and nothing of JAX or of the reference package
            the baselines: the Pegasos fit (128 rows, d 32, 5 epochs) timed
            on cuda and within 1e-5 of its cpu fit, and cohort labels from
            card-scored embeddings equal to the cpu's;
+  wide     the SVM kernels past their staged limits (the scorers past d
+           220, ``gram_matvec`` past d 64, ``rbf_gram_q8`` past d 128,
+           SDCA past bucket 12,384), its cpu half in a spawned process beside
+           the card's work: (a) the four feature-dim kernels at d 129,
+           220, 221, 256, 784 and 1,024 at the round's shapes (scorers b
+           8,192, k 2,821, n 230; ``gram_matvec`` l 4,096;
+           ``rbf_gram_q8`` b 8,192 against 4,096 int8 supports; drawn on
+           the card) against their plain versions, two launches bitwise,
+           and each chunked kernel's private entry against the staged
+           kernel where both run (bitwise; ``gram_matvec``, which sums its
+           64-feature chunks in fp64, within the tol); SDCA on the pooled
+           emnist ideal at buckets 12,416 and 16,384 against its plain
+           version at 2 epochs, and its global instantiation bitwise the
+           shared one at bucket 2,048; then, launches counted from 0: (b)
+           the scale-0.02 emnist rounds at d 784 (fp32) and d 256 (int8,
+           CG distillation on 1,024 proxy rows) on cuda against the cpu
+           (ledgers, ids and best k equal, AUCs within 1e-4); (c) the emnist
+           round at d 784 in fp32 on cuda at a quarter of Table 1's scale
+           (865 devices; the full 3,462 pushed the script past its time on
+           a slow host): seconds, spans, AUCs, launches; (d) ``train_svm`` on the ideal's 16,384
+           rows (bucket 16,384, the global SDCA) on cuda and on cpu, AUCs
+           on the pooled test rows within 1e-4; every lifted kernel
+           launched in (b)-(d);
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32, with the
            flash kernel (``use_pallas``): 2 prompts of 200 tokens and 8
            greedy tokens through ``launch/serve.py``'s ``serve_prompts`` on
@@ -275,7 +298,9 @@ It imports the port and nothing of JAX or of the reference package
            timed by one call), and the kernel's
            own device time a call from ``torch.profiler`` over a run of
            back-to-back calls (``device_ms``), at main-path shapes
-           (``batched_rbf_gram`` at six of the round's 15), beside a
+           (``batched_rbf_gram`` at six of the round's 15; the lifted
+           kernels also at d 784 and SDCA at bucket 16,384, the ``wide``
+           phase's shapes, whose device time takes 4 calls a window), beside a
            ``fill_`` of the output (the card's own write rate) and the
            analytic bound from the port's ``obs.profile.kernel_bound``: the
            larger of operations over the card's peak for the inputs' type
@@ -305,8 +330,8 @@ kernel's launches in the ``fleet`` phase's runs (1)-(3) as
 ``train`` (c)'s sharded prefill and decode as ``launches_mesh``, in
 ``deep`` (b)'s round as ``launches_deep``, in ``families`` (b)'s
 counted serves as ``launches_families``, in the ``cli`` runs on
-cuda as ``launches_cli`` and in ``main``'s sharded round as
-``launches_sharded``;
+cuda as ``launches_cli``, in ``main``'s sharded round as
+``launches_sharded`` and in ``wide`` (b)-(d) as ``launches_wide``;
 the ``population`` line carries its own counts), the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``. A failed phase exits non-zero without
@@ -335,7 +360,7 @@ from pathlib import Path
 from statistics import fmean as mean
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "lm_parity",
+PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "wide", "lm_parity",
           "serve", "train", "deep", "families", "cli", "fleet", "timing", "profile")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
@@ -542,6 +567,20 @@ def kernel_cases(rng, ops):
             for label, shape, causal, window in FLASH_SHAPES
         ],
     }
+    # the wide phase's shapes at d 784 (``wide_inputs``, drawn on the card;
+    # the scorers at a tenth of the members, 38-47 ms a call) and SDCA at
+    # bucket 16,384 (the global instantiation, built on the
+    # card; 1 epoch, as the plain version takes ~4 s an epoch there), timed
+    # and profiled; the wide phase checks them, the kernels phase skips them
+    # (WIDE_PREFIX)
+    for name, label, kw in (("ensemble_score", "b8192 k282 n230 d784", {"k": WIDE_TIMING_K}),
+                            ("ensemble_score_q8", "b8192 k282 n230 d784", {"k": WIDE_TIMING_K}),
+                            ("gram_matvec", "cg l4096 d784", {}),
+                            ("rbf_gram_q8", "student b8192 n4096 d784", {})):
+        cases[name].append((WIDE_PREFIX + label, Lazy(
+            functools.partial(wide_inputs, name, WIDE_FULL_DIM, "cuda", **kw))))
+    cases["sdca"].append((WIDE_PREFIX + "ideal emnist g1 b16384 e1", Lazy(
+        lambda: ideal_problem_on("cuda", WIDE_IDEAL_SCALE, WIDE_SDCA[-1][0], 1))))
     for name, spec in ops.KERNEL_REGISTRY.items():
         cases[name].append(("registry", spec.make_inputs(rng)))
         cases[name].append(("ragged", spec.make_ragged(rng)))
@@ -644,7 +683,8 @@ def phase_kernels(ops, device, names):
 
     results, errs, failed = [], {}, []
     t0 = time.perf_counter()
-    all_cases = {n: c for n, c in shared_cases(ops).items() if n in names}
+    all_cases = {n: [(label, args) for label, args in c if not label.startswith(WIDE_PREFIX)]
+                 for n, c in shared_cases(ops).items() if n in names}
     cases_seconds = time.perf_counter() - t0
     for name, cases in all_cases.items():
         spec = ops.KERNEL_REGISTRY[name]
@@ -1489,6 +1529,392 @@ def phase_agg(make_dataset, run_protocol, ops, trace, DistillConfig, device):
     return out
 
 
+# the wide phase: the SVM kernels past their staged limits (the scorers past
+# d 220, gram_matvec past d 64, rbf_gram_q8 past d 128, SDCA past bucket
+# 12,384), and the emnist round at d 784
+WIDE_KERNELS = ("ensemble_score", "ensemble_score_q8", "gram_matvec", "rbf_gram_q8")
+WIDE_PREFIX = "wide "                           # kernel_cases' labels of the wide shapes
+WIDE_DS = (129, 220, 221, 256, 784, 1024)
+# feature dims where a kernel's staged and chunked instantiations both run:
+# the chunked one through its private entry against the staged one
+WIDE_BOTH = {"ensemble_score": (64, 220), "ensemble_score_q8": (64, 220),
+             "gram_matvec": (32, 64), "rbf_gram_q8": (64, 128)}
+WIDE_IDEAL_SCALE = 0.1                          # an emnist federation pooling > 16,384 train rows
+WIDE_SDCA = ((12_400, 12_416), (16_384, 16_384))   # (ideal rows, bucket) past 12,384
+WIDE_SDCA_EPOCHS = 2                            # the plain SDCA's epochs on those buckets
+WIDE_ROUND = dict(scale=0.02, ks=(1, 10, 50), random_trials=2)   # tests/test_torch_wide.py's
+WIDE_ROUNDS = {"fp32 d784": dict(dim=784),
+               "int8 cg d256": dict(dim=256, codec="int8",
+                                    distill=dict(proxy_size=1024, solver="cg"))}
+WIDE_FULL_DIM = 784                             # emnist's pixels
+# a quarter of Table 1's 3,462 writers: at 1.0 the round took 29-38 s of
+# the phase and put the script past its 1,200 s on a slow host
+WIDE_FULL_SCALE = 0.25
+WIDE_TIMING_K = 282                             # the scorers' wide timing rows: a tenth of k 2,821
+WIDE_CPU_THREADS = 3                            # torch threads of each of the two cpu workers
+
+
+def quantize_columns_on(sup):
+    """Per-column affine int8 of each (n, d) slab of ``sup`` (..., n, d) on
+    its device, as the codec's ``_quantize_columns`` computes it."""
+    import torch
+
+    lo, hi = sup.amin(-2, keepdim=True), sup.amax(-2, keepdim=True)
+    scale = (hi - lo) / 254.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    zero = (hi + lo) / 2.0
+    q = torch.clamp(torch.round((sup - zero) / scale), -127, 127).to(torch.int8)
+    return q.contiguous(), scale.squeeze(-2).contiguous(), zero.squeeze(-2).contiguous()
+
+
+def wide_inputs(name, d, device, seed=0, k=2821):
+    """``name``'s arguments at the round's shapes with feature dim d, drawn
+    on ``device`` (a host draw of the full ensemble at d 1,024 would take
+    longer than the checks): the scorers at b 8,192, ``k`` 2,821, n 230
+    (``kernel_cases``' "full" shape: normals, coefficients at a trained
+    model's scale, gammas 1 / (d u), u in [0.5, 2]; int8 by the codec's
+    per-column quantisation); ``gram_matvec`` at the CG's l 4,096 on
+    normals at gamma 1 / (d var); ``rbf_gram_q8`` at the student's b 8,192
+    against 4,096 int8 supports at gamma 1 / d."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(1_000 * seed + d)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=device)
+
+    if name in ("ensemble_score", "ensemble_score_q8"):
+        b, n = 8192, 230
+        x, sup = randn(b, d), randn(k, n, d)
+        sign = torch.where(rand(k, n) < 0.5, -1.0, 1.0)
+        coef = rand(k, n) * sign / (0.01 * n)
+        gam = 1.0 / (d * (0.5 + 1.5 * rand(k)))
+        if name == "ensemble_score":
+            return x, sup, coef, gam
+        q, scale, zero = quantize_columns_on(sup)
+        del sup
+        return x, q, scale, zero, coef, gam
+    if name == "gram_matvec":
+        xp = randn(4096, d)
+        return xp, xp, randn(4096), float(1.0 / (d * float(xp.var())))
+    x = randn(8192, d)
+    q, scale, zero = quantize_columns_on(randn(4096, d))
+    return x, q, scale, zero, 1.0 / d
+
+
+def wide_private(name):
+    """The chunked instantiation's private entry of a lifted kernel."""
+    from repro_torch.kernels import ensemble_score, ensemble_score_q8, gram_matvec, rbf_gram_q8
+
+    return {"ensemble_score": ensemble_score.ensemble_score_chunked_cuda,
+            "ensemble_score_q8": ensemble_score_q8.ensemble_score_q8_chunked_cuda,
+            "gram_matvec": gram_matvec.gram_matvec_chunked_cuda,
+            "rbf_gram_q8": rbf_gram_q8.rbf_gram_q8_chunked_cuda}[name]
+
+
+def wide_sweep(ops, device):
+    """(a) Each lifted kernel at every WIDE_DS against its plain version
+    (registry tol), one launch counted a call, two launches bitwise equal;
+    and where both instantiations run (WIDE_BOTH), the chunked one through
+    its private entry against the staged one: bitwise for the scorers and
+    rbf_gram_q8, within the tol for gram_matvec, whose chunked kernel sums
+    64-feature chunks apart (PERF.md section 6)."""
+    import torch
+
+    rows, failed = [], []
+    for name in WIDE_KERNELS:
+        spec = ops.KERNEL_REGISTRY[name]
+        for d in sorted(set(WIDE_DS) | set(WIDE_BOTH[name])):
+            args = wide_inputs(name, d, device)
+            t0 = time.perf_counter()
+            row = {"kernel": name, "d": d}
+            if d in WIDE_DS:
+                before = spec.counter.count
+                got = spec.kernel(*args)
+                torch.cuda.synchronize()
+                row["launched"] = spec.counter.count - before
+                want = spec.plain(*args)
+                err, ok, tol = agreement(spec, got, want)
+                row.update(max_abs_err=err, tol=tol,
+                           bitwise_twice=bool(torch.equal(got, spec.kernel(*args))))
+                if not (ok and row["bitwise_twice"] and row["launched"] == 1):
+                    failed.append(f"{name} d{d}: {row}")
+                del want
+            else:
+                got = spec.kernel(*args)
+            if d in WIDE_BOTH[name]:
+                chunked = wide_private(name)(*args)
+                gap = float((chunked - got).abs().max())
+                row["chunked_vs_staged_max_abs"] = gap
+                if name == "gram_matvec" and not gap <= spec.tol:
+                    failed.append(f"{name} d{d}: chunked {gap} from staged > {spec.tol}")
+                if name != "gram_matvec" and not torch.equal(chunked, got):
+                    failed.append(f"{name} d{d}: chunked != staged bitwise (gap {gap})")
+                del chunked
+            row["seconds"] = time.perf_counter() - t0
+            rows.append(row)
+            del got, args
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("wide (a): " + "; ".join(failed))
+    return rows
+
+
+def ideal_problem_on(device, scale, cap, epochs):
+    """``ops.make_ideal_sdca_problem``'s problem (``train_svm``'s padding
+    of the pooled ideal's ``cap`` rows at ``scale``, the Gram by the plain
+    version) built on ``device``: a host Gram of 16,384 rows takes
+    seconds."""
+    import torch
+
+    from repro_torch.core.svm import SDCA_BUCKET, default_gamma
+    from repro_torch.kernels.rbf_gram import rbf_gram_plain
+
+    x, y, _, _ = wide_ideal_rows(scale, cap)
+    n = len(y)
+    b = max(-(-n // SDCA_BUCKET) * SDCA_BUCKET, SDCA_BUCKET)
+    xg = torch.from_numpy(x).to(device)
+    K = torch.zeros((1, b, b), dtype=torch.float32, device=device)
+    K[0, :n, :n] = rbf_gram_plain(xg, xg, default_gamma(x))
+    yp = torch.ones((1, b), dtype=torch.float32, device=device)
+    yp[0, :n] = torch.from_numpy(y).to(device)
+    return K, yp, torch.tensor([n], dtype=torch.int32, device=device), 0.01, epochs
+
+
+def wide_sdca(ops, device):
+    """SDCA past the shared-memory bucket: the pooled emnist ideal at
+    WIDE_SDCA's rows and buckets within the registry's 1e-5 of the plain
+    version at WIDE_SDCA_EPOCHS epochs (padding 0); and the global-memory
+    instantiation (its private entry) bitwise the shared one at the
+    emnist ideal's bucket 2,048 (20 epochs)."""
+    import torch
+
+    from repro_torch.kernels.sdca import sdca_global_cuda
+
+    spec = ops.KERNEL_REGISTRY["sdca"]
+    rows = []
+    for cap, bucket in WIDE_SDCA:
+        t0 = time.perf_counter()
+        args = ideal_problem_on(device, WIDE_IDEAL_SCALE, cap, WIDE_SDCA_EPOCHS)
+        if tuple(args[0].shape) != (1, bucket, bucket):
+            raise AssertionError(f"wide sdca: bucket {tuple(args[0].shape)} != {bucket}")
+        got = spec.kernel(*args)
+        want = spec.plain(*args)
+        err, ok, tol = agreement(spec, got, want)
+        pad = float(got[0, cap:].abs().max()) if cap < bucket else 0.0
+        interior = int(((want > 0) & (want < 1)).sum())
+        rows.append({"rows": cap, "bucket": bucket, "epochs": WIDE_SDCA_EPOCHS,
+                     "max_abs_err": err, "tol": tol, "pad_max": pad,
+                     "interior_alphas": interior, "seconds": time.perf_counter() - t0})
+        if not ok or pad != 0.0:
+            raise AssertionError(f"wide sdca b{bucket}: {rows[-1]}")
+        del args, got, want
+        torch.cuda.empty_cache()
+    args = to_device(ops.make_ideal_sdca_problem(seed=0), device)
+    same = bool(torch.equal(sdca_global_cuda(*args), spec.kernel(*args)))
+    if not same:
+        raise AssertionError("wide sdca: the global instantiation != the shared one at b 2048")
+    return {"buckets": rows, "global_equals_shared_b2048": same}
+
+
+@functools.lru_cache(maxsize=1)
+def wide_pool(scale):
+    """The emnist federation at ``scale``: its devices' train splits pooled
+    and their test splits pooled, as ``ops.ideal_rows`` pools them, made
+    once a process (the SDCA buckets, the ideal and the timing case share
+    it: a federation of 40,000 rows takes seconds on the host)."""
+    import numpy as np
+
+    from repro_torch.data import make_dataset
+    from repro_torch.data.partition import derive_device_seed, split_train_test_val
+
+    ds = make_dataset("emnist", seed=0, scale=scale)
+    splits = [split_train_test_val(dev, seed=derive_device_seed(0, i))
+              for i, dev in enumerate(ds.devices)]
+    return tuple(np.concatenate([getattr(sp[part], a) for sp in splits])
+                 for part in ("train", "test") for a in ("x", "y"))
+
+
+def wide_ideal_rows(scale, cap):
+    """``ops.ideal_rows(seed=0, scale, cap)``'s ``cap`` train rows (drawn as
+    it draws them) and the federation's pooled test rows."""
+    import numpy as np
+
+    x, y, xt, yt = wide_pool(scale)
+    if len(y) > cap:
+        idx = np.random.default_rng(0).choice(len(y), cap, replace=False)
+        x, y = x[idx], y[idx]
+    return np.ascontiguousarray(x, np.float32), y, xt, yt
+
+
+def wide_round(kw, round_kw, device):
+    """One of WIDE_ROUNDS (``kw``) at ``round_kw`` (WIDE_ROUND) on
+    ``device``: (result, seconds)."""
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.data.federated import make_emnist_like
+    from repro_torch.distill import DistillConfig
+
+    kw = dict(kw)
+    dim, distill = kw.pop("dim"), kw.pop("distill", None)
+    if distill:
+        kw["distill"] = DistillConfig(**distill)
+    ds = make_emnist_like(seed=0, scale=round_kw["scale"], dim=dim)
+    t0 = time.perf_counter()
+    res = run_protocol(ds, ks=round_kw["ks"], random_trials=round_kw["random_trials"],
+                       device=device, **kw)
+    return res, time.perf_counter() - t0
+
+
+def wide_cpu_rounds(threads, rounds, round_kw):
+    """``rounds`` (WIDE_ROUNDS) on the cpu, in a worker process beside the
+    card's work: their signatures, AUCs and seconds."""
+    import torch
+
+    torch.set_num_threads(threads)
+    out = {}
+    for label, kw in rounds.items():
+        res, secs = wide_round(kw, round_kw, "cpu")
+        out[label] = {"signature": round_signature(res), "aucs": auc_values(res),
+                      "seconds": secs}
+    return out
+
+
+def wide_cpu_ideal(threads, scale, cap):
+    """The ideal's full solve on the cpu (``train_svm`` through the plain
+    versions), in a worker process: its AUC on the pooled test rows, its
+    coefficients and seconds."""
+    import torch
+
+    from repro_torch.core.svm import train_svm, validation_auc
+
+    torch.set_num_threads(threads)
+    x, y, xt, yt = wide_ideal_rows(scale, cap)
+    t0 = time.perf_counter()
+    model = train_svm(x, y, device="cpu")
+    return {"auc": validation_auc(model, xt, yt), "coef": model.coef,
+            "seconds": time.perf_counter() - t0}
+
+
+def wide_federation(scale, dim):
+    """The emnist federation at ``dim``, drawn in a thread while the card
+    runs (a) (a worker process took longer to send its 1.25 GB back than
+    to draw it): (dataset, seconds)."""
+    from repro_torch.data.federated import make_emnist_like
+
+    t0 = time.perf_counter()
+    ds = make_emnist_like(seed=0, scale=scale, dim=dim)
+    return ds, time.perf_counter() - t0
+
+
+def phase_wide(ops, trace, device):
+    """The SVM path past the kernels' staged limits. From the start two
+    spawned workers run the cpu rounds (``wide_cpu_rounds``) and the cpu
+    ideal (``wide_cpu_ideal``), and from the sweep on a thread draws the
+    d 784 federation for (c). (a) SDCA past bucket 12,384
+    (``wide_sdca``: its last
+    bucket is the ideal's 16,384 rows below, ``train_svm``'s SDCA problem,
+    at 2 epochs against the plain version); ``wide_sweep``. Then,
+    launches counted from
+    0: (b) WIDE_ROUNDS on cuda
+    against the cpu's (ledgers, ids and best k equal, AUCs within 1e-4);
+    (c) the emnist round at d 784 in fp32 on cuda at WIDE_FULL_SCALE,
+    timed, its spans and launches; (d) ``train_svm`` on the ideal's
+    16,384 rows on cuda (bucket 16,384: the global SDCA), its AUC on the
+    pooled test rows within 1e-4 of the cpu solve's. Every lifted kernel
+    must launch in (b)-(d)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.core.svm import SDCA_BUCKET, train_svm, validation_auc
+
+    out = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as drawer:
+        ideal_future = pool.submit(wide_cpu_ideal, WIDE_CPU_THREADS, WIDE_IDEAL_SCALE,
+                                   WIDE_SDCA[-1][0])
+        rounds_future = pool.submit(wide_cpu_rounds, WIDE_CPU_THREADS, WIDE_ROUNDS, WIDE_ROUND)
+        # the plain SDCA's host-bound loop first, then the drawing thread
+        # beside the sweep, which mostly waits on the card
+        t0 = time.perf_counter()
+        out["sdca"] = wide_sdca(ops, device)
+        out["sdca_seconds"] = time.perf_counter() - t0
+        fed_future = drawer.submit(wide_federation, WIDE_FULL_SCALE, WIDE_FULL_DIM)
+        t0 = time.perf_counter()
+        out["sweep"] = wide_sweep(ops, device)
+        out["sweep_seconds"] = time.perf_counter() - t0
+        x, y, xt, yt = wide_ideal_rows(WIDE_IDEAL_SCALE, WIDE_SDCA[-1][0])
+        n = len(y)
+        if n != WIDE_SDCA[-1][1] or n % SDCA_BUCKET:
+            raise AssertionError(f"wide: the ideal has {n} rows, want {WIDE_SDCA[-1][1]}")
+
+        # the main path: every lifted kernel launched, counted from 0
+        ops.reset_launch_counts()
+        cuda_rounds = {}
+        for label, kw in WIDE_ROUNDS.items():
+            cuda_rounds[label] = wide_round(kw, WIDE_ROUND, device)
+        t0 = time.perf_counter()
+        ds, gen_s = fed_future.result()
+        wait_s = time.perf_counter() - t0
+        before = ops.launch_counts()
+        tracer = trace.Tracer()
+        t0 = time.perf_counter()
+        with trace.use_tracer(tracer):
+            res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device=device)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        aucs = auc_values(res)
+        out["full"] = {"dim": WIDE_FULL_DIM, "scale": WIDE_FULL_SCALE, "devices": ds.n_devices,
+                       "samples": int(sum(dv.n for dv in ds.devices)),
+                       "generate_seconds": gen_s, "generate_wait_seconds": wait_s,
+                       "round_seconds": wall,
+                       "spans": {k: v for k, v in sorted(tracer.span_seconds().items())},
+                       "local_mean_auc": res.local_mean_auc,
+                       "ideal_mean_auc": res.ideal_mean_auc,
+                       "full_ensemble_auc": res.full_ensemble_auc, "best": res.best,
+                       "launches": {k: after[k] - before[k] for k in after}}
+        if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
+            raise AssertionError("wide (c): AUCs not finite or outside [0, 1]")
+        del ds, res
+        t0 = time.perf_counter()
+        model = train_svm(x, y, device=device)
+        ideal_auc = validation_auc(model, xt, yt)
+        torch.cuda.synchronize(device)
+        ideal_s = time.perf_counter() - t0
+        out["kernels"] = ops.launch_counts()
+
+        cpu = rounds_future.result()
+        cpu["ideal"] = ideal_future.result()
+    for label, (res, secs) in cuda_rounds.items():
+        same = round_signature(res) == cpu[label]["signature"]
+        diff = float(np.abs(auc_values(res) - cpu[label]["aucs"]).max())
+        out[f"round {label}"] = {"cuda_seconds": secs, "cpu_seconds": cpu[label]["seconds"],
+                                 "ledger_ids_best_k_equal": same, "max_auc_diff": diff,
+                                 "best": res.best}
+        if not same or not diff <= AUC_TOL:
+            raise AssertionError(f"wide (b) {label}: cuda against cpu: {out[f'round {label}']}")
+    gap = abs(ideal_auc - cpu["ideal"]["auc"])
+    out["ideal"] = {"rows": n, "bucket": n, "cuda_auc": ideal_auc, "cpu_auc": cpu["ideal"]["auc"],
+                    "auc_diff": gap, "coef_max_abs_diff": float(np.abs(
+                        model.coef - cpu["ideal"]["coef"]).max()),
+                    "cuda_seconds": ideal_s, "cpu_seconds": cpu["ideal"]["seconds"]}
+    if not gap <= AUC_TOL:
+        raise AssertionError(f"wide (d): the ideal's AUC {ideal_auc} on cuda, "
+                             f"{cpu['ideal']['auc']} on cpu")
+    idle = [k for k in WIDE_KERNELS + ("sdca",) if out["kernels"][k] <= 0]
+    if idle:
+        raise AssertionError(f"wide: lifted kernels never launched on the main path: {idle}")
+    return out
+
+
 IDEAL_ROWS = 2000   # run_protocol's ideal_cap: the ideal's Gram is 2,000 x 2,000
 
 
@@ -1577,30 +2003,41 @@ def profile_call(fn, top=20, functions=(), cpu_ops=True):
 
 DEVICE_CALLS = 20   # at least this many calls in a device-time window
 DEVICE_WINDOWS = 3  # windows tried before a call counts as recorded by no kernel
+DEVICE_SLOW_MS = 100.0   # a call this long fills a window in DEVICE_SLOW_CALLS calls
+DEVICE_SLOW_CALLS = 4
+DEVICE_CHECK_MS = 1.0    # a call this long by events is device-bound: see device_time
 
 
-def device_time(fn, args, reps):
+def device_time(fn, args, reps, call_ms=0.0):
     """At least ``reps`` back-to-back calls of ``fn(*args)`` (warm) under
     the profiler, read as ``profile_call`` reads it: (device ms a call,
-    the kernels' launches the profiler recorded, their names). Nothing else
-    runs on the card in the window; each kernel's device time over its own
-    count, summed over the call's kernels, is the call's device time (the
-    profiler does not record the window's first few launches, so the
-    calls made are no divisor)."""
-    calls = max(reps, DEVICE_CALLS)
-    windows = []
-    for _ in range(DEVICE_WINDOWS):   # a window the profiler missed whole: 4x longer
+    the kernels' launches the profiler recorded, their names, the windows'
+    calls). Nothing else runs on the card in the window; each kernel's
+    device time over its own count, summed over the call's kernels, is the
+    call's device time (the profiler does not record the window's first
+    few launches, so the calls made are no divisor). A call of ``call_ms``
+    >= DEVICE_SLOW_MS takes DEVICE_SLOW_CALLS calls a window (the wide
+    shapes). A window that recorded no kernel, or one whose device time is
+    under half the event-timed ``call_ms`` of a call of DEVICE_CHECK_MS or
+    more (the profiler lost one of the call's kernels whole), is followed
+    by one 4x longer; the largest reading stands."""
+    calls = max(reps, DEVICE_SLOW_CALLS if call_ms >= DEVICE_SLOW_MS else DEVICE_CALLS)
+    windows, best = [], None
+    for _ in range(DEVICE_WINDOWS):
         prof, _ = profile_call(lambda: [fn(*args) for _ in range(calls)], top=8)
         kernels = prof["by_kernel"]
         windows.append(calls)
         if kernels:
-            break
+            ms = 1e3 * sum(k["seconds"] / k["count"] for k in kernels)
+            if best is None or ms > best[0]:
+                best = (ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels))
+            if call_ms < DEVICE_CHECK_MS or ms >= 0.5 * call_ms:
+                break
         calls *= 4
-    else:
+    if best is None:
         raise AssertionError(f"timing: the profiler recorded no kernel in windows of "
                              f"{windows} calls")
-    ms = 1e3 * sum(k["seconds"] / k["count"] for k in kernels)
-    return ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels), windows
+    return (*best, windows)
 
 
 def phase_lm_parity(ops, device):
@@ -3678,12 +4115,14 @@ TIMING_CASES = {
     "rbf_gram": ("ideal 2000x2000x32",),
     "ensemble_score": ("full b8192 k2821 n230", "k100 b8192 n230",
                        "ideal predict b8192 k1 n2000", "population b4096 k50 n40 d16",
-                       "fleet d8 b32 k4 n40"),
+                       "fleet d8 b32 k4 n40", "wide b8192 k282 n230 d784"),
     "sdca": ("ideal g1 b2048 n2000", "ideal emnist g1 b2048 n2000", "group g256 b64",
-             "group g128 b256", "group dirichlet g256 b64"),
-    "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32", "cg l4096 d16"),
-    "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32"),
-    "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230", "fleet d8 b32 k4 n40"),
+             "group g128 b256", "group dirichlet g256 b64", "wide ideal emnist g1 b16384 e1"),
+    "gram_matvec": ("cg l4096 d32", "cg emnist l4096 d32", "cg l4096 d16", "wide cg l4096 d784"),
+    "rbf_gram_q8": ("student predict b8192 n4096 d32", "student emnist b8192 n4096 d32",
+                    "wide student b8192 n4096 d784"),
+    "ensemble_score_q8": ("full b8192 k2821 n230", "k100 b8192 n230", "fleet d8 b32 k4 n40",
+                          "wide b8192 k282 n230 d784"),
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
                         "serve b4 s2048 h32 k8 hd64 causal float32",
                         "llava prefill b4 s4928 h32 k8 hd128 causal bfloat16",
@@ -3709,13 +4148,14 @@ def phase_timing(ops, device, rng, names):
             continue
         spec = ops.KERNEL_REGISTRY[name]
         for label in labels:
+            t_row = time.perf_counter()
             args = case_args(cases[name][label])
             targs = to_device(args, device)
             library = LIBRARY.get(name)
             turns, reps = time_pair(spec.kernel, spec.plain, targs, library=library)
             try:
-                dev_ms, dev_launches, dev_names, windows = device_time(spec.kernel, targs,
-                                                                       reps["kernel"])
+                dev_ms, dev_launches, dev_names, windows = device_time(
+                    spec.kernel, targs, reps["kernel"], mean(turns["kernel"]))
             except AssertionError as e:
                 raise AssertionError(f"{name} [{label}]: {e}") from e
             bound_s, bound_by = kernel_bound(name, args)
@@ -3737,6 +4177,7 @@ def phase_timing(ops, device, rng, names):
             if name == "sdca":   # the longest chain of dependent steps in the call
                 row["steps"] = int(args[4] * min(int(args[2].max()), args[0].shape[1]))
                 row["ns_per_step"] = 1e6 * row["ms"] / row["steps"]
+            row["seconds"] = time.perf_counter() - t_row   # the row's wall, set-up included
             rows.append(row)
             del targs
             torch.cuda.empty_cache()
@@ -3916,6 +4357,9 @@ def main(argv=None) -> int:
             elif phase == "agg":
                 out = phase_agg(make_dataset, run_protocol, ops, trace, DistillConfig, device)
                 counts[phase] = out["kernels"]
+            elif phase == "wide":
+                out = phase_wide(ops, trace, device)
+                counts[phase] = out["kernels"]
             elif phase == "lm_parity":
                 out = phase_lm_parity(ops, device)
             elif phase == "serve":
@@ -3979,6 +4423,7 @@ def main(argv=None) -> int:
             "launches_families": counts.get("families", {}).get(name),
             "launches_cli": counts.get("cli", {}).get(name),
             "launches_sharded": counts.get("sharded", {}).get(name),
+            "launches_wide": counts.get("wide", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

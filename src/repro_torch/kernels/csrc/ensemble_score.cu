@@ -51,6 +51,22 @@
 // annihilated); rows past n_max are staged as zeros; padded query rows are
 // computed and never stored.
 //
+// Feature dims whose tiles outgrow shared memory (smem_bytes(d) > 227 KB, d >
+// 220) take partials_chunked_kernel, one more template over the loader: the
+// same grid, split plan, thread tiles and sums, but the block walks (work
+// item, feature chunk of DC = 64) steps in order, block-synchronously. Each
+// step stages the queries' chunk (re-read from L2 for every item: the whole
+// d of 128 queries no longer fits beside a support tile) and the item's
+// chunk (fp32 by 4-byte cp.async; int8 dequantised through the loader with
+// the plain version's rounding as it is stored), double-buffered, and each
+// thread carries its 8 x 4 cross products across an item's chunks in
+// registers. The coefficients and norms (from the norms pass) come with an
+// item's first chunk, the exp after its last. The queries' norms are fmaf
+// chains over x in global memory. Padded supports are computed with zero
+// coefficients instead of skipped, which adds exactly 0. Every chain runs
+// over the same features in the same order as in the staged kernel, so the
+// two give the same bits wherever both run.
+//
 // Bound on the H100: fp32 operations, about 2d + 8 per query-support pair:
 // 5.71 ms at b 8192, k 2821, n_max 230, d 32 (67 TFLOP/s). The fp32 ensemble
 // there is 2821 x 230 x 32 x 4 B = 83 MB, more than the 50 MB L2, so each
@@ -73,6 +89,9 @@ constexpr int TQ = BQ / 16;          // queries per thread
 constexpr int FAST_D = 32;           // the feature dim with 16-byte staging
 constexpr int RED_LD = 17;           // row stride of the final per-query sums
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int DC = 64;               // features a step of the chunked kernel stages
+constexpr int CLD = DC + 4;          // its tiles' row stride: 17 float4s, odd
+constexpr int MAX_SMEM = 232448;     // shared memory a block may take (227 KB)
 
 // d rounded up to a float4
 __host__ __device__ constexpr int padded(int d) { return (d + 3) / 4 * 4; }
@@ -92,6 +111,12 @@ int smem_bytes(int d) {
   const int floats = BQ * row_stride(d) + support_floats(d) + 4 * EN;
   return 4 * floats + (d == FAST_D ? 2 * WARPS * RAW_WARP : 0);
 }
+
+// the chunked kernel: two buffers of the queries' and the item's chunks (the
+// first reused as the [BQ][RED_LD] group sums), coefficients and norms of
+// two items, the queries' norms
+constexpr int chunked_smem_bytes() { return 4 * (2 * (BQ + EN) * CLD + 4 * EN + BQ); }
+static_assert(2 * (BQ + EN) * CLD >= BQ * RED_LD, "group sums fit the buffers");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -204,6 +229,31 @@ __device__ __forceinline__ bool dequantise(const Int8Supports&, int r0, int ld, 
   }
 }
 
+// The chunked kernel's support chunk: features c0 .. c0 + DC - 1 (those at
+// or past dp never read) of the item's rows j0 .. j0 + EN - 1, zero past
+// `rows` or d. fp32: 4-byte copies; int8: through the loader.
+__device__ __forceinline__ void stage_chunk(const Fp32Supports& sup, int t, int j0, int rows,
+                                            int n_max, int d, int c0, float* St, int tid) {
+  const int dp = padded(d);
+  const float* s = sup.s + ((int64_t)t * n_max + j0) * d;
+  for (int i = tid; i < EN * DC; i += THREADS) {
+    const int r = i / DC, c = i % DC;
+    if (c0 + c >= dp) continue;
+    const bool valid = r < rows && c0 + c < d;
+    cp_async4(St + r * CLD + c, s + (valid ? (int64_t)r * d + c0 + c : 0), valid);
+  }
+}
+__device__ __forceinline__ void stage_chunk(const Int8Supports& sup, int t, int j0, int rows,
+                                            int n_max, int d, int c0, float* St, int tid) {
+  const int dp = padded(d);
+  const Int8Supports m = sup.member(t, n_max, d);
+  for (int i = tid; i < EN * DC; i += THREADS) {
+    const int r = i / DC, c = i % DC;
+    if (c0 + c >= dp) continue;
+    St[r * CLD + c] = r < rows && c0 + c < d ? m.at(j0 + r, c0 + c, d) : 0.f;
+  }
+}
+
 template <class Supports>
 __global__ void norms_kernel(const Supports sup, float* __restrict__ norms, int k, int n_max,
                              int d) {
@@ -217,6 +267,50 @@ __global__ void norms_kernel(const Supports sup, float* __restrict__ norms, int 
     s = fmaf(v, v, s);
   }
   norms[j] = s;
+}
+
+// acc[i][s] += x_i . s_s over features 0 .. width - 1 (a multiple of 4), one
+// fmaf chain a pair in ascending feature order: rows lane + 16 i of Xs and
+// TS grp .. TS grp + 3 of St, row strides ld (odd float4s: conflict-free);
+// UNROLL float4 steps unrolled
+template <int UNROLL>
+__device__ __forceinline__ void fma_tile(float (&acc)[TQ][TS], const float* Xs, const float* St,
+                                         int ld, int width, int lane, int grp) {
+#pragma unroll UNROLL
+  for (int c = 0; c < width; c += 4) {
+    float4 sv[TS];
+#pragma unroll
+    for (int s = 0; s < TS; ++s)
+      sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + 16 * i) * ld + c);
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
+        acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
+        acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
+        acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
+      }
+    }
+  }
+}
+
+// the 16 support groups of each row, added in group order, into
+// partial[split][row]: red is [BQ][RED_LD] of shared memory no thread reads
+// any more
+__device__ __forceinline__ void write_partial(const float (&sums)[TQ], float* red,
+                                              float* partial, int rows, int q0, int split,
+                                              int tid, int lane, int grp) {
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) red[(lane + 16 * i) * RED_LD + grp] = sums[i];
+  __syncthreads();
+  if (tid < BQ && q0 + tid < rows) {
+    float s = 0.f;
+    for (int g = 0; g < 16; ++g) s += red[tid * RED_LD + g];
+    partial[(int64_t)split * rows + q0 + tid] = s;
+  }
 }
 
 template <class Supports, int D>
@@ -309,24 +403,7 @@ partials_kernel(const float* __restrict__ x, const Supports sup, const float* __
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
         for (int s = 0; s < TS; ++s) acc[i][s] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < dp; c += 4) {
-        float4 sv[TS];
-#pragma unroll
-        for (int s = 0; s < TS; ++s)
-          sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
-#pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + 16 * i) * ld + c);
-#pragma unroll
-          for (int s = 0; s < TS; ++s) {
-            acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
-            acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
-            acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
-            acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
-          }
-        }
-      }
+      fma_tile<8>(acc, Xs, St, ld, dp, lane, grp);
 #pragma unroll
       for (int s = 0; s < TS; ++s) {
         const float cj = cs[buf * EN + TS * grp + s], nj = ns[buf * EN + TS * grp + s];
@@ -340,17 +417,102 @@ partials_kernel(const float* __restrict__ x, const Supports sup, const float* __
     __syncwarp();  // the warp is done with this buffer before it is refilled
   }
 
-  // the 16 support groups of each query, added in group order
-  __syncthreads();
-  float* red = Ss;
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) red[(lane + 16 * i) * RED_LD + grp] = accq[i];
-  __syncthreads();
-  if (tid < BQ && q0 + tid < b) {
+  write_partial(accq, Ss, partial, b, q0, blockIdx.y, tid, lane, grp);
+}
+
+// Any d: (work item, chunk) steps in order, block-synchronous (see the
+// header). Step s = (item i0 + s / chunks, chunk s % chunks) reads buffer
+// s & 1; an item's coefficients and norms sit in slot (s / chunks) & 1.
+template <class Supports>
+__global__ void __launch_bounds__(THREADS, 2)
+partials_chunked_kernel(const float* __restrict__ x, const Supports sup,
+                        const float* __restrict__ coef, const float* __restrict__ gammas,
+                        const float* __restrict__ norms, float* __restrict__ partial, int b,
+                        int n_max, int d, int tiles, int per_split, int items) {
+  extern __shared__ float4 smem4[];
+  float* buf0 = reinterpret_cast<float*>(smem4);  // [2][BQ + EN][CLD]: queries, then supports
+  float* cs = buf0 + 2 * (BQ + EN) * CLD;          // [2][EN] coefficients
+  float* ns = cs + 2 * EN;                         // [2][EN] support norms
+  float* sxs = ns + 2 * EN;                        // [BQ] the queries' norms
+
+  const int tid = threadIdx.x, lane = tid % 16, grp = tid / 16;
+  const int q0 = blockIdx.x * BQ;
+  const int i0 = blockIdx.y * per_split, i1 = min(i0 + per_split, items);
+  const int dp = padded(d), chunks = (dp + DC - 1) / DC;
+  const int steps = (i1 - i0) * chunks;
+
+  auto stage = [&](int s) {
+    float* Xs = buf0 + (s & 1) * (BQ + EN) * CLD;
+    const int it = i0 + s / chunks, c0 = (s % chunks) * DC;
+    const int t = it / tiles, j0 = (it - t * tiles) * EN, rows = min(EN, n_max - j0);
+    for (int i = tid; i < BQ * DC; i += THREADS) {
+      const int r = i / DC, c = i % DC;
+      if (c0 + c >= dp) continue;
+      const bool valid = q0 + r < b && c0 + c < d;
+      cp_async4(Xs + r * CLD + c, x + (valid ? (int64_t)(q0 + r) * d + c0 + c : 0), valid);
+    }
+    stage_chunk(sup, t, j0, rows, n_max, d, c0, Xs + BQ * CLD, tid);
+    if (s % chunks == 0 && tid < 2 * EN) {
+      const int r = tid % EN, slot = (s / chunks) & 1;
+      const bool valid = r < rows;
+      const int64_t off = (int64_t)t * n_max + j0 + (valid ? r : 0);
+      if (tid < EN) cp_async4(cs + slot * EN + r, coef + off, valid);
+      else cp_async4(ns + slot * EN + r, norms + off, valid);
+    }
+  };
+
+  if (steps > 0) stage(0);
+  cp_async_commit();
+  if (tid < BQ) {  // the queries' norms: the staged kernel's chains, from global memory
     float s = 0.f;
-    for (int g = 0; g < 16; ++g) s += red[tid * RED_LD + g];
-    partial[(int64_t)blockIdx.y * b + q0 + tid] = s;
+    if (q0 + tid < b) {
+      const float* xr = x + (int64_t)(q0 + tid) * d;
+      for (int c = 0; c < d; ++c) s = fmaf(xr[c], xr[c], s);
+    }
+    sxs[tid] = s;
   }
+  __syncthreads();
+  float sx[TQ], accq[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    sx[i] = sxs[lane + 16 * i];
+    accq[i] = 0.f;
+  }
+
+  float acc[TQ][TS];
+  for (int s = 0; s < steps; ++s) {
+    const int k = s % chunks;
+    cp_async_wait<0>();
+    __syncthreads();  // step s has landed; everyone is done with buffer (s + 1) & 1
+    if (s + 1 < steps) stage(s + 1);
+    cp_async_commit();
+    const float* Xs = buf0 + (s & 1) * (BQ + EN) * CLD;
+    const float* St = Xs + BQ * CLD;
+    const int width = min(DC, dp - k * DC);
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
+    }
+    fma_tile<8>(acc, Xs, St, CLD, width, lane, grp);
+    if (k == chunks - 1) {  // the item's last chunk: the exp
+      const int slot = (s / chunks) & 1;
+      const float gl = -__ldg(gammas + (i0 + s / chunks) / tiles) * LOG2E;
+#pragma unroll
+      for (int j = 0; j < TS; ++j) {
+        const float cj = cs[slot * EN + TS * grp + j], nj = ns[slot * EN + TS * grp + j];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const float d2 = fmaxf(sx[i] + nj - 2.f * acc[i][j], 0.f);
+          accq[i] = fmaf(cj, ex2(gl * d2), accq[i]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  write_partial(accq, buf0, partial, b, q0, blockIdx.y, tid, lane, grp);
 }
 
 __global__ void mean_kernel(const float* __restrict__ partial, float* __restrict__ out, int b,
@@ -379,12 +541,28 @@ int launch_partials(const float* x, const Supports sup, const float* coef, const
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Supports>
+int launch_chunked(const float* x, const Supports sup, const float* coef, const float* gammas,
+                   const float* norms, float* partial, int b, int k, int n_max, int d,
+                   int per_split, int splits, cudaStream_t stream) {
+  constexpr int smem = chunked_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      partials_chunked_kernel<Supports>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n_max + EN - 1) / EN;
+  const dim3 grid((b + BQ - 1) / BQ, splits);
+  partials_chunked_kernel<Supports><<<grid, THREADS, smem, stream>>>(
+      x, sup, coef, gammas, norms, partial, b, n_max, d, tiles, per_split, k * tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the three passes on one stream; norms (k * n_max) and partial (splits * b)
-// are the wrapper's scratch
+// are the wrapper's scratch. The staged partials kernel where its tiles fit
+// in shared memory, the chunked one past that (or always, with `chunked`).
 template <class Supports>
 int launch_scores(const float* x, const Supports sup, const float* coef, const float* gammas,
                   float* norms, float* partial, float* out, int b, int k, int n_max, int d,
-                  int per_split, int splits, void* stream_arg) {
+                  int per_split, int splits, void* stream_arg, bool chunked = false) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_arg);
   const int64_t n_sup = (int64_t)k * n_max;
   if (n_sup > 0) {
@@ -393,11 +571,15 @@ int launch_scores(const float* x, const Supports sup, const float* coef, const f
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int rc = d == FAST_D
-      ? launch_partials<Supports, FAST_D>(x, sup, coef, gammas, norms, partial, b, k, n_max,
-                                          d, per_split, splits, stream)
-      : launch_partials<Supports, 0>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
-                                     per_split, splits, stream);
+  const int rc =
+      chunked || smem_bytes(d) > MAX_SMEM
+          ? launch_chunked<Supports>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
+                                     per_split, splits, stream)
+      : d == FAST_D
+          ? launch_partials<Supports, FAST_D>(x, sup, coef, gammas, norms, partial, b, k,
+                                              n_max, d, per_split, splits, stream)
+          : launch_partials<Supports, 0>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
+                                         per_split, splits, stream);
   if (rc != 0) return rc;
   mean_kernel<<<(b + 255) / 256, 256, 0, stream>>>(partial, out, b, splits, k);
   return static_cast<int>(cudaGetLastError());
@@ -406,6 +588,7 @@ int launch_scores(const float* x, const Supports sup, const float* coef, const f
 }  // namespace
 
 extern "C" int ensemble_score_smem_bytes(int d) { return smem_bytes(d); }
+extern "C" int ensemble_score_chunked_smem_bytes() { return chunked_smem_bytes(); }
 
 extern "C" int ensemble_score_launch(const float* x, const float* sup, const float* coef,
                                      const float* gammas, float* norms, float* partial,
@@ -422,4 +605,24 @@ extern "C" int ensemble_score_q8_launch(const float* x, const int8_t* q, const f
                                         int per_split, int splits, void* stream) {
   return launch_scores(x, Int8Supports{q, scale, zero}, coef, gammas, norms, partial, out, b,
                        k, n_max, d, per_split, splits, stream);
+}
+
+// the chunked partials kernel at any d, for both loaders: the checks hold it
+// bit for bit to the staged kernel where both run
+extern "C" int ensemble_score_chunked_launch(const float* x, const float* sup, const float* coef,
+                                             const float* gammas, float* norms, float* partial,
+                                             float* out, int b, int k, int n_max, int d,
+                                             int per_split, int splits, void* stream) {
+  return launch_scores(x, Fp32Supports{sup}, coef, gammas, norms, partial, out, b, k, n_max, d,
+                       per_split, splits, stream, true);
+}
+
+extern "C" int ensemble_score_q8_chunked_launch(const float* x, const int8_t* q,
+                                                const float* scale, const float* zero,
+                                                const float* coef, const float* gammas,
+                                                float* norms, float* partial, float* out, int b,
+                                                int k, int n_max, int d, int per_split,
+                                                int splits, void* stream) {
+  return launch_scores(x, Int8Supports{q, scale, zero}, coef, gammas, norms, partial, out, b,
+                       k, n_max, d, per_split, splits, stream, true);
 }

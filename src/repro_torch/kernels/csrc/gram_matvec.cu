@@ -40,6 +40,25 @@
 // loops, no runtime division by d). Supports past n are staged as zeros with
 // v = 0 and add exactly 0; rows past m are computed and never stored.
 //
+// Feature dims past one chunk (d > DC = 64) take gram_matvec_chunked: the
+// same blocks, thread tiles and sums over supports, but the block walks
+// (support tile, feature chunk of 64) steps in order, block-synchronously:
+// it stages the rows' chunk (re-read from L2 a tile) and the tile's chunk
+// (4-byte cp.async, double-buffered: the next step loads while this one
+// computes). Its per-pair arithmetic is not the staged kernel's one fp32
+// chain over all d features, which drifts past the registry's 1e-5 from the
+// plain version at l 4,096 already at d 129 (PERF.md section 6) and
+// at d > 220 would not fit in shared memory anyway: each chunk's products go
+// into an fp32 fmaf chain of at most 64 features, and the chunk sums into
+// fp64 (32 a thread, carried across a tile's chunks); the norms likewise
+// (the rows' from global memory once a block, the supports' by threads 0-63
+// as the chunks pass), and d2 in fp64. The exp and the fp64 FMA with v
+// come once a tile, after its last chunk. So the chunked kernel does not
+// give the staged kernel's bits where both run (d <= 64, through its
+// private entry); it takes one block an SM (its fp64 sums need ~250
+// registers a thread). d 16 and 32, the rounds' dims, keep the staged
+// kernel.
+//
 // Per-pair arithmetic (the same as the kernel this replaces; the CPU
 // emulation in tests/test_torch_kernel_design.py follows it):
 //   cross = 0; for c = 0 .. d-1: cross = fmaf(x1[i][c], x2[j][c], cross)
@@ -74,6 +93,8 @@ constexpr int WARPS = THREADS / 32;  // warp w owns support groups 2 w and 2 w +
 constexpr int WROWS = TS * 32 / LANES;  // ... so rows WROWS w .. WROWS (w + 1) - 1 of every tile
 constexpr int FAST_D = 32;           // the feature dim with 16-byte staging
 constexpr int RED_LD = 17;           // row stride (doubles) of the group sums
+constexpr int DC = 64;               // features a step of the chunked kernel stages
+constexpr int CLD = DC + 4;          // its tiles' row stride: 17 float4s, odd
 
 // d rounded up to a float4
 __host__ __device__ constexpr int padded(int d) { return (d + 3) / 4 * 4; }
@@ -93,6 +114,12 @@ int smem_bytes(int d) {
   return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;
 }
 
+// the chunked kernel: two buffers of the rows' and the tile's chunks (the
+// first reused as the [BQ][RED_LD] fp64 group sums), the tile's v and norms
+// in fp64, the rows' norms in fp64
+constexpr int chunked_smem_bytes() { return 4 * 2 * (BQ + TILE) * CLD + 8 * 2 * TILE + 8 * BQ; }
+static_assert(4 * 2 * (BQ + TILE) * CLD >= 8 * BQ * RED_LD, "group sums fit the buffers");
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -109,6 +136,50 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// acc[i][s] += x_i . s_s over features 0 .. width - 1 (a multiple of 4), one
+// fmaf chain a pair in ascending feature order: rows lane + LANES i of Xs and
+// TS grp .. TS grp + 3 of St, row strides ld (odd float4s: conflict-free);
+// UNROLL float4 steps unrolled
+template <int UNROLL>
+__device__ __forceinline__ void fma_tile(float (&acc)[TQ][TS], const float* Xs, const float* St,
+                                         int ld, int width, int lane, int grp) {
+#pragma unroll UNROLL
+  for (int c = 0; c < width; c += 4) {
+    float4 sv[TS];
+#pragma unroll
+    for (int s = 0; s < TS; ++s)
+      sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + LANES * i) * ld + c);
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
+        acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
+        acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
+        acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
+      }
+    }
+  }
+}
+
+// the 16 support groups of each row, added in group order, into
+// partial[split][row]: red is [BQ][RED_LD] of shared memory no thread reads
+// any more
+__device__ __forceinline__ void write_partial(const double (&sums)[TQ], double* red,
+                                              double* partial, int rows, int q0, int split,
+                                              int tid, int lane, int grp) {
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) red[(lane + LANES * i) * RED_LD + grp] = sums[i];
+  __syncthreads();
+  if (tid < BQ && q0 + tid < rows) {
+    double s = 0.0;
+    for (int g = 0; g < GROUPS; ++g) s += red[tid * RED_LD + g];
+    partial[(int64_t)split * rows + q0 + tid] = s;
+  }
 }
 
 template <int D>
@@ -217,24 +288,7 @@ gram_matvec_partial(const float* __restrict__ x1, const float* __restrict__ x2,
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
         for (int s = 0; s < TS; ++s) acc[i][s] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < dp; c += 4) {
-        float4 sv[TS];
-#pragma unroll
-        for (int s = 0; s < TS; ++s)
-          sv[s] = *reinterpret_cast<const float4*>(St + (TS * grp + s) * ld + c);
-#pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + LANES * i) * ld + c);
-#pragma unroll
-          for (int s = 0; s < TS; ++s) {
-            acc[i][s] = fmaf(xv.x, sv[s].x, acc[i][s]);
-            acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
-            acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
-            acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
-          }
-        }
-      }
+      fma_tile<8>(acc, Xs, St, ld, dp, lane, grp);
 #pragma unroll
       for (int s = 0; s < TS; ++s) {
         const float nj = ns[buf * TILE + TS * grp + s];
@@ -249,17 +303,128 @@ gram_matvec_partial(const float* __restrict__ x1, const float* __restrict__ x2,
     __syncwarp();  // the warp is done with this buffer before it is refilled
   }
 
-  // the 16 support groups of each row, added in group order
-  __syncthreads();
-  double* red = reinterpret_cast<double*>(Ss);
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) red[(lane + LANES * i) * RED_LD + grp] = acc64[i];
-  __syncthreads();
-  if (tid < BQ && q0 + tid < m) {
+  write_partial(acc64, reinterpret_cast<double*>(Ss), partial, m, q0, blockIdx.x, tid, lane, grp);
+}
+
+// Any d: (support tile, chunk) steps in order, block-synchronous (see the
+// header). Step s = (tile t0 + s / chunks, chunk s % chunks) reads buffer s & 1.
+__global__ void __launch_bounds__(THREADS, 1)
+gram_matvec_chunked(const float* __restrict__ x1, const float* __restrict__ x2,
+                    const float* __restrict__ v, float gamma, double* __restrict__ partial,
+                    int m, int n, int d, int per_split) {
+  extern __shared__ float4 smem4[];
+  float* buf0 = reinterpret_cast<float*>(smem4);  // [2][BQ + TILE][CLD]: rows, then supports
+  double* vd = reinterpret_cast<double*>(buf0 + 2 * (BQ + TILE) * CLD);  // [TILE]
+  double* ns = vd + TILE;                                               // [TILE]
+  double* sxs = ns + TILE;                                              // [BQ]
+
+  const int tid = threadIdx.x, lane = tid % LANES, grp = tid / LANES;
+  const int q0 = blockIdx.y * BQ;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int t0 = blockIdx.x * per_split, t1 = min(t0 + per_split, tiles);
+  const int dp = padded(d), chunks = (dp + DC - 1) / DC;
+  const int steps = (t1 - t0) * chunks;
+
+  // step s's chunks: the rows' and the tile's features c0 .. c0 + DC - 1
+  // (those at or past dp are never read; those in [d, dp) are zeros)
+  auto stage = [&](int s) {
+    float* Xs = buf0 + (s & 1) * (BQ + TILE) * CLD;
+    float* St = Xs + BQ * CLD;
+    const int j0 = (t0 + s / chunks) * TILE, c0 = (s % chunks) * DC;
+    for (int i = tid; i < (BQ + TILE) * DC; i += THREADS) {
+      const int r = i / DC, c = i % DC;
+      if (c0 + c >= dp) continue;
+      const bool is_row = r < BQ;
+      const int64_t row = is_row ? (int64_t)q0 + r : (int64_t)j0 + r - BQ;
+      const bool valid = (is_row ? row < m : row < n) && c0 + c < d;
+      const float* src = is_row ? x1 : x2;
+      cp_async4((is_row ? Xs + r * CLD : St + (r - BQ) * CLD) + c,
+                src + (valid ? row * d + c0 + c : 0), valid);
+    }
+  };
+
+  if (steps > 0) stage(0);
+  cp_async_commit();
+  // the rows' norms from global memory: a chunk's squares in fp32, the
+  // chunks' sums in fp64
+  if (tid < BQ) {
     double s = 0.0;
-    for (int g = 0; g < GROUPS; ++g) s += red[tid * RED_LD + g];
-    partial[(int64_t)blockIdx.x * m + q0 + tid] = s;
+    if (q0 + tid < m) {
+      const float* xr = x1 + (int64_t)(q0 + tid) * d;
+      for (int c0 = 0; c0 < d; c0 += DC) {
+        float p = 0.f;
+        for (int c = c0; c < min(c0 + DC, d); ++c) p = fmaf(xr[c], xr[c], p);
+        s += static_cast<double>(p);
+      }
+    }
+    sxs[tid] = s;
   }
+  __syncthreads();
+  double sx[TQ], acc64[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    sx[i] = sxs[lane + LANES * i];
+    acc64[i] = 0.0;
+  }
+
+  double cross[TQ][TS];  // the tile's cross products: the chunks' fp32 sums, added in fp64
+  double nrm = 0.0;      // threads 0 .. TILE - 1: support tid's norm over the chunks so far
+  for (int s = 0; s < steps; ++s) {
+    const int k = s % chunks, t = t0 + s / chunks;
+    cp_async_wait<0>();
+    __syncthreads();  // step s has landed; everyone is done with buffer (s + 1) & 1
+    if (s + 1 < steps) stage(s + 1);
+    cp_async_commit();
+    const float* Xs = buf0 + (s & 1) * (BQ + TILE) * CLD;
+    const float* St = Xs + BQ * CLD;
+    const int c0 = k * DC, width = min(DC, dp - c0);
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TS; ++j) cross[i][j] = 0.0;
+      nrm = 0.0;
+    }
+    if (tid < TILE) {
+      const float* sr = St + tid * CLD;
+      const int real = min(width, d - c0);
+      float p = 0.f;
+      for (int c = 0; c < real; ++c) p = fmaf(sr[c], sr[c], p);
+      nrm += static_cast<double>(p);
+    }
+    float acc[TQ][TS];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
+    fma_tile<4>(acc, Xs, St, CLD, width, lane, grp);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < TS; ++j) cross[i][j] += static_cast<double>(acc[i][j]);
+    if (k == chunks - 1) {  // the tile's last chunk: its norms and v, then the exp
+      if (tid < TILE) {
+        const int j = t * TILE + tid;
+        ns[tid] = nrm;
+        vd[tid] = j < n ? static_cast<double>(__ldg(v + j)) : 0.0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < TS; ++j) {
+        const double nj = ns[TS * grp + j];
+        const double vj = vd[TS * grp + j];
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const double d2 = fmax(sx[i] + nj - 2.0 * cross[i][j], 0.0);
+          const float kv = expf(-gamma * static_cast<float>(d2));
+          acc64[i] = fma(vj, static_cast<double>(kv), acc64[i]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  write_partial(acc64, reinterpret_cast<double*>(buf0), partial, m, q0, blockIdx.x, tid, lane, grp);
 }
 
 __global__ void sum_splits(const double* __restrict__ partial, float* __restrict__ out, int m,
@@ -269,6 +434,14 @@ __global__ void sum_splits(const double* __restrict__ partial, float* __restrict
   double s = 0.0;
   for (int t = 0; t < splits; ++t) s += partial[(int64_t)t * m + i];
   out[i] = static_cast<float>(s);
+}
+
+// the split sums, after either kernel
+int launch_sum(double* partial, float* out, int m, int splits, cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_splits<<<(m + 255) / 256, 256, 0, stream>>>(partial, out, m, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -282,26 +455,50 @@ int launch(const float* x1, const float* x2, const float* v, float gamma, double
   }
   gram_matvec_partial<D><<<dim3(splits, (m + BQ - 1) / BQ), THREADS, smem, stream>>>(
       x1, x2, v, gamma, partial, m, n, d, per_split);
-  const cudaError_t err = cudaGetLastError();
+  return launch_sum(partial, out, m, splits, stream);
+}
+
+int launch_chunked(const float* x1, const float* x2, const float* v, float gamma,
+                   double* partial, float* out, int m, int n, int d, int per_split, int splits,
+                   cudaStream_t stream) {
+  constexpr int smem = chunked_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      gram_matvec_chunked, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits<<<(m + 255) / 256, 256, 0, stream>>>(partial, out, m, splits);
-  return static_cast<int>(cudaGetLastError());
+  gram_matvec_chunked<<<dim3(splits, (m + BQ - 1) / BQ), THREADS, smem, stream>>>(
+      x1, x2, v, gamma, partial, m, n, d, per_split);
+  return launch_sum(partial, out, m, splits, stream);
 }
 
 }  // namespace
 
 extern "C" int gram_matvec_smem_bytes(int d) { return smem_bytes(d); }
+extern "C" int gram_matvec_chunked_smem_bytes() { return chunked_smem_bytes(); }
 
 // ``per_split`` 64-support tiles per split, ``splits`` = ceil(tiles / per_split),
 // both from kernels/gram_matvec.py::split_plan; ``partial`` holds splits * m
-// doubles
+// doubles. The staged kernel up to one chunk's features (its tiles fit in
+// shared memory to d 220, but its one fp32 chain is too long past d 64), the
+// chunked one past that.
 extern "C" int gram_matvec_launch(const float* x1, const float* x2, const float* v,
                                   float gamma, double* partial, float* out, int m, int n,
                                   int d, int per_split, int splits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > DC)
+    return launch_chunked(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st);
   // 16-byte copies need 16-byte aligned rows: d = 32 and aligned bases
   const bool fast = d == FAST_D && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(x2) % 16 == 0;
   return fast ? launch<FAST_D>(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st)
               : launch<0>(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st);
+}
+
+// the chunked kernel at any d, for the checks that hold it to the staged
+// kernel where both run
+extern "C" int gram_matvec_chunked_launch(const float* x1, const float* x2, const float* v,
+                                          float gamma, double* partial, float* out, int m,
+                                          int n, int d, int per_split, int splits,
+                                          void* stream) {
+  return launch_chunked(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -50,6 +50,20 @@
 // -gamma log2(e) d2 (relative error ~2^-22), each fragment's column pair
 // stored as one float2 (full 32-byte sectors a warp) where n is even.
 //
+// Feature dims past 128 (MAX_KSTEPS k steps) take a chunked instantiation,
+// gram_q8_chunked_kernel: the same blocks, warps and fragments, but the
+// feature dim goes in chunks of CK = 128 features. For each support tile the
+// block walks the chunks in order: it stages the chunk's three planes of
+// x * scale (from x, which stays in L2) and converts the tile's int8 chunk to
+// bf16 (plain loads: a chunk of a row is not 16-byte aligned when d % 16 !=
+// 0), then runs the chunk's k steps into the same accumulators, carried
+// across chunks. So the mma sequence is the staged kernel's, k step after k
+// step, hi, mid, lo; |x|^2 and x.zero are the same fmaf chains (from global
+// memory, once a block); each support norm is the same two chains over the
+// halves of the padded feature range, each thread of a row's pair carrying
+// its half's chain across the chunks. Where both run (d <= 128) the two give
+// the same bits; the launcher takes the staged kernel there.
+//
 // Bound on the H100: bytes. At the student's 8192 x 4096 x 32 the 134 MB
 // output takes 0.040 ms at 3.35 TB/s; the tensor-core work (3 planes) is
 // ~6.4 GFLOP of bf16, the epilogue ~6 instructions a pair on the CUDA cores.
@@ -70,7 +84,8 @@ constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 fragments a warp
 static_assert((BM / WM) * WARPS_N * 32 == THREADS && BN * 2 == THREADS, "tile shape");
 constexpr int PLANES = 3;     // bf16 planes of x * scale
 constexpr int KSTEP = 16;     // features per mma
-constexpr int MAX_KSTEPS = 8; // d <= 128
+constexpr int MAX_KSTEPS = 8; // the staged kernel's d <= 128; also a chunk's k steps
+constexpr int CK = MAX_KSTEPS * KSTEP;  // features a chunk of the chunked kernel stages
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int KSTEPS>
@@ -82,6 +97,16 @@ struct Layout {
   static constexpr int RAW = 2 * BN * KP;      // two raw int8 tiles (bytes)
   static constexpr int BYTES =
       2 * (XP + BQ) + RAW + 4 * (2 * BN + 2 * BM + 2 * KP);  // + norms, x.zero, scale, zero
+};
+
+// the chunked kernel: the stripe's planes and one converted support tile, a
+// chunk of CK features each, then the support norms, |x|^2, x.zero and the
+// chunk's scale and zero
+struct ChunkLayout {
+  static constexpr int LD = CK + 8;
+  static constexpr int XP = PLANES * BM * LD;
+  static constexpr int BT = BN * LD;
+  static constexpr int BYTES = 2 * (XP + BT) + 4 * (BN + 2 * BM + 2 * CK);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -166,6 +191,119 @@ __device__ __forceinline__ void convert_tile(__nv_bfloat16* Bt, float* sqs, cons
   if (h == 0) sqs[r] = __fadd_rn(nrm, other);
 }
 
+// one k step of 16 features: the tile's B fragments, then the three planes'
+// A fragments, each into the same accumulators (column ks * KSTEP of tiles
+// whose bf16 rows are ld apart)
+__device__ __forceinline__ void mma_kstep(float (&acc)[MT][NT][4], const __nv_bfloat16* Xp,
+                                          const __nv_bfloat16* Bt, int ld, int ks, int wm,
+                                          int wn, int lane) {
+  uint32_t bf[NT / 2][4];  // n tiles 2 jp, 2 jp + 1
+#pragma unroll
+  for (int jp = 0; jp < NT / 2; ++jp)
+    ldmatrix_x4(bf[jp], Bt + (wn * WN + jp * 16 + (lane / 16) * 8 + lane % 8) * ld +
+                            ks * KSTEP + ((lane / 8) & 1) * 8);
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int mi = lane / 8;
+      ldmatrix_x4(af[mt], Xp + p * BM * ld + (wm * WM + mt * 16 + (mi & 1) * 8 + lane % 8) * ld +
+                              ks * KSTEP + (mi >> 1) * 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        mma_bf16(acc[mt][2 * jp], af[mt], bf[jp][0], bf[jp][1]);
+        mma_bf16(acc[mt][2 * jp + 1], af[mt], bf[jp][2], bf[jp][3]);
+      }
+  }
+}
+
+// the epilogue on the fragments of support tile `tile`: cross = acc + x.zero,
+// d2, the RBF, and the real (m, n) outputs stored; sq holds the tile's
+// support norms
+__device__ __forceinline__ void store_tile(const float (&acc)[MT][NT][4],
+                                           const float (&rsq)[MT][2], const float (&rxz)[MT][2],
+                                           const float* sq, float ngl2, float* out, int m,
+                                           int n, int row0, int tile, int wm, int wn,
+                                           int lane) {
+  const int g = lane / 4, c2 = (lane % 4) * 2;  // fragment row group and column pair
+  const bool pairs = (n & 1) == 0;
+  const int col_t = tile * BN + wn * WN + c2;  // + nt * 8
+  const float* sq_t = sq + wn * WN + c2;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float2 s = *reinterpret_cast<const float2*>(sq_t + nt * 8);
+    const int c = col_t + nt * 8;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = row0 + wm * WM + mt * 16 + hf * 8 + g;
+        const float cr0 = __fadd_rn(acc[mt][nt][2 * hf], rxz[mt][hf]);
+        const float cr1 = __fadd_rn(acc[mt][nt][2 * hf + 1], rxz[mt][hf]);
+        const float d0 = fmaxf(fmaf(-2.f, cr0, __fadd_rn(rsq[mt][hf], s.x)), 0.f);
+        const float d1 = fmaxf(fmaf(-2.f, cr1, __fadd_rn(rsq[mt][hf], s.y)), 0.f);
+        const float k0 = ex2(ngl2 * d0), k1 = ex2(ngl2 * d1);
+        if (r < m) {
+          float* o = out + (int64_t)r * n + c;
+          if (pairs && c + 1 < n) {
+            *reinterpret_cast<float2*>(o) = make_float2(k0, k1);
+          } else {
+            if (c < n) o[0] = k0;
+            if (c + 1 < n) o[1] = k1;
+          }
+        }
+      }
+  }
+}
+
+// the thread's four rows' |x|^2 and x.zero (rows wm * 32 + mt * 16 + hf * 8 + g)
+__device__ __forceinline__ void row_terms(float (&rsq)[MT][2], float (&rxz)[MT][2],
+                                          const float* sqx, const float* xz, int wm, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wm * WM + mt * 16 + hf * 8 + lane / 4;
+      rsq[mt][hf] = sqx[r];
+      rxz[mt][hf] = xz[r];
+    }
+}
+
+// |x_i|^2 and x_i.zero of the stripe's rows, fmaf chains over ascending
+// features read from global memory, into sqx[BM] and xz[BM]
+__device__ __forceinline__ void stripe_terms(float* sqx, float* xz, const float* x,
+                                             const float* zero, int m, int d, int row0,
+                                             int tid) {
+  if (tid < BM) {
+    float s2 = 0.f, sz = 0.f;
+    if (row0 + tid < m) {
+      const float* xr = x + (int64_t)(row0 + tid) * d;
+      for (int c = 0; c < d; ++c) {
+        const float v = xr[c];
+        s2 = fmaf(v, v, s2);
+        sz = fmaf(v, __ldg(zero + c), sz);
+      }
+    }
+    sqx[tid] = s2;
+    xz[tid] = sz;
+  }
+}
+
+// x * scale's three bf16 planes: hi, mid = bf16(xs - hi), lo = bf16(xs - hi - mid)
+__device__ __forceinline__ void split3(__nv_bfloat16* Xp, int plane, int idx, float xs) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(xs);
+  const float r1 = __fsub_rn(xs, __bfloat162float(hi));
+  const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+  const float r2 = __fsub_rn(r1, __bfloat162float(mid));
+  Xp[idx] = hi;
+  Xp[plane + idx] = mid;
+  Xp[2 * plane + idx] = __float2bfloat16_rn(r2);
+}
+
 template <int KSTEPS>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 gram_q8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
@@ -205,29 +343,11 @@ gram_q8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   for (int e = tid; e < BM * KP; e += THREADS) {
     const int r = e / KP, c = e % KP;
     const bool valid = row0 + r < m && c < d;
-    const float xs = valid ? __fmul_rn(x[(int64_t)(row0 + r) * d + c], sc[c]) : 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(xs);
-    const float r1 = __fsub_rn(xs, __bfloat162float(hi));
-    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
-    const float r2 = __fsub_rn(r1, __bfloat162float(mid));
-    Xp[r * LD + c] = hi;
-    Xp[BM * LD + r * LD + c] = mid;
-    Xp[2 * BM * LD + r * LD + c] = __float2bfloat16_rn(r2);
+    split3(Xp, BM * LD, r * LD + c,
+           valid ? __fmul_rn(x[(int64_t)(row0 + r) * d + c], sc[c]) : 0.f);
   }
   // each row's |x|^2 and x.zero, fmaf chains over ascending features
-  if (tid < BM) {
-    float s2 = 0.f, sz = 0.f;
-    if (row0 + tid < m) {
-      const float* xr = x + (int64_t)(row0 + tid) * d;
-      for (int c = 0; c < d; ++c) {
-        const float v = xr[c];
-        s2 = fmaf(v, v, s2);
-        sz = fmaf(v, ze[c], sz);
-      }
-    }
-    sqx[tid] = s2;
-    xz[tid] = sz;
-  }
+  stripe_terms(sqx, xz, x, zero, m, d, row0, tid);
 
   cp_async_wait_all();  // (also waits for tile t0 + 1; the ring is only two deep)
   __syncthreads();
@@ -235,19 +355,9 @@ gram_q8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   __syncthreads();
 
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane / 4, c2 = (lane % 4) * 2;  // fragment row group and column pair
-  // the thread's four rows: wm * 32 + mt * 16 + hf * 8 + g
   float rsq[MT][2], rxz[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = wm * WM + mt * 16 + hf * 8 + g;
-      rsq[mt][hf] = sqx[r];
-      rxz[mt][hf] = xz[r];
-    }
+  row_terms(rsq, rxz, sqx, xz, wm, lane);
   const float ngl2 = -gamma * LOG2E;
-  const bool pairs = (n & 1) == 0;
 
   for (int i = 0; i < T; ++i) {
     const int buf = i & 1;
@@ -268,62 +378,104 @@ gram_q8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t bf[NT / 2][4];  // n tiles 2 jp, 2 jp + 1
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp)
-        ldmatrix_x4(bf[jp], Bt + (wn * WN + jp * 16 + (lane / 16) * 8 + lane % 8) * LD +
-                                ks * KSTEP + ((lane / 8) & 1) * 8);
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-        uint32_t af[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int mi = lane / 8;
-          ldmatrix_x4(af[mt], Xp + p * BM * LD +
-                                  (wm * WM + mt * 16 + (mi & 1) * 8 + lane % 8) * LD +
-                                  ks * KSTEP + (mi >> 1) * 8);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int jp = 0; jp < NT / 2; ++jp) {
-            mma_bf16(acc[mt][2 * jp], af[mt], bf[jp][0], bf[jp][1]);
-            mma_bf16(acc[mt][2 * jp + 1], af[mt], bf[jp][2], bf[jp][3]);
-          }
-      }
-    }
+    for (int ks = 0; ks < KSTEPS; ++ks) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);
 
-    // epilogue on the fragments
-    const int col_t = (t0 + i) * BN + wn * WN + c2;  // + nt * 8
-    const float* sq_t = sqs + buf * BN + wn * WN + c2;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float2 s = *reinterpret_cast<const float2*>(sq_t + nt * 8);
-      const int c = col_t + nt * 8;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = row0 + wm * WM + mt * 16 + hf * 8 + g;
-          const float cr0 = __fadd_rn(acc[mt][nt][2 * hf], rxz[mt][hf]);
-          const float cr1 = __fadd_rn(acc[mt][nt][2 * hf + 1], rxz[mt][hf]);
-          const float d0 = fmaxf(fmaf(-2.f, cr0, __fadd_rn(rsq[mt][hf], s.x)), 0.f);
-          const float d1 = fmaxf(fmaf(-2.f, cr1, __fadd_rn(rsq[mt][hf], s.y)), 0.f);
-          const float k0 = ex2(ngl2 * d0), k1 = ex2(ngl2 * d1);
-          if (r < m) {
-            float* o = out + (int64_t)r * n + c;
-            if (pairs && c + 1 < n) {
-              *reinterpret_cast<float2*>(o) = make_float2(k0, k1);
-            } else {
-              if (c < n) o[0] = k0;
-              if (c + 1 < n) o[1] = k1;
-            }
-          }
-        }
-    }
+    store_tile(acc, rsq, rxz, sqs + buf * BN, ngl2, out, m, n, row0, t0 + i, wm, wn, lane);
     cp_async_wait_all();
     __syncthreads();
+  }
+}
+
+// Any d: the feature dim in chunks of CK (see the header). Per support tile,
+// per chunk: one barrier before the chunk's scale and zero are staged, one
+// before the planes and the bf16 tile are read; the tile's norms and the
+// epilogue after the last chunk.
+__global__ void __launch_bounds__(THREADS, 2)
+gram_q8_chunked_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                       const float* __restrict__ scale, const float* __restrict__ zero,
+                       float gamma, float* __restrict__ out, int m, int n, int d,
+                       int per_split) {
+  using L = ChunkLayout;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Xp = reinterpret_cast<__nv_bfloat16*>(smem);  // [PLANES][BM][LD]
+  __nv_bfloat16* Bt = Xp + L::XP;                                // [BN][LD]
+  float* sqs = reinterpret_cast<float*>(Bt + L::BT);             // [BN]
+  float* sqx = sqs + BN;                                         // [BM]
+  float* xz = sqx + BM;                                          // [BM]
+  float* sc = xz + BM;                                           // [CK]
+  float* ze = sc + CK;                                           // [CK]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * BM;
+  const int tiles = (n + BN - 1) / BN;
+  const int t0 = blockIdx.y * per_split;
+  const int T = min(per_split, tiles - t0);
+  const int kp = (d + KSTEP - 1) / KSTEP * KSTEP;  // the padded feature dim
+  const int half = kp / 2;                         // the support norms' two chains
+  const int chunks = (kp + CK - 1) / CK;
+
+  stripe_terms(sqx, xz, x, zero, m, d, row0, tid);
+  __syncthreads();
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  float rsq[MT][2], rxz[MT][2];
+  row_terms(rsq, rxz, sqx, xz, wm, lane);
+  const float ngl2 = -gamma * LOG2E;
+  const int nr = tid >> 1, nh = tid & 1;  // the norm chain this thread carries: row, half
+
+  for (int i = 0; i < T; ++i) {
+    const int64_t j0 = (int64_t)(t0 + i) * BN;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    float nrm = 0.f;
+
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = ch * CK;
+      __syncthreads();  // every warp is done with the last chunk's tiles
+      for (int c = tid; c < CK; c += THREADS) {
+        sc[c] = c0 + c < d ? __ldg(scale + c0 + c) : 0.f;
+        ze[c] = c0 + c < d ? __ldg(zero + c0 + c) : 0.f;
+      }
+      __syncthreads();
+      for (int e = tid; e < BM * CK; e += THREADS) {
+        const int r = e / CK, c = e % CK;
+        const bool valid = row0 + r < m && c0 + c < d;
+        split3(Xp, BM * LD, r * LD + c,
+               valid ? __fmul_rn(x[(int64_t)(row0 + r) * d + c0 + c], sc[c]) : 0.f);
+      }
+      // the tile's int8 chunk, a pair of features a thread at a time, exact in bf16
+      for (int e = tid; e < BN * CK / 2; e += THREADS) {
+        const int r = e / (CK / 2), c = 2 * (e % (CK / 2));
+        const int64_t j = j0 + r;
+        const int g = c0 + c;
+        const int8_t* src = q + j * d + g;
+        const float q0 = j < n && g < d ? static_cast<float>(__ldg(src)) : 0.f;
+        const float q1 = j < n && g + 1 < d ? static_cast<float>(__ldg(src + 1)) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(Bt + r * LD + c) = __floats2bfloat162_rn(q0, q1);
+      }
+      __syncthreads();
+      {  // this chunk's part of the thread's half of its row's norm, ascending
+        const int lo = max(c0, nh * half), hi = min(min(c0 + CK, d), (nh + 1) * half);
+        const __nv_bfloat16* br = Bt + nr * LD - c0;
+        for (int g = lo; g < hi; ++g) {
+          const float s = __fadd_rn(__fmul_rn(__bfloat162float(br[g]), sc[g - c0]), ze[g - c0]);
+          nrm = fmaf(s, s, nrm);
+        }
+      }
+      const int ksteps = min(MAX_KSTEPS, (kp - c0) / KSTEP);
+#pragma unroll
+      for (int ks = 0; ks < MAX_KSTEPS; ++ks)
+        if (ks < ksteps) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);
+    }
+    const float other = __shfl_xor_sync(0xffffffffu, nrm, 1);
+    if (nh == 0) sqs[nr] = __fadd_rn(nrm, other);
+    __syncthreads();
+    store_tile(acc, rsq, rxz, sqs, ngl2, out, m, n, row0, t0 + i, wm, wn, lane);
   }
 }
 
@@ -342,13 +494,26 @@ int launch(const float* x, const int8_t* q, const float* scale, const float* zer
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_chunked(const float* x, const int8_t* q, const float* scale, const float* zero,
+                   float gamma, float* out, int m, int n, int d, int per_split, int splits,
+                   cudaStream_t stream) {
+  constexpr int bytes = ChunkLayout::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gram_q8_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + BM - 1) / BM, splits);
+  gram_q8_chunked_kernel<<<grid, THREADS, bytes, stream>>>(x, q, scale, zero, gamma, out, m, n,
+                                                           d, per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int rbf_gram_q8_launch(const float* x, const int8_t* q, const float* scale,
                                   const float* zero, float gamma, float* out, int m, int n,
                                   int d, int per_split, int splits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + KSTEP - 1) / KSTEP) {  // d in 1 .. MAX_KSTEPS * KSTEP
+  switch ((d + KSTEP - 1) / KSTEP) {  // the staged kernel for d <= MAX_KSTEPS * KSTEP
     case 1: return launch<1>(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
     case 2: return launch<2>(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
     case 3: return launch<3>(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
@@ -358,6 +523,19 @@ extern "C" int rbf_gram_q8_launch(const float* x, const int8_t* q, const float* 
     case 7: return launch<7>(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
     case MAX_KSTEPS:
       return launch<MAX_KSTEPS>(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_chunked(x, q, scale, zero, gamma, out, m, n, d, per_split, splits, s);
   }
+}
+
+// the chunked kernel at any d: the checks hold it bit for bit to the staged
+// kernel where both run
+extern "C" int rbf_gram_q8_chunked_launch(const float* x, const int8_t* q, const float* scale,
+                                          const float* zero, float gamma, float* out, int m,
+                                          int n, int d, int per_split, int splits,
+                                          void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_chunked(x, q, scale, zero, gamma, out, m, n, d, per_split, splits,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -42,6 +42,15 @@
 // in and from launch to launch. tests/test_torch_kernel_design.py emulates
 // this order on the CPU.
 //
+// Buckets whose v, alpha and y outgrow shared memory (smem_bytes(b) > 227
+// KB, b > 12,384) take the same kernel with those three in global memory
+// (GLOBAL): v in a (g, b) fp64 scratch, alpha in the output, y read where it
+// lies; 16 bytes a coordinate, 256 KB a device at b 16,384, which stay in the
+// 50 MB L2. The tile blocks and sums stay in shared memory. The order of
+// every sum and step is unchanged, so at a bucket both take the two give the
+// same alphas bit for bit. __syncthreads makes warp 0's global writes of a
+// tile visible to the matvec warps, as it does its shared ones.
+//
 // Arithmetic follows the reference step by step: f = s / (lam * n_real) with
 // lam * n_real in fp32; step = grad * lam * n_real / max(K[i,i], 1e-8);
 // alpha_i = clip(alpha_i + step, 0, 1). Coordinates i >= n_real stay 0, which
@@ -59,6 +68,7 @@ constexpr int LD = TILE + 1;           // padded row of a staged block: no bank 
 constexpr int GROUP = 4;               // columns a lane reads at once
 constexpr int IN_FLIGHT = 8;           // groups a lane loads before it sums them
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_SMEM = 232448;       // shared memory a block may take (227 KB)
 static_assert(TILE == 32, "a tile is one warp, a lane a coordinate");
 
 struct Layout {
@@ -67,22 +77,37 @@ struct Layout {
   double* by;     // [2][TILE][LD]   K[rows t+1, cols t] * y
   double* v;      // [b]             y * alpha, zero past n
   float* alpha;   // [b]
-  float* ys;      // [b]
+  const float* ys;  // [b]
 };
 
+// the tile blocks alone: what the GLOBAL instantiation keeps in shared memory
+__host__ __device__ constexpr int block_bytes() {
+  return static_cast<int>(sizeof(double)) * (2 * TILE + 4 * TILE * LD);
+}
 __host__ __device__ inline int smem_bytes(int b) {
-  return static_cast<int>(sizeof(double)) * (2 * TILE + 4 * TILE * LD + b) +
+  return block_bytes() + static_cast<int>(sizeof(double)) * b +
          static_cast<int>(sizeof(float)) * 2 * b;
 }
 
-__device__ inline Layout carve(unsigned char* raw, int b) {
+// shared: v, alpha and y after the blocks (y copied in by the kernel);
+// GLOBAL: v in the device's row of the scratch, alpha in its output row, y
+// its input row
+template <bool GLOBAL>
+__device__ inline Layout carve(unsigned char* raw, int b, double* v, float* alpha,
+                               const float* y) {
   Layout L;
   L.part = reinterpret_cast<double*>(raw);
   L.dy = L.part + 2 * TILE;
   L.by = L.dy + 2 * TILE * LD;
-  L.v = L.by + 2 * TILE * LD;
-  L.alpha = reinterpret_cast<float*>(L.v + b);
-  L.ys = L.alpha + b;
+  if constexpr (GLOBAL) {
+    L.v = v;
+    L.alpha = alpha;
+    L.ys = y;
+  } else {
+    L.v = L.by + 2 * TILE * LD;
+    L.alpha = reinterpret_cast<float*>(L.v + b);
+    L.ys = L.alpha + b;
+  }
   return L;
 }
 
@@ -212,15 +237,16 @@ __device__ void prepare(const Layout& L, const Solve& S, int u, int ex4, int buf
   }
 }
 
-template <int NMW>
+template <int NMW, bool GLOBAL>
 __global__ void __launch_bounds__(32 * (NMW + 1))
 sdca_kernel(const float* __restrict__ K, const float* __restrict__ y,
             const int* __restrict__ n_real, float* __restrict__ alpha_out,
-            int b, float lam, int epochs) {
+            double* __restrict__ v_scratch, int b, float lam, int epochs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Layout L = carve(smem_raw, b);
-
   const int dev = blockIdx.x;
+  const Layout L = carve<GLOBAL>(smem_raw, b, v_scratch + (int64_t)dev * b,
+                                 alpha_out + (int64_t)dev * b, y + (int64_t)dev * b);
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nr = n_real[dev];
   const int n = nr < 0 ? 0 : (nr < b ? nr : b);
@@ -237,7 +263,7 @@ sdca_kernel(const float* __restrict__ K, const float* __restrict__ y,
   for (int j = threadIdx.x; j < b; j += blockDim.x) {
     L.alpha[j] = 0.f;
     L.v[j] = 0.0;
-    L.ys[j] = y[(int64_t)dev * b + j];
+    if constexpr (!GLOBAL) const_cast<float*>(L.ys)[j] = y[(int64_t)dev * b + j];
   }
   __syncthreads();
 
@@ -284,33 +310,56 @@ sdca_kernel(const float* __restrict__ K, const float* __restrict__ y,
     }
     __syncthreads();
   }
-  for (int j = threadIdx.x; j < b; j += blockDim.x)
-    alpha_out[(int64_t)dev * b + j] = L.alpha[j];
+  if constexpr (!GLOBAL)
+    for (int j = threadIdx.x; j < b; j += blockDim.x)
+      alpha_out[(int64_t)dev * b + j] = L.alpha[j];
 }
 
-template <int NMW>
-int launch(const float* K, const float* y, const int* n_real, float* alpha, int g, int b,
-           float lam, int epochs, cudaStream_t stream) {
-  const int smem = smem_bytes(b);
+template <int NMW, bool GLOBAL>
+int launch(const float* K, const float* y, const int* n_real, float* alpha, double* v, int g,
+           int b, float lam, int epochs, cudaStream_t stream) {
+  const int smem = GLOBAL ? block_bytes() : smem_bytes(b);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sdca_kernel<NMW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        sdca_kernel<NMW, GLOBAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sdca_kernel<NMW><<<g, 32 * (NMW + 1), smem, stream>>>(K, y, n_real, alpha, b, lam, epochs);
+  sdca_kernel<NMW, GLOBAL><<<g, 32 * (NMW + 1), smem, stream>>>(K, y, n_real, alpha, v, b, lam,
+                                                                 epochs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// matvec warps by bucket: 4 (8 rows each) up to b 1023, then one per 128
+// columns up to 16 (the sums do not depend on it)
+template <bool GLOBAL>
+int launch_by_bucket(const float* K, const float* y, const int* n_real, float* alpha,
+                     double* v, int g, int b, float lam, int epochs, cudaStream_t st) {
+  if (b >= 2048) return launch<16, GLOBAL>(K, y, n_real, alpha, v, g, b, lam, epochs, st);
+  if (b >= 1024) return launch<8, GLOBAL>(K, y, n_real, alpha, v, g, b, lam, epochs, st);
+  return launch<4, GLOBAL>(K, y, n_real, alpha, v, g, b, lam, epochs, st);
 }
 
 }  // namespace
 
 extern "C" int sdca_smem_bytes(int b) { return smem_bytes(b); }
 
-// matvec warps by bucket: 4 (8 rows each) up to b 1023, then one per 128
-// columns up to 16 (the sums do not depend on it)
-extern "C" int sdca_launch(const float* K, const float* y, const int* n_real,
-                           float* alpha, int g, int b, float lam, int epochs, void* stream) {
+// ``v`` is a (g, b) fp64 scratch, read only past the shared-memory limit,
+// where v, alpha and y go to global memory (it may be null below it)
+extern "C" int sdca_launch(const float* K, const float* y, const int* n_real, float* alpha,
+                           double* v, int g, int b, float lam, int epochs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b >= 2048) return launch<16>(K, y, n_real, alpha, g, b, lam, epochs, st);
-  if (b >= 1024) return launch<8>(K, y, n_real, alpha, g, b, lam, epochs, st);
-  return launch<4>(K, y, n_real, alpha, g, b, lam, epochs, st);
+  if (smem_bytes(b) <= MAX_SMEM)
+    return launch_by_bucket<false>(K, y, n_real, alpha, v, g, b, lam, epochs, st);
+  if (v == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_by_bucket<true>(K, y, n_real, alpha, v, g, b, lam, epochs, st);
+}
+
+// the global-memory instantiation at any bucket: the checks hold it bit for
+// bit to the shared one where both run
+extern "C" int sdca_global_launch(const float* K, const float* y, const int* n_real,
+                                  float* alpha, double* v, int g, int b, float lam, int epochs,
+                                  void* stream) {
+  if (v == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_by_bucket<true>(K, y, n_real, alpha, v, g, b, lam, epochs,
+                                static_cast<cudaStream_t>(stream));
 }

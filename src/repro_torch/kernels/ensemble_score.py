@@ -13,6 +13,12 @@ this one, writing one fp32 partial per query and split; a last pass adds each qu
 split order and divides by k. No atomics; the (k, b, n_max) Gram never
 exists. ``split_plan`` picks the split from (k, n_max) alone, never from
 b, so a query's score is bit-identical whatever chunk it is scored in.
+Past d 220 the query tile and two support tiles no longer fit in shared
+memory over the whole feature dim, and the launcher takes a chunked
+partials kernel that stages queries and supports 64 features at a time
+and carries each pair's fmaf chain across the chunks: the same chains in
+the same order, so the same bits where both run
+(``ensemble_score_chunked_cuda`` launches it at any d, for that check).
 
 Bound on the H100: fp32 operations. A query-support pair costs about
 2d + 8 operations; at the full ensemble (b 8192, k 2821, n_max 230,
@@ -123,9 +129,8 @@ def ensemble_score_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
     return member_scores_plain(x, sup, coef, gammas).mean(0)
 
 
-def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
-                        gammas: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/ensemble_score.cu`` on x's CUDA device."""
+def _check(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
+           gammas: torch.Tensor) -> None:
     native.check_cuda("ensemble_score", x.device, x=x, sup=sup, coef=coef, gammas=gammas)
     if x.dim() != 2 or sup.dim() != 3 or coef.dim() != 2 or gammas.dim() != 1:
         raise ValueError("ensemble_score: want x (b, d), sup (k, n_max, d), "
@@ -137,9 +142,24 @@ def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
                          f"{tuple(coef.shape)}, {tuple(gammas.shape)} disagree")
     if k == 0:
         raise ValueError("ensemble_score: empty ensemble")
+
+
+def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
+                        gammas: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/ensemble_score.cu`` on x's CUDA device: the staged
+    partials kernel where its tiles fit in shared memory, the chunked one
+    past it."""
+    _check(x, sup, coef, gammas)
     lib = native.library("ensemble_score")
-    if lib.ensemble_score_smem_bytes(d) > native.MAX_SMEM_BYTES:
-        raise ValueError(f"ensemble_score: feature dim {d} needs more shared "
-                         "memory than a block may take")
     return launch_scores("ensemble_score", LAUNCHES, lib.ensemble_score_launch, x, (sup,),
                          coef, gammas)
+
+
+def ensemble_score_chunked_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
+                                gammas: torch.Tensor) -> torch.Tensor:
+    """The chunked partials kernel at any d, for holding it bit for bit to
+    the staged one where both run; no path of the port calls it."""
+    _check(x, sup, coef, gammas)
+    lib = native.library("ensemble_score")
+    return launch_scores("ensemble_score", LAUNCHES, lib.ensemble_score_chunked_launch, x,
+                         (sup,), coef, gammas)

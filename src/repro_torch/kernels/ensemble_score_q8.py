@@ -10,7 +10,9 @@ rows of an item and the member's scale and zero rows raw with 16-byte
 ``cp.async`` and dequantises them from shared memory; the support norms
 are of the dequantised values. Zero coefficients
 annihilate padded rows, whose dequantised value (the zero point) is
-finite. Returns sum / k.
+finite. Returns sum / k. Past d 220 the chunked partials kernel (see
+``ensemble_score``) dequantises each 64-feature chunk through the
+loader, with the same rounding.
 
 Bound on the H100: fp32 operations, as ``ensemble_score`` (5.71 ms at
 the full ensemble); the packed int8 ensemble is a quarter of the fp32
@@ -44,10 +46,8 @@ def ensemble_score_q8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
     return torch.cat(scores).mean(0)
 
 
-def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                           zero: torch.Tensor, coef: torch.Tensor,
-                           gammas: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/ensemble_score.cu``'s int8 kernel on x's CUDA device."""
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+           coef: torch.Tensor, gammas: torch.Tensor) -> None:
     native.check_cuda("ensemble_score_q8", x.device, dtypes={"q": torch.int8},
                       x=x, q=q, scale=scale, zero=zero, coef=coef, gammas=gammas)
     if (x.dim() != 2 or q.dim() != 3 or scale.dim() != 2 or zero.dim() != 2
@@ -63,9 +63,26 @@ def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
                          f"{tuple(coef.shape)}, {tuple(gammas.shape)} disagree")
     if k == 0:
         raise ValueError("ensemble_score_q8: empty ensemble")
+
+
+def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                           zero: torch.Tensor, coef: torch.Tensor,
+                           gammas: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/ensemble_score.cu``'s int8 kernel on x's CUDA device
+    (staged or chunked by d, as ``ensemble_score_cuda``)."""
+    _check(x, q, scale, zero, coef, gammas)
     lib = native.library("ensemble_score")
-    if lib.ensemble_score_smem_bytes(d) > native.MAX_SMEM_BYTES:
-        raise ValueError(f"ensemble_score_q8: feature dim {d} needs more shared "
-                         "memory than a block may take")
     return _ens.launch_scores("ensemble_score_q8", LAUNCHES, lib.ensemble_score_q8_launch, x,
                               (q, scale, zero), coef, gammas)
+
+
+def ensemble_score_q8_chunked_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                                   zero: torch.Tensor, coef: torch.Tensor,
+                                   gammas: torch.Tensor) -> torch.Tensor:
+    """The chunked int8 partials kernel at any d, for holding it bit for
+    bit to the staged one where both run; no path of the port calls it."""
+    _check(x, q, scale, zero, coef, gammas)
+    lib = native.library("ensemble_score")
+    return _ens.launch_scores("ensemble_score_q8", LAUNCHES,
+                              lib.ensemble_score_q8_chunked_launch, x, (q, scale, zero), coef,
+                              gammas)

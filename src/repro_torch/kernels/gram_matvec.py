@@ -13,6 +13,16 @@ supports in fp64: an fp32 sum of 4096 terms drifts by ~1e-5 with the
 order of its terms alone, more than the registry's 1e-5 between the two
 at the CG's l = 4096.
 
+Past d 64 the launcher takes a chunked kernel that stages rows and
+supports 64 features at a time (past d 220 a block's tiles would not fit
+in shared memory over the whole feature dim). Its arithmetic is not the
+staged kernel's single fp32 chain over all features, which at l = 4096
+drifts past the registry's 1e-5 from the plain version already at d 129:
+each chunk's products are an fp32 chain, the chunks' sums and d2 are
+fp64. So it does not give the staged kernel's bits where both run
+(``gram_matvec_chunked_cuda`` launches it at any d, for the checks that
+hold the two within the tolerance).
+
 Bound on the H100: fp32 operations. At the CG's l = 4096, d = 32 one
 call is 4096^2 x (2d + 8) ~ 1.2e9 operations against 1 MB of inputs.
 ``split_plan`` fills the card's two resident blocks an SM in one wave.
@@ -56,9 +66,8 @@ def split_plan(m: int, n: int) -> tuple:
     return per_split, -(-tiles // per_split)
 
 
-def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
-                     gamma: float) -> torch.Tensor:
-    """Launch ``csrc/gram_matvec.cu`` on x1's CUDA device."""
+def _launch(fn_name: str, x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+            gamma: float) -> torch.Tensor:
     native.check_cuda("gram_matvec", x1.device, x1=x1, x2=x2, v=v)
     if x1.dim() != 2 or x2.dim() != 2 or v.dim() != 1:
         raise ValueError("gram_matvec: want x1 (m, d), x2 (n, d), v (n,)")
@@ -73,12 +82,23 @@ def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
     if n == 0:
         return out.zero_()
     lib = native.library("gram_matvec")
-    if lib.gram_matvec_smem_bytes(d) > native.MAX_SMEM_BYTES:
-        raise ValueError(f"gram_matvec: feature dim {d} needs more shared memory "
-                         "than a block may take")
     per_split, splits = split_plan(m, n)
     partial = torch.empty((splits, m), dtype=torch.float64, device=x1.device)
-    native.launch(LAUNCHES, x1.device, lib.gram_matvec_launch,
+    native.launch(LAUNCHES, x1.device, getattr(lib, fn_name),
                   x1.data_ptr(), x2.data_ptr(), v.data_ptr(), float(gamma),
                   partial.data_ptr(), out.data_ptr(), m, n, d, per_split, splits)
     return out
+
+
+def gram_matvec_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                     gamma: float) -> torch.Tensor:
+    """Launch ``csrc/gram_matvec.cu`` on x1's CUDA device: the staged
+    kernel up to d 64, the chunked one past it."""
+    return _launch("gram_matvec_launch", x1, x2, v, gamma)
+
+
+def gram_matvec_chunked_cuda(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
+                             gamma: float) -> torch.Tensor:
+    """The chunked kernel at any d, for holding it within the tolerance
+    to the staged one where both run; no path of the port calls it."""
+    return _launch("gram_matvec_chunked_launch", x1, x2, v, gamma)

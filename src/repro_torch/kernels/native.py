@@ -50,6 +50,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "gram_q8": {
         # x, q, scale, zero, gamma, out, m, n, d, per_split, splits, stream
         "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
+        # the same arguments: the chunked kernel at any d
+        "rbf_gram_q8_chunked_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
     },
     "ensemble_score": {
         # x, sup, coef, gammas, norms, partial, out, b, k, n_max, d, per_split,
@@ -59,17 +61,28 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # per_split, splits, stream
         "ensemble_score_q8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _P],
+        # the same arguments as the two above: the chunked partials kernel at any d
+        "ensemble_score_chunked_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _P],
+        "ensemble_score_q8_chunked_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                             _I, _I, _I, _P],
         "ensemble_score_smem_bytes": [_I],
+        "ensemble_score_chunked_smem_bytes": [],
     },
     "sdca": {
-        # K, y, n_real, alpha, g, b, lam, epochs, stream
-        "sdca_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # K, y, n_real, alpha, v (fp64 scratch or null), g, b, lam, epochs, stream
+        "sdca_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # the same arguments: the global-memory instantiation at any bucket
+        "sdca_global_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
         "sdca_smem_bytes": [_I],
     },
     "gram_matvec": {
         # x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, stream
         "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
+        # the same arguments: the chunked kernel at any d
+        "gram_matvec_chunked_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
         "gram_matvec_smem_bytes": [_I],
+        "gram_matvec_chunked_smem_bytes": [],
     },
     "flash_attention": {
         # q, k, v, o, B, Sq, Skv, H, K, hd, causal, window, scale, stream (float32)

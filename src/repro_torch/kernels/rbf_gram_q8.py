@@ -12,7 +12,13 @@ the norms are fp32 on the CUDA cores. A block owns 64 query rows and
 walks a run of 128-support tiles (``split_plan``), paying for the x
 side once; the int8 tiles arrive raw by ``cp.async`` and are converted
 to bf16 once a tile. The fp32 supports never exist in device memory.
-The kernel takes d <= 128 (``MAX_D``) and raises above it.
+Past d 128 (``STAGED_D``) the stripe's planes no longer stay staged: a
+chunked instantiation walks the features in chunks of 128 for each
+support tile, re-staging the chunk's planes and converting the tile's
+chunk, with the accumulators carried across chunks, so it runs the
+staged kernel's products in the staged kernel's order and gives its
+bits where both run (``rbf_gram_q8_chunked_cuda`` launches it at any d,
+for that check).
 
 Padding contract: a padded int8 row dequantises to ``zero``, not 0; the
 reference pads and slices, and the kernel writes only the real (m, n)
@@ -37,7 +43,7 @@ LAUNCHES = native.LaunchCounter("rbf_gram_q8")
 
 ROWS, TILE = 64, 128          # query rows per block, supports per tile
 TARGET_BLOCKS = 3 * 132       # three resident blocks on each SM of an H100: one wave
-MAX_D = 128                   # the kernel's largest feature dim (8 k steps of 16)
+STAGED_D = 128                # the staged kernel's largest feature dim (8 k steps of 16)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
@@ -67,9 +73,8 @@ def split_plan(m: int, n: int) -> tuple:
     return per_split, -(-tiles // per_split)
 
 
-def rbf_gram_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                     zero: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Launch ``csrc/gram_q8.cu`` on x's CUDA device."""
+def _launch(fn_name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+            zero: torch.Tensor, gamma: float) -> torch.Tensor:
     native.check_cuda("rbf_gram_q8", x.device, dtypes={"q": torch.int8},
                       x=x, q=q, scale=scale, zero=zero)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1 or zero.dim() != 1:
@@ -79,8 +84,8 @@ def rbf_gram_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if q.shape[1] != d or scale.shape[0] != d or zero.shape[0] != d:
         raise ValueError(f"rbf_gram_q8: shapes {tuple(x.shape)}, {tuple(q.shape)}, "
                          f"{tuple(scale.shape)}, {tuple(zero.shape)} disagree")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"rbf_gram_q8: the kernel takes 1 <= d <= {MAX_D}, got d = {d}")
+    if d < 1:
+        raise ValueError("rbf_gram_q8: the kernel takes d >= 1")
     if q.data_ptr() % 16:
         raise ValueError("rbf_gram_q8: q must start on a 16-byte boundary (cp.async)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -88,7 +93,21 @@ def rbf_gram_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return out
     per_split, splits = split_plan(m, n)
     lib = native.library("gram_q8")
-    native.launch(LAUNCHES, x.device, lib.rbf_gram_q8_launch,
+    native.launch(LAUNCHES, x.device, getattr(lib, fn_name),
                   x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(),
                   float(gamma), out.data_ptr(), m, n, d, per_split, splits)
     return out
+
+
+def rbf_gram_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                     zero: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Launch ``csrc/gram_q8.cu`` on x's CUDA device: the staged kernel
+    up to d ``STAGED_D``, the chunked one past it."""
+    return _launch("rbf_gram_q8_launch", x, q, scale, zero, gamma)
+
+
+def rbf_gram_q8_chunked_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             zero: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The chunked kernel at any d, for holding it bit for bit to the
+    staged one where both run; no path of the port calls it."""
+    return _launch("rbf_gram_q8_chunked_launch", x, q, scale, zero, gamma)

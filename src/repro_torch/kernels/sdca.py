@@ -18,6 +18,13 @@ nor the operations bound it; the design shortens one step to a shuffle,
 the reference's fp32 arithmetic and three fp64 operations, with one
 barrier a tile and none a step, and streams each tile's K rows from L2
 under the steps of the tile before.
+
+v (fp64), alpha and y live in shared memory up to a bucket of 12,384
+(``sdca_smem_bytes``); past it the launcher takes the same kernel with
+the three in global memory (v in a (g, b) fp64 scratch the wrapper
+allocates), where they stay in L2: the same order of every sum and
+step, so the same alphas bit for bit where both run
+(``sdca_global_cuda`` launches it at any bucket, for that check).
 """
 from __future__ import annotations
 
@@ -41,27 +48,35 @@ def sdca_plain(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
     y (g, b) labels padded with +1, n_real (g,) int32 real counts.
     Returns alpha (g, b) in [0, 1], zero on padded coordinates.
 
+    Each step's dot K_i (y o alpha) is summed in fp64 (the products of
+    fp32 values are exact there), then rounded to fp32 for the
+    reference's fp32 step, as the kernel sums: at buckets past 12,000 an
+    fp32 sum's rounding, which depends on the order of its terms, moves
+    some alphas by more than the registry's 1e-5 (the pooled emnist
+    ideal at buckets 12,416 and 16,384, 2 epochs).
+
     Steps for coordinates i >= max(n_real) only write 0 into an alpha
     that is already 0, so the loop stops there."""
     g, b, _ = K.shape
-    Ky = K * y[:, None, :]
+    Ky = (K * y[:, None, :]).double()
+    k_ii = torch.clamp(torch.diagonal(K, dim1=1, dim2=2), min=1e-8)
+    # 1 on a device's real coordinates: a masked step writes 0, as the reference's
+    real = (torch.arange(b, device=K.device)[None, :] < n_real[:, None]).to(torch.float32)
     n_f = n_real.to(torch.float32)
     lam_n = lam * n_f
-    alpha = torch.zeros((g, b), dtype=torch.float32, device=K.device)
+    alpha = torch.zeros((g, b), dtype=torch.float64, device=K.device)   # fp32 values
     live = int(n_real.max()) if g else 0
     for _ in range(epochs):
         for i in range(min(live, b)):
-            f = (Ky[:, i, :] * alpha).sum(1) / lam_n
+            f = torch.matmul(Ky[:, i:i + 1, :], alpha[:, :, None])[:, 0, 0].float() / lam_n
             grad = 1.0 - y[:, i] * f
-            step = grad * lam * n_f / torch.clamp(K[:, i, i], min=1e-8)
-            new = torch.clamp(alpha[:, i] + step, 0.0, 1.0)
-            alpha[:, i] = torch.where(i < n_real, new, torch.zeros_like(new))
-    return alpha
+            step = grad * lam * n_f / k_ii[:, i]
+            alpha[:, i] = torch.clamp(alpha[:, i].float() + step, 0.0, 1.0) * real[:, i]
+    return alpha.float()
 
 
-def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
-              lam: float, epochs: int = 20) -> torch.Tensor:
-    """Launch ``csrc/sdca.cu`` (one block per device) on K's CUDA device."""
+def _launch(fn_name: str, K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
+            lam: float, epochs: int, always_global: bool) -> torch.Tensor:
     native.check_cuda("sdca", K.device, dtypes={"n_real": torch.int32},
                       K=K, y=y, n_real=n_real)
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
@@ -73,13 +88,30 @@ def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
     if b % GROUP or K.data_ptr() % 16:
         raise ValueError(f"sdca: the kernel reads K rows 4 columns at a time: the bucket "
                          f"({b}) must be a multiple of {GROUP} and K 16-byte aligned")
-    lib = native.library("sdca")
-    if lib.sdca_smem_bytes(b) > native.MAX_SMEM_BYTES:
-        raise ValueError(f"sdca: bucket {b} needs more shared memory than a block may take")
     alpha = torch.empty((g, b), dtype=torch.float32, device=K.device)
     if g == 0 or b == 0:
         return alpha.zero_()
-    native.launch(LAUNCHES, K.device, lib.sdca_launch,
+    lib = native.library("sdca")
+    v = None   # y o alpha in fp64, where it does not fit in shared memory
+    if always_global or lib.sdca_smem_bytes(b) > native.MAX_SMEM_BYTES:
+        v = torch.empty((g, b), dtype=torch.float64, device=K.device)
+    native.launch(LAUNCHES, K.device, getattr(lib, fn_name),
                   K.data_ptr(), y.data_ptr(), n_real.data_ptr(), alpha.data_ptr(),
-                  g, b, float(lam), int(epochs))
+                  None if v is None else v.data_ptr(), g, b, float(lam), int(epochs))
     return alpha
+
+
+def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
+              lam: float, epochs: int = 20) -> torch.Tensor:
+    """Launch ``csrc/sdca.cu`` (one block per device) on K's CUDA device:
+    v, alpha and y in shared memory where they fit, in global memory past
+    that."""
+    return _launch("sdca_launch", K, y, n_real, lam, epochs, always_global=False)
+
+
+def sdca_global_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
+                     lam: float, epochs: int = 20) -> torch.Tensor:
+    """The global-memory instantiation at any bucket, for holding it bit
+    for bit to the shared one where both run; no path of the port calls
+    it."""
+    return _launch("sdca_global_launch", K, y, n_real, lam, epochs, always_global=True)

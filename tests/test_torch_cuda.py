@@ -165,11 +165,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert ops.rbf_gram_q8(xq, q, sc, ze, 0.5).shape == (8, 5)
     with pytest.raises(TypeError, match="int8"):
         ops.rbf_gram_q8(xq, q.float(), sc, ze, 0.5)
-    wide = torch.zeros(5, 129, dtype=torch.int8, device=cuda_device)
-    with pytest.raises(ValueError, match="d <= 128"):
-        ops.rbf_gram_q8(torch.randn(8, 129, device=cuda_device), wide,
-                        torch.ones(129, device=cuda_device), torch.zeros(129, device=cuda_device),
-                        0.5)
+    # d 129, past the staged kernel's 128, launches the chunked kernel
+    wide = (q.new_ones(5, 129) * torch.arange(5, dtype=torch.int8, device=cuda_device)[:, None])
+    wargs = (torch.randn(8, 129, device=cuda_device), wide,
+             torch.full((129,), 0.01, device=cuda_device), torch.zeros(129, device=cuda_device),
+             1.0 / 129)
+    got = ops.rbf_gram_q8(*wargs)
+    want = ops.KERNEL_REGISTRY["rbf_gram_q8"].plain(*wargs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ops.KERNEL_REGISTRY["rbf_gram_q8"].tol, rtol=0)
     K = torch.zeros(1, 30, 30, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 4"):
         ops.sdca(K, torch.ones(1, 30, device=cuda_device),
@@ -506,16 +510,18 @@ def test_reduced_serve_matches_cpu(cuda_device):
     np.testing.assert_array_equal(card, cpu)
 
 
-def _smoke_flash_shapes():
-    """chip_smoke.py's FLASH_SHAPES (it imports nothing but the standard library)."""
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports nothing but the standard
+    library at import)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.FLASH_SHAPES
+    return mod
 
 
-SMOKE_FLASH = _smoke_flash_shapes()
+CHIP_SMOKE = _chip_smoke()
+SMOKE_FLASH = CHIP_SMOKE.FLASH_SHAPES
 
 
 def _bf16_close(got, want):
@@ -849,3 +855,130 @@ def test_sharded_population_on_the_card_is_the_bucketed_one(cuda_device):
         assert a.local_test_scores.tobytes() == b.local_test_scores.tobytes()
         if hasattr(b.model, "coef"):
             assert a.model.coef.tobytes() == b.model.coef.tobytes()
+
+
+# ----------------------------------------------------------------------
+# the wide paths: every feature dim and SDCA bucket the reference takes
+# ----------------------------------------------------------------------
+
+WIDE_DS = [129, 220, 221, 256, 784, 1024]
+WIDE_KERNELS = list(CHIP_SMOKE.WIDE_KERNELS)
+
+
+def wide_case(name, d, device, seed=0):
+    """``name``'s arguments at feature dim d, drawn on ``device``: the
+    scorers at b 300, k 7, n 77; gram_matvec at l 600; rbf_gram_q8 at
+    300 x 260; normals at gamma 1/d (the scorers' per member 1/(d u), u in
+    [0.5, 2]), coefficients at a trained model's scale."""
+    g = torch.Generator(device=device).manual_seed(seed * 10_000 + d)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    if name in ("ensemble_score", "ensemble_score_q8"):
+        b, k, n = 300, 7, 77
+        x, sup = randn(b, d), randn(k, n, d)
+        sign = torch.where(torch.rand(k, n, generator=g, device=device) < 0.5, -1.0, 1.0)
+        coef = torch.rand(k, n, generator=g, device=device) * sign / (0.01 * n)
+        gam = 1.0 / (d * (0.5 + 1.5 * torch.rand(k, generator=g, device=device)))
+        if name == "ensemble_score":
+            return x, sup, coef, gam
+        return (x, *CHIP_SMOKE.quantize_columns_on(sup), coef, gam)
+    if name == "gram_matvec":
+        xp = randn(600, d)
+        return xp, xp, randn(600), float(1.0 / (d * float(xp.var())))
+    x = randn(300, d)
+    q, scale, zero = CHIP_SMOKE.quantize_columns_on(randn(260, d))
+    return x, q, scale, zero, 1.0 / d
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+@pytest.mark.parametrize("name", WIDE_KERNELS)
+def test_wide_kernels_match_plain(cuda_device, name, d):
+    """Each kernel past its staged limits launches its own CUDA code
+    (the launch counted), within the registry's tol of its plain version,
+    and two launches equal bit for bit."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = wide_case(name, d, cuda_device)
+    before = spec.counter.count
+    got = spec.dispatch(*args)
+    torch.cuda.synchronize()
+    assert spec.counter.count == before + 1
+    want = spec.plain(*args)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+    assert torch.equal(got, spec.dispatch(*args))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 220])
+@pytest.mark.parametrize("name", WIDE_KERNELS)
+def test_chunked_paths_against_the_staged_ones(cuda_device, name, d):
+    """Through the private entries, where both run: the scorers' and
+    rbf_gram_q8's chunked kernels give the staged kernels' bits (q8's
+    staged kernel takes d <= 128, the scorers' d <= 220); gram_matvec's
+    chunked kernel sums each 64-feature chunk apart, in fp64 across
+    chunks, so it is held within the registry's tol of the staged kernel
+    (d <= 64) and of the plain version instead."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = wide_case(name, d, cuda_device, seed=1)
+    staged, chunked = spec.kernel(*args), CHIP_SMOKE.wide_private(name)(*args)
+    if name == "gram_matvec":
+        np.testing.assert_allclose(chunked.cpu().numpy(), staged.cpu().numpy(), atol=spec.tol,
+                                   rtol=0)
+        np.testing.assert_allclose(chunked.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                                   atol=spec.tol, rtol=0)
+    elif name != "rbf_gram_q8" or d <= 128:
+        assert torch.equal(staged, chunked)
+
+
+def _ideal_bucket(cap, device, epochs):
+    """The pooled emnist ideal at ``cap`` rows (scale 0.1 pools ~24,000
+    train rows): ``train_svm``'s SDCA problem, bucket ceil(cap / 64) * 64."""
+    K, y, n_real, lam, _ = ops.make_ideal_sdca_problem(seed=0, scale=0.1, cap=cap)
+    return _on((K, y, n_real, lam, epochs), device)
+
+
+@pytest.mark.parametrize("cap,bucket", [(12_400, 12_416), (16_384, 16_384)])
+def test_sdca_past_the_shared_memory_bucket(cuda_device, cap, bucket):
+    """Buckets past 12,384 launch the global-memory instantiation: within
+    the registry's 1e-5 of the plain version at 2 epochs, padding 0."""
+    spec = ops.KERNEL_REGISTRY["sdca"]
+    args = _ideal_bucket(cap, cuda_device, epochs=2)
+    assert args[0].shape == (1, bucket, bucket)
+    before = spec.counter.count
+    got = ops.sdca(*args)
+    assert spec.counter.count == before + 1
+    want = spec.plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+    assert cap == bucket or float(got[0, cap:].abs().max()) == 0.0
+    assert torch.equal(got, ops.sdca(*args))
+
+
+@pytest.mark.parametrize("case", ["emnist-ideal", "g256-b64"])
+def test_sdca_global_instantiation_is_the_shared_one(cuda_device, case):
+    """At buckets both take (the emnist ideal's 2,048, the g256 b64 group),
+    the global-memory instantiation gives the shared one's alphas bit for
+    bit."""
+    from repro_torch.kernels.sdca import sdca_global_cuda
+
+    args = (_on(ops.make_ideal_sdca_problem(seed=0), cuda_device) if case == "emnist-ideal"
+            else _sdca_group(256, 64, 33, 64, cuda_device))
+    assert torch.equal(sdca_global_cuda(*args), ops.sdca(*args))
+
+
+def test_smem_mirrors_match_the_libraries(cuda_device):
+    """The libraries' shared-memory sizes: the staged scorers' and
+    gram_matvec's tiles fit up to d 220 (the scorers' launcher leaves its
+    staged kernel there, gram_matvec's already past d 64), the shared SDCA
+    arrays up to bucket 12,384; the chunked kernels' one size for every
+    d."""
+    from repro_torch.kernels import native
+
+    ens, gmv, sd = (native.library(n) for n in ("ensemble_score", "gram_matvec", "sdca"))
+    for lib, fn in ((ens, ens.ensemble_score_smem_bytes), (gmv, gmv.gram_matvec_smem_bytes)):
+        fits = [d for d in range(1, 1025) if fn(d) <= native.MAX_SMEM_BYTES]
+        assert fits == list(range(1, 221))
+    assert ens.ensemble_score_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
+    assert gmv.gram_matvec_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
+    shared = [b for b in range(4, 65_537, 4) if sd.sdca_smem_bytes(b) <= native.MAX_SMEM_BYTES]
+    assert shared == list(range(4, 12_385, 4))

@@ -44,7 +44,17 @@ What can be held here is the plan and the arithmetic they follow:
   the norms as four fmaf chains a row), stays within the registry's 1e-5 of
   the plain version on the round's own fit group
   (``ops.make_fit_group_problem``, whose first call in the bucketed round
-  it is), the ideal's 2,000 rows, normals and the registry's cases.
+  it is), the ideal's 2,000 rows, normals and the registry's cases;
+- the wide paths: mirrors of the four launchers' choices keep the staged
+  kernels where they ran before (the scorers to d 220, ``gram_matvec`` to
+  d 64, ``rbf_gram_q8`` to d 128, SDCA to bucket 12,352 of the 64-row
+  quantum; every shape of today's paths) and fit the chunked and global-memory
+  instantiations at every d to 4,096 and bucket to 65,536; the chunked
+  orders at d 64, 220 and 784 on emnist rows: ``rbf_gram_q8``'s the
+  staged order's bits, ``gram_matvec``'s (64-feature fp32 chains summed
+  in fp64) within the registry's 1e-5 of the plain version and of the
+  staged order, where the staged kernel's one fp32 chain drifts past it
+  at d 784.
 """
 import functools
 import importlib.util
@@ -394,29 +404,53 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512):
+GMV_CHUNK = 64   # features a step of the chunked gram_matvec and scorer kernels stages
+
+
+def _chain_chunks(d, chunk):
+    """The feature ranges the fmaf chains run over, in order: all of them
+    at once (the staged kernels), or the chunked kernels' chunks of the
+    float4-padded dim, the pad [d, dp) included (it adds exactly 0)."""
+    if chunk is None:
+        return [range(d)]
+    dp = -(-d // 4) * 4
+    return [range(c0, min(c0 + chunk, dp)) for c0 in range(0, dp, chunk)]
+
+
+def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512, chunk=None):
     """``csrc/gram_matvec.cu`` in plain PyTorch. Per pair: the cross product
     an fmaf chain over ascending features from 0, each norm likewise,
     d2 = max((sqx + sqs) - 2 cross, 0) in fp32, K = exp(-gamma d2) rounded
     to fp32, then v K exactly in fp64. Sums: the thread of group g adds
     supports 4 g .. 4 g + 3 of each 64-support tile in turn, tile after tile
     of its split; a block adds its 16 groups in order; the second pass adds
-    the splits in order."""
+    the splits in order. With ``chunk`` (GMV_CHUNK), the chunked kernel's
+    arithmetic: one fp32 chain a chunk of the padded dim for the cross
+    products and the norms, the chunks' sums added in fp64, d2 in fp64,
+    K = exp(-gamma fp32(d2)) rounded to fp32."""
     x1, x2, v = (torch.as_tensor(a) for a in (x1, x2, v))
     m, d = x1.shape
+    ranges = _chain_chunks(d, chunk)
+    dp = max([r.stop for r in ranges] + [d])
+    wide = torch.float32 if chunk is None else torch.float64
     n = x2.shape[0]
     per_split, splits = gmv.split_plan(m, n)
     groups, ts = 16, gmv.TILE // 16
     width = splits * per_split * gmv.TILE
-    s = torch.zeros((width, d), dtype=torch.float32)
-    s[:n] = x2
+    s = torch.zeros((width, dp), dtype=torch.float32)
+    s[:n, :d] = x2
+    x1 = torch.cat([x1, x1.new_zeros((m, dp - d))], 1)
     vp = torch.zeros(width, dtype=torch.float64)
     vp[:n] = v.double()
 
     def norms(a):
-        sq = torch.zeros(a.shape[0], dtype=torch.float32)
-        for c in range(d):
-            sq = _fma32(a[:, c], a[:, c], sq)
+        sq = torch.zeros(a.shape[0], dtype=wide)
+        for cs in ranges:
+            part = torch.zeros(a.shape[0], dtype=torch.float32)
+            for c in cs:
+                if c < d:
+                    part = _fma32(a[:, c], a[:, c], part)
+            sq = sq + part.to(wide)
         return sq
 
     sqs = norms(s)
@@ -424,11 +458,14 @@ def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512):
     out = torch.empty(m, dtype=torch.float32)
     for lo in range(0, m, row_chunk):
         xr = x1[lo:lo + row_chunk]
-        cross = torch.zeros((xr.shape[0], width), dtype=torch.float32)
-        for c in range(d):
-            cross = _fma32(xr[:, c, None], s[None, :, c], cross)
+        cross = torch.zeros((xr.shape[0], width), dtype=wide)
+        for cs in ranges:
+            part = torch.zeros((xr.shape[0], width), dtype=torch.float32)
+            for c in cs:
+                part = _fma32(xr[:, c, None], s[None, :, c], part)
+            cross = cross + part.to(wide)
         d2 = torch.clamp((norms(xr)[:, None] + sqs[None, :]) - 2.0 * cross, min=0.0)
-        K = torch.exp((neg_gamma * d2).double()).float()
+        K = torch.exp((neg_gamma * d2.float()).double()).float()
         # support (split p, tile t, group g, k) at ((p * per_split + t) * 16 + g) * 4 + k
         prod = (vp[None, :] * K.double()).view(-1, splits, per_split, groups, ts)
         acc = torch.zeros(prod.shape[:2] + (groups,), dtype=torch.float64)
@@ -508,7 +545,11 @@ def _round_fp32(v: torch.Tensor, rounding: str) -> torch.Tensor:
     return f
 
 
-def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row_chunk=512):
+Q8_CHUNK = 128   # features a chunk of the chunked gram_q8 kernel stages (8 k steps)
+
+
+def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row_chunk=512,
+                               chunk=None):
     """``csrc/gram_q8.cu`` in plain PyTorch. The feature dim is padded with
     zeros to a multiple of 16. Per k step of 16 features, the hi, mid and
     lo planes of x * scale each meet q in one mma: 16 exact products (a
@@ -517,11 +558,15 @@ def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row
     x . zero are fmaf chains over ascending features, |s|^2 two fmaf chains
     over the halves of the padded range, added; d2 = max((|x|^2 + |s|^2) -
     2 cross, 0) in fp32 and exp(-gamma d2) (the kernel's ex2.approx is
-    within ~2^-22 of it)."""
+    within ~2^-22 of it). With ``chunk`` (Q8_CHUNK), the chunked kernel's
+    order: the k steps chunk after chunk into the same accumulator, each
+    half's norm chain carried across the chunks."""
     x, q, scale, zero = (torch.as_tensor(a) for a in (x, q, scale, zero))
     m, d = x.shape
     n = q.shape[0]
     kp = -(-d // Q8_KSTEP) * Q8_KSTEP
+    chunks = [range(0, kp)] if chunk is None else [
+        range(c0, min(c0 + chunk, kp)) for c0 in range(0, kp, chunk)]
     xs = torch.zeros((m, kp), dtype=torch.float32)
     xs[:, :d] = x * scale
     planes = [p.double() for p in q8_planes(xs)]
@@ -530,9 +575,11 @@ def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row
 
     s = q8.dequantize(q, scale, zero)
     halves = [torch.zeros(n, dtype=torch.float32) for _ in range(2)]
-    for c in range(d):
-        h = int(c >= kp // 2)
-        halves[h] = _fma32(s[:, c], s[:, c], halves[h])
+    for cs in chunks:
+        for c in cs:
+            if c < d:
+                h = int(c >= kp // 2)
+                halves[h] = _fma32(s[:, c], s[:, c], halves[h])
     sqs = halves[0] + halves[1]
     sqx = torch.zeros(m, dtype=torch.float32)
     xz = torch.zeros(m, dtype=torch.float32)
@@ -544,10 +591,11 @@ def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row
     for lo in range(0, m, row_chunk):
         rows = slice(lo, lo + row_chunk)
         acc = torch.zeros((len(xs[rows]), n), dtype=torch.float32)
-        for k in range(0, kp, Q8_KSTEP):
-            qk = qd[:, k:k + Q8_KSTEP].T
-            for plane in planes:
-                acc = _round_fp32(acc.double() + plane[rows, k:k + Q8_KSTEP] @ qk, rounding)
+        for cs in chunks:
+            for k in range(cs.start, cs.stop, Q8_KSTEP):
+                qk = qd[:, k:k + Q8_KSTEP].T
+                for plane in planes:
+                    acc = _round_fp32(acc.double() + plane[rows, k:k + Q8_KSTEP] @ qk, rounding)
         cross = acc + xz[rows, None]
         d2 = torch.clamp((sqx[rows, None] + sqs[None, :]) - 2.0 * cross, min=0.0)
         out[rows] = torch.exp(-float(gamma) * d2.double()).float()
@@ -635,12 +683,17 @@ def test_gram_q8_constants_match_the_kernel():
                  "constexpr int WN = 32;", "constexpr int BLOCKS_PER_SM = 3;",
                  f"constexpr int PLANES = {Q8_PLANES};",
                  f"constexpr int KSTEP = {Q8_KSTEP};",
-                 f"constexpr int MAX_KSTEPS = {q8.MAX_D // Q8_KSTEP};"):
+                 f"constexpr int MAX_KSTEPS = {q8.STAGED_D // Q8_KSTEP};",
+                 "constexpr int CK = MAX_KSTEPS * KSTEP;"):
         assert line in src, line
-    # hi, mid, lo into one accumulator, k step after k step
-    assert "for (int ks = 0; ks < KSTEPS; ++ks)" in src
-    assert src.index("for (int ks = 0; ks < KSTEPS; ++ks)") < src.index(
-        "for (int p = 0; p < PLANES; ++p)")
+    # hi, mid, lo into one accumulator, k step after k step: one k step
+    # (mma_kstep) runs the three planes, and both kernels call it k step by
+    # k step, the chunked one chunk after chunk
+    step = src[src.index("void mma_kstep("):src.index("void store_tile(")]
+    assert "for (int p = 0; p < PLANES; ++p)" in step
+    assert "for (int ks = 0; ks < KSTEPS; ++ks) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);" in src
+    assert "for (int ch = 0; ch < chunks; ++ch)" in src
+    assert "if (ks < ksteps) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);" in src
     # one wave of three resident blocks an SM, as __launch_bounds__ promises
     assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src and q8.TARGET_BLOCKS == 3 * 132
 
@@ -867,3 +920,186 @@ def test_gram_constants_match_the_kernel():
     for rows in bg.ROW_TILES:
         for staged in bg.STAGED:
             assert _gram_smem_bytes(rows, staged) + 1024 <= 232448
+
+
+# ----------------------------------------------------------------------
+# the wide paths: where each launcher leaves its staged kernel, and the
+# chunked orders at d 784
+# ----------------------------------------------------------------------
+
+MAX_SMEM = 232448   # shared memory a block may take on sm_90 (native.MAX_SMEM_BYTES)
+
+
+def _row_stride(d):
+    """ensemble_score.cu's and gram_matvec.cu's row_stride: d padded to a
+    float4, then to an odd number of float4s."""
+    dp = -(-d // 4) * 4
+    return dp if (dp // 4) % 2 else dp + 4
+
+
+def ens_smem_bytes(d):
+    """ensemble_score.cu's smem_bytes: the staged partials kernel."""
+    bq, en, warps, red_ld, fast_d = 128, ens.SUPPORT_TILE, 8, 17, 32
+    support = max(2 * en * _row_stride(d), bq * red_ld)
+    raw = 2 * warps * (8 * fast_d + 2 * fast_d * 4) if d == fast_d else 0
+    return 4 * (bq * _row_stride(d) + support + 4 * en) + raw
+
+
+ENS_CHUNKED_BYTES = 4 * (2 * (128 + 64) * (GMV_CHUNK + 4) + 4 * 64 + 128)
+
+
+def gmv_smem_bytes(d):
+    """gram_matvec.cu's smem_bytes: the staged kernel."""
+    bq, tile, red_ld = gmv.ROWS, gmv.TILE, 17
+    support = max(2 * tile * _row_stride(d), 2 * bq * red_ld)
+    return 4 * (bq * _row_stride(d) + support + 4 * tile) + 8 * 2 * tile
+
+
+GMV_CHUNKED_BYTES = 4 * 2 * (128 + 64) * (GMV_CHUNK + 4) + 8 * 2 * 64 + 8 * 128
+
+
+def q8_staged_bytes(ksteps):
+    """gram_q8.cu's Layout<KSTEPS>::BYTES."""
+    kp = ksteps * Q8_KSTEP
+    ld = kp + 8
+    return (2 * (3 * q8.ROWS * ld + 2 * q8.TILE * ld) + 2 * q8.TILE * kp
+            + 4 * (2 * q8.TILE + 2 * q8.ROWS + 2 * kp))
+
+
+Q8_CHUNKED_BYTES = 2 * (3 * 64 + 128) * (Q8_CHUNK + 8) + 4 * (128 + 2 * 64 + 2 * Q8_CHUNK)
+
+
+def sdca_smem_bytes(b):
+    """sdca.cu's smem_bytes: the tile blocks, then v (fp64), alpha and y."""
+    return SDCA_BLOCK_BYTES + 8 * b + 4 * 2 * b
+
+
+SDCA_BLOCK_BYTES = 8 * (2 * 32 + 4 * 32 * 33)   # what the global instantiation keeps
+
+
+def test_wide_smem_formulas_match_the_sources():
+    """The mirrors above are the sources' formulas, term for term."""
+    src = {name: (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").read_text()
+           for name in ("ensemble_score", "gram_matvec", "gram_q8", "sdca")}
+    assert "return 4 * floats + (d == FAST_D ? 2 * WARPS * RAW_WARP : 0);" in src["ensemble_score"]
+    assert ("constexpr int chunked_smem_bytes() { return 4 * (2 * (BQ + EN) * CLD + 4 * EN + BQ); }"
+            in src["ensemble_score"])
+    assert ("return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;"
+            in src["gram_matvec"])
+    assert ("constexpr int chunked_smem_bytes() { return 4 * 2 * (BQ + TILE) * CLD + 8 * 2 * TILE + 8 * BQ; }"
+            in src["gram_matvec"])
+    for name in ("ensemble_score", "gram_matvec"):
+        assert f"constexpr int DC = {GMV_CHUNK};" in src[name]
+        assert "constexpr int CLD = DC + 4;" in src[name]
+    assert f"constexpr int MAX_SMEM = {MAX_SMEM};" in src["ensemble_score"]
+    assert "chunked || smem_bytes(d) > MAX_SMEM" in src["ensemble_score"]
+    # gram_matvec leaves its staged kernel past one chunk's features
+    assert "  if (d > DC)\n    return launch_chunked(" in src["gram_matvec"]
+    assert "2 * (XP + BQ) + RAW + 4 * (2 * BN + 2 * BM + 2 * KP);" in src["gram_q8"]
+    assert "static constexpr int BYTES = 2 * (XP + BT) + 4 * (BN + 2 * BM + 2 * CK);" in src["gram_q8"]
+    assert "return block_bytes() + static_cast<int>(sizeof(double)) * b +" in src["sdca"]
+    assert "return static_cast<int>(sizeof(double)) * (2 * TILE + 4 * TILE * LD);" in src["sdca"]
+    assert f"constexpr int MAX_SMEM = {MAX_SMEM};" in src["sdca"]
+    assert "if (smem_bytes(b) <= MAX_SMEM)" in src["sdca"]
+
+
+def test_staged_paths_are_chosen_exactly_where_they_fit_today():
+    """The scorers keep their staged kernels up to d 220 (where their tiles
+    fit), gram_matvec up to d 64 (one chunk's chain; its tiles would fit to
+    220), gram_q8 up to d 128 (its k-step instantiations), SDCA its shared
+    arrays up to bucket 12,352 of the engine's 64-row quantum: every shape
+    of today's paths (d 8 to 37, buckets to 2,048) keeps its kernel and its
+    bits."""
+    staged_ens = [d for d in range(1, 4097) if ens_smem_bytes(d) <= MAX_SMEM]
+    staged_gmv = [d for d in range(1, 4097) if d <= GMV_CHUNK and gmv_smem_bytes(d) <= MAX_SMEM]
+    assert staged_ens == list(range(1, 221))
+    assert [d for d in range(1, 4097) if gmv_smem_bytes(d) <= MAX_SMEM] == list(range(1, 221))
+    assert staged_gmv == list(range(1, 65))
+    assert q8.STAGED_D == 128 and all(q8_staged_bytes(k) <= MAX_SMEM for k in range(1, 9))
+    shared = [b for b in range(64, 65_537, 64) if sdca_smem_bytes(b) <= MAX_SMEM]
+    assert shared == list(range(64, 12_353, 64))
+    assert sdca_smem_bytes(12_416) > MAX_SMEM
+
+
+def test_chunked_and_global_instantiations_fit_every_shape():
+    """The chunked kernels' shared memory does not depend on d, nor the
+    global SDCA's on b: one size for every d up to 4,096 and every bucket
+    up to 65,536, within a block's 227 KB, and two blocks an SM for the
+    two chunked kernels that promise two (__launch_bounds__(THREADS, 2);
+    1 KB an SM is the runtime's)."""
+    for bytes_ in (ENS_CHUNKED_BYTES, Q8_CHUNKED_BYTES):
+        assert 2 * (bytes_ + 1024) <= 233_472
+    assert GMV_CHUNKED_BYTES <= MAX_SMEM
+    assert SDCA_BLOCK_BYTES <= MAX_SMEM
+    # every shape past the staged limits goes to these
+    assert all(ens_smem_bytes(d) > MAX_SMEM for d in range(221, 4097))
+    assert all(sdca_smem_bytes(b) > MAX_SMEM for b in range(12_416, 65_537, 64))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_rows(d, rows=512):
+    """Rows of the emnist federation at feature dim d (``make_emnist_like``'s
+    ``dim``), pooled over devices: the round's data at that width."""
+    from repro_torch.data.federated import make_emnist_like
+
+    ds = make_emnist_like(seed=0, scale=0.02, dim=d)
+    x = np.concatenate([dev.x for dev in ds.devices])
+    return np.ascontiguousarray(x[:rows]), np.ascontiguousarray(x[rows:2 * rows])
+
+
+WIDE_DS = [64, 220, 784]
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_gram_matvec_chunked_order(d):
+    """The chunked kernel's arithmetic (fp32 chains of 64 features, their
+    sums and d2 in fp64) within the registry's 1e-5 of the plain version
+    on emnist rows at default_gamma, and within it of the staged kernel's
+    one fp32 chain (which runs to d 64, and could to 220)."""
+    x1, x2 = _wide_rows(d)
+    v = _rng("gmv-wide", d).normal(size=len(x2)).astype(np.float32)
+    gamma = float(1.0 / (d * x1.var()))
+    tol = ops.KERNEL_REGISTRY["gram_matvec"].tol
+    chunked = gram_matvec_emulated(x1, x2, v, gamma, chunk=GMV_CHUNK)
+    want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (x1, x2, v)), gamma)
+    assert bool(torch.isfinite(chunked).all())
+    assert float((chunked - want).abs().max()) <= tol
+    if d <= 220:
+        assert float((chunked - gram_matvec_emulated(x1, x2, v, gamma)).abs().max()) <= tol
+
+
+def test_gram_matvec_one_chain_drifts_at_d784():
+    """Why the chunked kernel does not continue the staged kernel's one fp32
+    chain: at the CG's l = 4,096 on normals (chip_smoke.py's "cg" case at d
+    784), that chain drifts past the registry's 1e-5 from the plain version
+    where the chunked arithmetic stays well within it. Rows 0-255 of the
+    4,096, against all 4,096 supports."""
+    d, l, rows = 784, 4096, 256
+    rng = _rng("cg-normals-wide")
+    xp = rng.normal(size=(l, d)).astype(np.float32)
+    v = rng.normal(size=l).astype(np.float32)
+    gamma = float(1.0 / (d * xp.var()))
+    want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (xp[:rows], xp, v)), gamma)
+    one_chain = gram_matvec_emulated(xp[:rows], xp, v, gamma)
+    chunked = gram_matvec_emulated(xp[:rows], xp, v, gamma, chunk=GMV_CHUNK)
+    tol = ops.KERNEL_REGISTRY["gram_matvec"].tol
+    assert float((one_chain - want).abs().max()) > tol
+    assert float((chunked - want).abs().max()) <= tol / 2
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_rbf_gram_q8_chunked_order(d):
+    """The chunked gram_q8 order within the registry's 1e-5 of the plain
+    version on emnist rows against int8 supports as the codec sends them,
+    and the staged order's bits at d 64 and 220."""
+    from repro_torch.comm.wire import _quantize_columns
+
+    x, sup = _wide_rows(d)
+    q, scale, zero = _quantize_columns(sup)
+    gamma = float(1.0 / (d * sup.var()))
+    chunked = rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, chunk=Q8_CHUNK)
+    want = q8.rbf_gram_q8_plain(*(torch.from_numpy(a) for a in (x, q, scale, zero)), gamma)
+    assert bool(torch.isfinite(chunked).all())
+    assert float((chunked - want).abs().max()) <= ops.KERNEL_REGISTRY["rbf_gram_q8"].tol
+    if d <= 220:
+        assert torch.equal(chunked, rbf_gram_q8_split_emulated(x, q, scale, zero, gamma))
