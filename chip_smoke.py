@@ -6,20 +6,24 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 It imports the port and nothing of JAX or of the reference package
-``repro``, and runs seventeen phases, each printing one JSON line on stdout:
+``repro``, and runs eighteen phases, each printing one JSON line on stdout:
 
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-           for sm_90a, one ``nvcc`` per source, all started together; count
-           the tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-           instructions in the compiled code (``cuobjdump -sass``): the
-           bf16 flash kernel, ``rbf_gram_q8``'s ``gram_q8`` and the fp32
-           Grams' ``gram`` must have all three, the scorers and
-           ``gram_matvec`` LDGSTS;
+           for sm_90a, one ``nvcc`` per source, all started together (the
+           kernel cases are drawn in a thread meanwhile); count the
+           tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+           instructions in the compiled code (``cuobjdump -sass``, one per
+           library, all at once): the bf16 and fp16 flash kernels,
+           ``rbf_gram_q8``'s ``gram_q8`` and the fp32 Grams' ``gram`` must
+           have all three, the scorers and ``gram_matvec`` LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
            and bf16 (the tensor-core ``flash_attention_tc.cu``) at head dims
-           32, 64 and 128, 1, 4 and 6 query heads per KV head, causal,
+           32, 64 and 128, and in fp32, bf16 and fp16 at Phi-3-mini's
+           prefill (hd 96, window 2,047), Gemma-2B's attention (hd 256,
+           8 heads on 1 KV head) and hd 512 (the chunked kernels), 1, 4 and
+           6 query heads per KV head, causal,
            causal with a window, non-causal, ragged lengths, the serve
            shape and the ``families`` prefills (hd 128, 4 and 8 query
            heads per KV head; llava's 4 x 4,928 positions, causal;
@@ -69,25 +73,6 @@ It imports the port and nothing of JAX or of the reference package
            distillation on cuda and on cpu: equal ledgers (the student's
            download included), selected ids and best k, AUCs (the
            distilled one included) within 1e-4;
-  main     ``run_protocol`` on the full-scale emnist federation on cuda
-           (``benchmarks/fig1_mean_auc.py``'s setting): the seconds of each
-           ``round.*`` span, the AUCs, and each kernel's launches in that
-           run, all four of the fp32 round's kernels > 0; then the same
-           round once more under ``torch.profiler`` for the device's busy
-           share and the device time of ``batched_rbf_gram`` (its 39
-           launches) and ``rbf_gram`` beside the bound of the round's own
-           launch shapes (``ops.round_gram_launches``); then the same round
-           with ``engine="sharded"`` in this process, a one-rank ``nccl``
-           world started by ``launch.mesh.make_sim_mesh``: one shard,
-           ``round_signature`` and every AUC bitwise the bucketed round's,
-           ``batched_rbf_gram`` and ``sdca`` launched, its seconds and
-           ``engine.gather`` spans beside the bucketed round's;
-  main_q8  the same federation with the int8 codec and CG distillation on
-           4,096 validation-pool proxy rows: spans (``distill.round``
-           included), AUCs (the distilled student's included), the
-           student's support count and codec, and each kernel's launches,
-           all seven > 0, ``gram_matvec``'s equal to the CG iterations;
-           then once more under the profiler;
   population  ``run_population`` (``sim/population.py``) at d 16: (a)
            parity on 2,048 devices, an availability federation (base
            dirichlet) in int8 under a binding 30,000-byte budget and a
@@ -109,7 +94,28 @@ It imports the port and nothing of JAX or of the reference package
            iterations); then a 10,000-device round of the same setting
            under the profiler (busy share); (c) the traced
            host peak (``tracemalloc``) of the streamed pass alone at 25,000
-           and 100,000 devices: under 64 MiB and flat;
+           and 100,000 devices, each in a spawned worker started as soon
+           as the build is done, beside ``kernels``, ``parity`` and (a)
+           ((b) waits for them): under 64 MiB and flat;
+  main     ``run_protocol`` on the full-scale emnist federation on cuda
+           (``benchmarks/fig1_mean_auc.py``'s setting): the seconds of each
+           ``round.*`` span, the AUCs, and each kernel's launches in that
+           run, all four of the fp32 round's kernels > 0; then the same
+           round once more under ``torch.profiler`` for the device's busy
+           share and the device time of ``batched_rbf_gram`` (its 39
+           launches) and ``rbf_gram`` beside the bound of the round's own
+           launch shapes (``ops.round_gram_launches``); then the same round
+           with ``engine="sharded"`` in this process, a one-rank ``nccl``
+           world started by ``launch.mesh.make_sim_mesh``: one shard,
+           ``round_signature`` and every AUC bitwise the bucketed round's,
+           ``batched_rbf_gram`` and ``sdca`` launched, its seconds and
+           ``engine.gather`` spans beside the bucketed round's;
+  main_q8  the same federation with the int8 codec and CG distillation on
+           4,096 validation-pool proxy rows: spans (``distill.round``
+           included), AUCs (the distilled student's included), the
+           student's support count and codec, and each kernel's launches,
+           all seven > 0, ``gram_matvec``'s equal to the CG iterations;
+           then once more under the profiler;
   agg      the aggregator zoo (``repro_torch.agg``): (a) ``main``'s emnist
            round at full width with ``fisher``, ``reweight`` and
            ``feature_stats`` in fp32 (``fisher`` once more under the
@@ -163,6 +169,30 @@ It imports the port and nothing of JAX or of the reference package
            and peak memory of that first serve, prefill and decode seconds
            and tokens/s of it (cold) and of a second serve (warm); then
            the same serve once more under the profiler;
+  head_dims  flash attention at every head dim and float type the
+           reference's kernel takes, and Phi-3-mini's widths
+           (hf:microsoft/Phi-3-mini-4k-instruct: d 3,072, 32 heads of hd
+           96, d_ff 8,192, vocab 32,064, window 2,047; the port's
+           ``ModelConfig``, not a configuration of the repo): (a) hd 1, 8,
+           24, 72, 80, 96, 100, 160, 192, 256, 320 and 512 in fp32, bf16
+           and fp16, causal, causal with a window, non-causal, non-causal
+           with a window on a ragged length, 1 and 4 query heads per KV
+           head, 200 and 333 rows; mixed types (bf16 q with fp32 k and v,
+           fp16 q with bf16 k), float64, a transposed q, a q 2 bytes off a
+           16-byte boundary, and B x H = 70,400 at S 3, hd 8: each within
+           its tolerance of the plain version (fp32 2e-5; bf16 and fp16
+           1e-4 + 2^-7 or 2^-10 |plain|), two launches bitwise equal, one
+           launch a call; (b) 2
+           layers in fp32, the flash kernel on cuda against its plain
+           version on cpu (in a spawned worker from the phase's start): 2
+           prompts of 200 tokens, 8 greedy tokens, equal tokens and
+           last-position logits within LM_LOGIT_TOL; (c) all 32 layers in
+           bf16 (3.82 B parameters) through ``serve_prompts``: 4 prompts of
+           2,048 tokens (the window masks key 0 at the last position), 32
+           greedy tokens, exactly 32 flash launches and no other kernel,
+           warm prefill seconds, decode ms a step, peak memory, and the
+           NLL of 4 windows of 2,049 tokens through the kernel within 2^-7
+           of plain attention's;
   train    the LM train step (``models.make_train_step``, ``launch/train.py``;
            no hand-written kernel runs in it: none has a backward, as no
            Pallas kernel of the reference has one): (a) llama3.2-1b at full
@@ -307,10 +337,13 @@ It imports the port and nothing of JAX or of the reference package
            (``roofline.H100_SXM_FP32``, 67 TFLOP/s fp32 outside the tensor
            cores; ``H100_SXM``, 989 TFLOP/s bf16 dense) and bytes (each
            input read once, each output written once) over 3.35 TB/s, the
-           H100 SXM's published peaks; flash attention also beside
+           H100 SXM's published peaks; flash attention (also at Phi-3-mini's
+           prefill in bf16 and fp16, at Gemma-2B's in bf16 and through the
+           chunked kernels at hd 512 in bf16 and fp32) also beside
            ``library_ms``, one call of
            ``torch.nn.functional.scaled_dot_product_attention`` on the same
-           tensors (a yardstick only: the port never calls it). SDCA's
+           tensors (with a window, its mask as a boolean ``attn_mask``; a
+           yardstick only: the port never calls it). SDCA's
            rows also give ns a step and a chain figure: the steps of the
            longest solve times one step's latency, from the kernel on a
            single 32-row tile;
@@ -328,7 +361,8 @@ for the four fp32 kernels, ``main_q8`` for the three int8/CG ones,
 kernel's launches in the ``fleet`` phase's runs (1)-(3) as
 ``launches_fleet``, in ``train`` (b)'s steps as ``launches_train``, in
 ``train`` (c)'s sharded prefill and decode as ``launches_mesh``, in
-``deep`` (b)'s round as ``launches_deep``, in ``families`` (b)'s
+``deep`` (b)'s round as ``launches_deep``, in ``head_dims`` (c)'s
+counted serve as ``launches_head_dims``, in ``families`` (b)'s
 counted serves as ``launches_families``, in the ``cli`` runs on
 cuda as ``launches_cli``, in ``main``'s sharded round as
 ``launches_sharded`` and in ``wide`` (b)-(d) as ``launches_wide``;
@@ -345,6 +379,7 @@ the detailed timings there as JSON.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import datetime
@@ -360,8 +395,8 @@ from pathlib import Path
 from statistics import fmean as mean
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "main_q8", "population", "agg", "wide", "lm_parity",
-          "serve", "train", "deep", "families", "cli", "fleet", "timing", "profile")
+PHASES = ("build", "kernels", "parity", "population", "main", "main_q8", "agg", "wide", "lm_parity",
+          "serve", "head_dims", "train", "deep", "families", "cli", "fleet", "timing", "profile")
 AUC_TOL = 1e-4                    # the reference's engine-tier tolerance
 MAIN_KS = (1, 10, 50, 100)        # fig1_mean_auc.py's ks at emnist scale
 FLEET_BUCKETS = (8, 32, 256)      # the fleet's two buckets and ServeConfig()'s largest
@@ -394,6 +429,18 @@ FLASH_SHAPES = (
     # 1,500 frames, non-causal and ragged against the 128-row tile
     ("llava prefill b4 s4928 h32 k8 hd128 causal", (4, 4928, 32, 8, 128), True, 0),
     ("whisper encoder b4 s1500 h8 k8 hd64 non-causal", (4, 1500, 8, 8, 64), False, 0),
+)
+# head dims outside the four the kernels took before: Phi-3-mini's prefill
+# (hd 96, its window of 2,047 masking key 0 at the last position),
+# Gemma-2B's attention (hf:google/gemma-2b: hd 256, 8 heads on 1 KV head)
+# and hd 512 (the chunked kernels, past every one-pass width), checked in
+# fp32, bf16 and fp16 and timed (the head_dims phase's sweep holds every
+# other head dim)
+FLASH_HD_SHAPES = (
+    ("phi3-mini prefill b4 s2048 h32 k32 hd96 causal window2047", (4, 2048, 32, 32, 96), True,
+     2047),
+    ("gemma prefill b4 s2048 h8 k1 hd256 causal", (4, 2048, 8, 1, 256), True, 0),
+    ("chunked b1 s2048 h8 k8 hd512 causal", (1, 2048, 8, 8, 512), True, 0),
 )
 
 
@@ -492,9 +539,9 @@ def kernel_cases(rng, ops):
         n_real = rng.integers(lo, hi + 1, size=g)
         return ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=n_real)
 
-    def flash(shape, causal, window, dtype):
+    def flash(shape, causal, window, dtype, r=rng):
         B, S, H, K, hd = shape
-        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+        q, k, v = (torch.from_numpy(r.normal(size=(B, S, h, hd)).astype(np.float32))
                    .to(dtype) for h in (H, K, K))
         return q, k, v, causal, window
 
@@ -565,6 +612,14 @@ def kernel_cases(rng, ops):
             (f"{label} {dt}", flash(shape, causal, window, getattr(torch, dt)))
             for dt in ("bfloat16", "float32")
             for label, shape, causal, window in FLASH_SHAPES
+        ] + [
+            # drawn at first use from a generator of their own (the same
+            # values in each type), so the cases above keep their data
+            (f"{label} {dt}", Lazy(functools.partial(flash, shape, causal, window,
+                                                     getattr(torch, dt),
+                                                     np.random.default_rng(shape[-1]))))
+            for dt in ("bfloat16", "float16", "float32")
+            for label, shape, causal, window in FLASH_HD_SHAPES
         ],
     }
     # the wide phase's shapes at d 784 (``wide_inputs``, drawn on the card;
@@ -595,14 +650,30 @@ def kernel_cases(rng, ops):
     return cases
 
 
+_CASES = {}   # "future": the cases being made in a thread while the build runs
+
+
+def start_cases(ops) -> None:
+    """Make ``shared_cases`` in a thread (~16 s of the host's time), beside
+    the build phase, whose host mostly waits on nvcc and cuobjdump."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    _CASES["future"] = pool.submit(_make_cases, ops)
+    pool.shutdown(wait=False)
+
+
 @functools.lru_cache(maxsize=1)
-def shared_cases(ops):
-    """``kernel_cases`` of a fresh ``default_rng(0)``, made once and shared
-    by the kernels, timing and profile phases (~16 s of the host's time
-    each)."""
+def _make_cases(ops):
     import numpy as np
 
     return kernel_cases(np.random.default_rng(0), ops)
+
+
+def shared_cases(ops):
+    """``kernel_cases`` of a fresh ``default_rng(0)``, made once and shared
+    by the kernels, timing and profile phases (``start_cases`` begins it
+    during the build)."""
+    future = _CASES.get("future")
+    return future.result() if future is not None else _make_cases(ops)
 
 
 def to_device(args, device):
@@ -626,16 +697,18 @@ def to_device(args, device):
 
 def agreement(spec, got, want):
     """(max |kernel - plain|, within tolerance, the tolerance): the
-    registry's tol in fp32; in bf16, compared in fp32, at most
-    BF16_ATOL + BF16_RTOL |plain| element by element."""
+    registry's tol in fp32; in bf16 and fp16, compared in fp32, at most
+    BF16_ATOL + BF16_RTOL |plain| (FP16_RTOL in fp16) element by
+    element."""
     import torch
 
     diff = (got.float() - want.float()).abs()
     err = float(diff.max()) if got.numel() else 0.0
     finite = bool(torch.isfinite(got).all())
-    if got.dtype == torch.bfloat16:
-        ok = bool((diff <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
-        return err, finite and ok, f"{BF16_ATOL} + 2^-7 |plain|"
+    if got.dtype in (torch.bfloat16, torch.float16):
+        atol, rtol = flash_tolerance(got.dtype)
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        return err, finite and ok, f"{atol} + 2^{int(math.log2(rtol))} |plain|"
     return err, finite and err <= spec.tol, spec.tol
 
 
@@ -645,7 +718,8 @@ def agreement(spec, got, want):
 
 # SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
 SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
-SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
+SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"),
+                 "flash_attention_tc_f16": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
                  "gram_matvec": ("LDGSTS",), "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
                  "gram": ("HMMA", "LDSM", "LDGSTS")}
 
@@ -665,7 +739,8 @@ def phase_build(native):
     logs = native.build_all()
     secs = time.perf_counter() - t0
     libs = sorted(p.name for p in native.build_dir().glob("lib*.so"))
-    sass = {name: sass_counts(native, name) for name in SASS_REQUIRED}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(SASS_REQUIRED)) as pool:
+        sass = dict(zip(SASS_REQUIRED, pool.map(lambda n: sass_counts(native, n), SASS_REQUIRED)))
     missing = [f"{name}: {op}" for name, ops in SASS_REQUIRED.items() for op in ops
                if sass[name][op] == 0]
     if missing:
@@ -700,7 +775,7 @@ def phase_kernels(ops, device, names):
             err, ok, tol = agreement(spec, got, want)
             results.append({"kernel": name, "case": label, "shape": list(got.shape),
                             "max_abs_err": err, "tol": tol, "ok": ok})
-            key = name + "/bf16" if got.dtype == torch.bfloat16 else name
+            key = name + {torch.bfloat16: "/bf16", torch.float16: "/fp16"}.get(got.dtype, "")
             errs[key] = max(errs.get(key, 0.0), err)
             if not ok:
                 failed.append(f"{name} [{label}]: max |kernel - plain| = {err} (tol {tol})")
@@ -1213,18 +1288,51 @@ def population_memory(sim, device, n_devices, chunk):
             "seconds": time.perf_counter() - t0}
 
 
-def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMORY_DEVICES):
+def population_memory_worker(n_devices, chunk):
+    """``population_memory`` in a spawned worker: its own process, so its
+    own ``tracemalloc`` peak, on two torch threads (it runs beside the
+    main process's phases)."""
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.utils.device import resolve_device
+
+    torch.set_num_threads(2)
+    return population_memory(sim, resolve_device("cuda"), n_devices, chunk)
+
+
+def start_population_memory(memory_devices=POP_MEMORY_DEVICES):
+    """(pool, futures): ``population_memory`` at each of ``memory_devices``
+    in a spawned worker of its own. ``main`` starts them as soon as the
+    kernels are built, so they run beside the phases that check values,
+    not times (``kernels``, ``parity``, ``population`` (a))."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(memory_devices), mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(population_memory_worker, n, POP_SCALE["chunk_devices"])
+                  for n in memory_devices]
+
+
+def phase_population(ops, trace, DistillConfig, device, memory=None):
     """(a) parity, (b) the 100,000-device streamed dirichlet round at full
     width (d 16) on cuda with CG distillation on 4,096 ``scenario`` proxy
     rows, then a POP_PROFILE_DEVICES-device round of the same setting under
     the profiler, (c) the streamed pass's traced host memory at
-    ``memory_devices``."""
+    POP_MEMORY_DEVICES, from the workers of ``memory``
+    (``start_population_memory``; started here when not given); (b)
+    starts when they are done."""
     import numpy as np
     import torch
 
     from repro_torch import sim
 
-    out = {"parity": population_parity(sim, trace, DistillConfig)}
+    pool, futures = memory or start_population_memory()
+    with pool:
+        out = {"parity": population_parity(sim, trace, DistillConfig)}
+        t0 = time.perf_counter()
+        memory = [f.result() for f in futures]
+        memory_wait = time.perf_counter() - t0
 
     cfg = sim.PopulationConfig(**POP_SCALE, distill=DistillConfig(
         proxy_size=4096, solver="cg", proxy="scenario"))
@@ -1282,11 +1390,10 @@ def phase_population(ops, trace, DistillConfig, device, memory_devices=POP_MEMOR
     scale["profile"]["devices"] = POP_PROFILE_DEVICES
     out["scale"] = scale
 
-    memory = [population_memory(sim, device, n, POP_SCALE["chunk_devices"])
-              for n in memory_devices]
     small, large = (m["host_peak_bytes"] for m in memory)
     out["memory"] = {"runs": memory, "budget_bytes": POP_MEMORY_BUDGET,
-                     "flat": large < max(1.5 * small, small + 8 * 2**20)}
+                     "flat": large < max(1.5 * small, small + 8 * 2**20),
+                     "wait_after_parity_seconds": memory_wait}
     if not large < POP_MEMORY_BUDGET:
         raise AssertionError(f"population memory: peak {large} bytes over the "
                              f"{POP_MEMORY_BUDGET}-byte budget")
@@ -2166,6 +2273,297 @@ def phase_serve(ops, device):
                              f"times, want one per layer ({cfg.n_layers})")
     if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
         raise AssertionError("serve: a repeat of the serve generated other tokens")
+    return out
+
+
+# the head_dims phase: flash attention at every head dim and float dtype
+# the reference takes, and Phi-3-mini's widths (hd 96) served on the card
+# (hf:microsoft/Phi-3-mini-4k-instruct, config.json; built here with the
+# port's ModelConfig, not one of the repo's configurations)
+PHI3_MINI = dict(name="phi3-mini-4k", family="dense", n_layers=32, d_model=3072, n_heads=32,
+                 n_kv_heads=32, head_dim=96, d_ff=8192, vocab=32064, rope_theta=10000.0,
+                 rms_eps=1e-5, sliding_window=2047,
+                 source="hf:microsoft/Phi-3-mini-4k-instruct (config.json)")
+HD_SWEEP = (1, 8, 24, 72, 80, 96, 100, 160, 192, 256, 320, 512)
+HD_DTYPES = ("float32", "bfloat16", "float16")
+# (label, (B, Sq, Skv, H, K), causal, window): 1 and 4 query heads per KV
+# head, lengths off the 64- and 128-row tiles
+HD_MASKS = (
+    ("causal rep4 s200", (1, 200, 200, 4, 1), True, 0),
+    ("causal window77 rep1 s333", (2, 333, 333, 2, 2), True, 77),
+    ("non-causal rep1 s200", (1, 200, 200, 2, 2), False, 0),
+    ("non-causal window50 rep4 s333 ragged", (1, 333, 333, 4, 1), False, 50),
+)
+HD_PARITY = dict(n_layers=2, batch=2, prompt=200, gen=8)   # (b): lm_parity's sizes
+HD_CPU_THREADS = 4                                         # (b)'s cpu worker
+# a 16-bit output keeps 8 (bf16) or 11 (fp16) significant bits: two fp32
+# results a rounding error apart may round one step apart, at most 2^-7 or
+# 2^-10 of the value; the absolute term covers the fp32 difference near 0
+FP16_RTOL = 2.0 ** -10
+# (c): the whole model's logits through the kernel against plain
+# attention's, the largest gap over the largest |logit|. Both routes round
+# every layer's output to bf16 (a step is 2^-8 to 2^-7 of a value), so 32
+# layers apart they differ by a few steps at the logits' scale: the bar
+# leaves room for a few more, and a layer whose attention output is lost
+# moves the logits by far more
+PHI3_LOGIT_RTOL = 2.0 ** -4
+
+
+def flash_tolerance(dtype):
+    """(atol, rtol) of the kernel against its plain version in the output
+    type: fp32 (and fp64, computed in fp32) the registry's 2e-5; bf16 and
+    fp16 1e-4 + 2^-7 or 2^-10 of the plain value."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return BF16_ATOL, BF16_RTOL
+    if dtype == torch.float16:
+        return BF16_ATOL, FP16_RTOL
+    return 2e-5, 0.0
+
+
+def flash_case(ops, q, k, v, causal, window):
+    """One call of the kernel against its plain version on the same card
+    tensors: launches of the call, two launches bitwise equal, the largest
+    error and whether every element is within its tolerance."""
+    import torch
+
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    before = spec.counter.count
+    got = spec.kernel(q, k, v, causal, window)
+    launches = spec.counter.count - before
+    again = spec.kernel(q, k, v, causal, window)
+    want = spec.plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    atol, rtol = flash_tolerance(got.dtype)
+    diff = (got.float() - want.float()).abs()
+    ok = (got.dtype == want.dtype == q.dtype and got.shape == want.shape
+          and bool(torch.isfinite(got).all())
+          and bool((diff <= atol + rtol * want.float().abs()).all()))
+    return {"max_abs_err": float(diff.max()), "tol": [atol, rtol], "ok": ok,
+            "bitwise_twice": bool(torch.equal(got, again)), "launches": launches}
+
+
+def head_dim_sweep(ops, device):
+    """(a) every hd of HD_SWEEP in fp32, bf16 and fp16 under every mask of
+    HD_MASKS, then mixed types, float64, a transposed q, a bf16 q 2 bytes
+    off a 16-byte boundary and B x H past 65,535; every case within its
+    tol, two launches bitwise equal, one launch a call."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(30)
+
+    def draw(B, S, h, hd):
+        return torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32)).to(device)
+
+    rows, failed = [], []
+
+    def run(label, q, k, v, causal, window):
+        row = {"case": label, "q": [str(q.dtype), list(q.shape)], "k": str(k.dtype),
+               **flash_case(ops, q, k, v, causal, window)}
+        rows.append(row)
+        if not (row["ok"] and row["bitwise_twice"] and row["launches"] == 1):
+            failed.append(f"{label}: {row}")
+
+    for hd in HD_SWEEP:
+        for mask, (B, Sq, Skv, H, K), causal, window in HD_MASKS:
+            q32, k32, v32 = draw(B, Sq, H, hd), draw(B, Skv, K, hd), draw(B, Skv, K, hd)
+            for dt in HD_DTYPES:
+                dtype = getattr(torch, dt)
+                run(f"hd{hd} {mask} {dt}", q32.to(dtype), k32.to(dtype), v32.to(dtype), causal,
+                    window)
+    for hd in (24, 96, 320):
+        q32, k32, v32 = draw(1, 200, 4, hd), draw(1, 200, 2, hd), draw(1, 200, 2, hd)
+        run(f"hd{hd} mixed bf16 q fp32 k v", q32.bfloat16(), k32, v32, True, 0)
+        run(f"hd{hd} mixed fp16 q bf16 k fp32 v", q32.half(), k32.bfloat16(), v32, True, 33)
+        run(f"hd{hd} float64", q32.double(), k32.double(), v32.double(), False, 0)
+        # (B, H, S, hd) storage seen as (B, S, H, hd): a non-contiguous view
+        qt = draw(1, 4, 200, hd).transpose(1, 2)
+        if qt.is_contiguous():
+            raise AssertionError("head_dims (a): the transposed q is contiguous")
+        run(f"hd{hd} transposed q bf16", qt.bfloat16(), k32.bfloat16(), v32.bfloat16(), True, 0)
+        for dt in ("bfloat16", "float16"):
+            dtype = getattr(torch, dt)
+            buf = torch.empty(q32.numel() + 8, dtype=dtype, device=device)
+            off = buf[1:1 + q32.numel()].view(q32.shape)   # 2 bytes off 16
+            off.copy_(q32.to(dtype))
+            run(f"hd{hd} q 2 bytes off 16 {dt}", off, k32.to(dtype), v32.to(dtype), True, 0)
+    # B x H = 1,100 x 64 = 70,400 (B, H past one grid dimension's 65,535)
+    q32, k32, v32 = draw(1100, 3, 64, 8), draw(1100, 3, 16, 8), draw(1100, 3, 16, 8)
+    for dt in HD_DTYPES:
+        dtype = getattr(torch, dt)
+        run(f"b1100 h64 k16 s3 hd8 {dt}", q32.to(dtype), k32.to(dtype), v32.to(dtype), True, 0)
+    errs = {}
+    for row in rows:
+        key = row["q"][0].replace("torch.", "")
+        errs[key] = max(errs.get(key, 0.0), row["max_abs_err"])
+    if failed:
+        raise AssertionError("head_dims (a): " + "; ".join(failed))
+    return {"cases": len(rows), "max_abs_err": errs, "rows": rows}
+
+
+def phi3_config(**kw):
+    """Phi-3-mini's widths as the port's ModelConfig (PHI3_MINI), with the
+    flash kernel (``use_pallas``)."""
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(**{**PHI3_MINI, "use_pallas": True, **kw})
+
+
+def phi3_serve_run(device, threads=0):
+    """(b)'s one side: Phi-3-mini's widths at HD_PARITY's depth in fp32,
+    parameters drawn on the cpu from seed 0 (so both sides hold the same
+    values), 2 prompts of 200 tokens and 8 greedy tokens through
+    ``serve_prompts``, then the prompts' prefill logits: (tokens, last
+    logits, seconds, flash launches). The cpu side runs in a spawned
+    worker (``threads`` torch threads) beside (a)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_federated_lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import forward_prefill, init_cache, init_params
+
+    if threads:
+        torch.set_num_threads(threads)
+    p = HD_PARITY
+    cfg = phi3_config(n_layers=p["n_layers"], dtype=torch.float32)
+    clients = make_federated_lm_data(p["batch"], cfg.vocab, p["prompt"] + 8, seed=0)
+    prompts = np.stack([c[:p["prompt"]] for c in clients]).astype(np.int32)
+    params = init_params(cfg, seed=0, device="cpu").to(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tokens, _ = serve_prompts(cfg, params, prompts, gen=p["gen"])
+        logits, _ = forward_prefill(params, cfg, {"tokens": prompts},
+                                    init_cache(cfg, p["batch"], p["prompt"], device=device))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return (tokens, logits.float().cpu().numpy(), time.perf_counter() - t0,
+            ops.launch_counts()["flash_attention"])
+
+
+def phi3_full(ops, device):
+    """(c) Phi-3-mini whole (32 layers, 3.82 B parameters) in bf16 with the
+    flash kernel through ``serve_prompts``: 4 prompts of 2,048 tokens (the
+    window of 2,047 masks key 0 at the last position), 32 greedy tokens,
+    cold (counted: one flash launch a layer) and warm; then the NLL of 4
+    windows of 2,049 tokens (2,048 fed: the window masks there too)
+    through ``forward_train`` with the kernel and with plain attention."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve_prompts
+    from repro_torch.models import (cache_nbytes, cache_spec, forward_train, init_params, lm_loss,
+                                    param_count)
+
+    cfg = phi3_config()
+    _free_card()
+    steps = {}
+    steps["init"], params = _sync_seconds(lambda: init_params(cfg, seed=0, device=device))
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = _prompts(cfg.vocab)
+    kv_len = SERVE_PROMPT + SERVE_GEN + 1
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    wall, (tokens, sched) = _sync_seconds(lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    steps["warm_serve"], (warm_tokens, warm_sched) = _sync_seconds(
+        lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    cold, warm = sched.score_fn.timings[0], warm_sched.score_fn.timings[0]
+    windows = torch.from_numpy(_prompts(cfg.vocab, SERVE_PROMPT + 1)).to(device).long()
+    nll, logits = {}, {}
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas=False))):
+        with torch.no_grad():
+            steps["nll_" + name], (logits[name], _) = _sync_seconds(
+                lambda c=c: forward_train(params, c, {"tokens": windows[:, :-1]}))
+        nll[name] = float(lm_loss(logits[name], windows[:, 1:]))
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(logits["kernel"], logits["plain"]))
+    scale = max(float(b.float().abs().max()) for b in logits["plain"])
+    del logits, params
+    _free_card()
+    out = {
+        "config": {k: v for k, v in PHI3_MINI.items()}, "dtype": "bfloat16", "params": n_params,
+        "param_count": param_count(cfg), "requests": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+        "gen": SERVE_GEN, "cache_bytes": cache_nbytes(cache_spec(cfg, SERVE_BATCH, kv_len)),
+        "peak_memory_bytes": peak, "cold_serve_wall_seconds": wall, "step_seconds": steps,
+        "cold": {"prefill_seconds": cold["prefill_seconds"],
+                 "decode_ms_per_step": 1e3 * cold["decode_seconds"] / SERVE_GEN},
+        "warm": {"prefill_seconds": warm["prefill_seconds"],
+                 "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / warm["prefill_seconds"],
+                 "decode_ms_per_step": 1e3 * warm["decode_seconds"] / SERVE_GEN},
+        "kernels": counts, "nll_windows": list(windows.shape), "prompt_nll": nll,
+        "kernel_vs_plain_logits_max_abs_diff": gap, "logits_scale": scale,
+        "logits_tol": PHI3_LOGIT_RTOL * scale, "tokens_head": tokens[:, :8].tolist(),
+    }
+    if n_params != param_count(cfg):
+        raise AssertionError(f"head_dims (c): {n_params} parameters, config says "
+                             f"{param_count(cfg)}")
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"head_dims (c): tokens {tokens.shape} outside the vocabulary")
+    if not np.array_equal(warm_tokens, tokens):
+        raise AssertionError("head_dims (c): a repeat of the serve generated other tokens")
+    if counts["flash_attention"] != cfg.n_layers or sum(counts.values()) != cfg.n_layers:
+        raise AssertionError(f"head_dims (c): launches {counts}, want {cfg.n_layers} flash "
+                             "(one a layer) and no other")
+    if not all(math.isfinite(v) for v in nll.values()) or \
+            not abs(nll["kernel"] - nll["plain"]) <= BF16_RTOL * abs(nll["plain"]):
+        raise AssertionError(f"head_dims (c): NLL through the kernel {nll['kernel']} against "
+                             f"plain attention {nll['plain']}")
+    if not gap <= PHI3_LOGIT_RTOL * scale:
+        raise AssertionError(f"head_dims (c): logits through the kernel {gap} off plain "
+                             f"attention's, over {PHI3_LOGIT_RTOL} of their scale {scale}")
+    return out
+
+
+def phase_head_dims(ops, device):
+    """Flash attention at every head dim and float type, and Phi-3-mini's
+    widths. A spawned worker runs (b)'s cpu side from the start. (a)
+    ``head_dim_sweep``; (b)
+    Phi-3-mini's widths at 2 layers in fp32, the flash kernel on cuda
+    against its plain version on cpu (``phi3_serve_run``): tokens equal,
+    last-position logits within LM_LOGIT_TOL; (c) ``phi3_full``."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    out = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(phi3_serve_run, "cpu", HD_CPU_THREADS)
+        t0 = time.perf_counter()
+        out["sweep"] = head_dim_sweep(ops, device)
+        out["sweep_seconds"] = time.perf_counter() - t0
+        tokens, logits, secs, launches = phi3_serve_run(device)
+        t0 = time.perf_counter()
+        cpu_tokens, cpu_logits, cpu_secs, cpu_launches = cpu_future.result()
+        wait_s = time.perf_counter() - t0
+    diff = float(np.abs(logits - cpu_logits).max())
+    p = HD_PARITY
+    out["parity"] = {
+        "n_layers": p["n_layers"], "dtype": "float32", "prompts": [p["batch"], p["prompt"]],
+        "gen": p["gen"], "tokens_equal": bool(np.array_equal(tokens, cpu_tokens)),
+        "max_logit_diff": diff, "tol": LM_LOGIT_TOL,
+        "seconds": {"cuda": secs, "cpu": cpu_secs, "cpu_wait": wait_s},
+        "flash_launches": {"cuda": launches, "cpu": cpu_launches}, "tokens": tokens.tolist()}
+    if not out["parity"]["tokens_equal"]:
+        raise AssertionError(f"head_dims (b): cuda tokens {tokens.tolist()} != cpu tokens "
+                             f"{cpu_tokens.tolist()}")
+    if not (np.all(np.isfinite(logits)) and diff <= LM_LOGIT_TOL):
+        raise AssertionError(f"head_dims (b): logits differ by {diff} > {LM_LOGIT_TOL}")
+    # one prefill in serve_prompts and one more after it, each a launch a layer
+    if cpu_launches != 0 or launches != 2 * p["n_layers"]:
+        raise AssertionError(f"head_dims (b): flash launches {launches} on cuda, "
+                             f"{cpu_launches} on cpu")
+    out["full"] = phi3_full(ops, device)
+    out["kernels"] = out["full"]["kernels"]
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4069,6 +4467,8 @@ def time_pair(kernel, plain, args, budget_ms=40.0, library=None):
     reps, turns = {}, {}
     for label, fn in fns.items():
         first = _time_ms(lambda: fn(*args), 1)   # warm-up: a first call pays set-up
+        if label == "library":   # SDPA's first call at a shape may also pick and build its backend
+            first = _time_ms(lambda: fn(*args), 1)
         if first >= SLOW_CALL_MS:   # set-up is lost in a call this long: its one measurement
             reps[label], turns[label] = 1, [first]
             continue
@@ -4095,16 +4495,30 @@ def fill_ms(like, budget_ms=20.0):
     return _time_ms(lambda: t.fill_(0.5), max(1, min(200, int(budget_ms / max(once, 1e-3)))))
 
 
+@functools.lru_cache(maxsize=4)
+def window_mask(Sq, Skv, causal, window, device):
+    """The keys each query sees under the causal and window masks, (Sq, Skv)
+    bool, made once a shape."""
+    import torch
+
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    mask = kp > qp - window
+    return mask & (kp <= qp) if causal else mask
+
+
 def sdpa_library(q, k, v, causal, window):
     """The yardstick for flash attention: one PyTorch call on the same
-    tensors, in its (B, heads, S, hd) layout (transposed views)."""
+    tensors, in its (B, heads, S, hd) layout (transposed views); with a
+    window, the masks as a boolean ``attn_mask`` (made once a shape)."""
     import torch.nn.functional as F
 
+    kw = {"is_causal": causal}
     if window:
-        raise ValueError("the library yardstick is timed without a window")
+        kw = {"attn_mask": window_mask(q.shape[1], k.shape[1], causal, window, q.device)}
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2), is_causal=causal,
-                                          enable_gqa=True).transpose(1, 2)
+                                          v.transpose(1, 2), enable_gqa=True,
+                                          **kw).transpose(1, 2)
 
 
 TIMING_CASES = {
@@ -4126,7 +4540,12 @@ TIMING_CASES = {
     "flash_attention": ("serve b4 s2048 h32 k8 hd64 causal bfloat16",
                         "serve b4 s2048 h32 k8 hd64 causal float32",
                         "llava prefill b4 s4928 h32 k8 hd128 causal bfloat16",
-                        "whisper encoder b4 s1500 h8 k8 hd64 non-causal bfloat16"),
+                        "whisper encoder b4 s1500 h8 k8 hd64 non-causal bfloat16",
+                        "phi3-mini prefill b4 s2048 h32 k32 hd96 causal window2047 bfloat16",
+                        "phi3-mini prefill b4 s2048 h32 k32 hd96 causal window2047 float16",
+                        "gemma prefill b4 s2048 h8 k1 hd256 causal bfloat16",
+                        "chunked b1 s2048 h8 k8 hd512 causal bfloat16",
+                        "chunked b1 s2048 h8 k8 hd512 causal float32"),
 }
 LIBRARY = {"flash_attention": sdpa_library}
 
@@ -4329,6 +4748,9 @@ def main(argv=None) -> int:
     detail = {"nvidia_smi": card}
     errs, counts, timing = {}, {}, {}   # counts: phase -> kernel -> launches
     artifacts = {}   # main, main_q8 -> the round's result, for the fleet phase
+    pop_memory = None   # population (c)'s workers, once started
+    if "build" in phases and {"kernels", "timing", "profile"} & set(phases):
+        start_cases(ops)
     for phase in PHASES:
         if phase not in phases:
             continue
@@ -4337,6 +4759,8 @@ def main(argv=None) -> int:
             if phase == "build":
                 out, logs = phase_build(native)
                 detail["nvcc"] = logs
+                if "population" in phases:   # its traced passes, beside the next phases
+                    pop_memory = start_population_memory()
             elif phase == "kernels":
                 out, errs = phase_kernels(ops, device, names)
             elif phase == "parity":
@@ -4352,7 +4776,7 @@ def main(argv=None) -> int:
                     codec="int8", distill=DistillConfig(proxy_size=4096, solver="cg"))
                 counts[phase] = out["kernels"]
             elif phase == "population":
-                out = phase_population(ops, trace, DistillConfig, device)
+                out = phase_population(ops, trace, DistillConfig, device, pop_memory)
                 counts[phase] = out["kernels"]
             elif phase == "agg":
                 out = phase_agg(make_dataset, run_protocol, ops, trace, DistillConfig, device)
@@ -4364,6 +4788,9 @@ def main(argv=None) -> int:
                 out = phase_lm_parity(ops, device)
             elif phase == "serve":
                 out = phase_serve(ops, device)
+                counts[phase] = out["kernels"]
+            elif phase == "head_dims":
+                out = phase_head_dims(ops, device)
                 counts[phase] = out["kernels"]
             elif phase == "train":
                 out = phase_train(ops, trace, device)
@@ -4398,6 +4825,8 @@ def main(argv=None) -> int:
             keep = ("kernel", "case", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "fill_ms", "ns_per_step", "chain_ms")
             out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
+        if phase == "head_dims":   # the sweep's rows go to --out only
+            out = {**out, "sweep": {k: v for k, v in out["sweep"].items() if k != "rows"}}
         emit(out)
 
     import torch.distributed as dist
@@ -4424,12 +4853,14 @@ def main(argv=None) -> int:
             "launches_cli": counts.get("cli", {}).get(name),
             "launches_sharded": counts.get("sharded", {}).get(name),
             "launches_wide": counts.get("wide", {}).get(name),
+            "launches_head_dims": counts.get("head_dims", {}).get(name),
             "max_abs_err": errs.get(name), "ms": row.get("ms"), "device_ms": row.get("device_ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
         }
-        if name + "/bf16" in errs:
-            entry["max_abs_err_bf16"] = errs[name + "/bf16"]
+        for kind in ("bf16", "fp16"):
+            if f"{name}/{kind}" in errs:
+                entry[f"max_abs_err_{kind}"] = errs[f"{name}/{kind}"]
         summary.append(entry)
     if args.out:
         out_path = Path(args.out)

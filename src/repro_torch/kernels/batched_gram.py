@@ -43,6 +43,7 @@ COLS = 64                  # columns a tile
 STAGED = (32, 64)          # features staged at once; above 64, chunks of 64
 MAX_PAST = 0.2             # share of a launch's computed rows that may lie past m
 MAX_GRID_Y = 65535         # row tiles a launch (CUDA's grid limit)
+MAX_GRID_Z = 65535         # devices a launch (CUDA's grid limit)
 
 
 def tile_plan(m: int, n: int, d: int) -> tuple:
@@ -71,19 +72,33 @@ def batched_rbf_gram_plain(x1: torch.Tensor, x2: torch.Tensor,
     return torch.exp(-gammas[:, None, None] * d2)
 
 
-def launch_plan(name: str, m: int, n: int, d: int) -> tuple:
+def launch_plan(m: int, n: int, d: int) -> tuple:
     """``tile_plan``'s (rows, staged), the launcher's arguments (every tile
-    is ``COLS`` wide), raising where the row tiles exceed the grid."""
+    is ``COLS`` wide)."""
     rows, _, staged = tile_plan(m, n, d)
-    if -(-m // rows) > MAX_GRID_Y:
-        raise ValueError(f"{name}: at most {MAX_GRID_Y * rows} rows per call, got {m}")
     return rows, staged
+
+
+def launch_slices(g: int, m: int, rows: int) -> list:
+    """(device slice, row slice) of each launch. One launch where the grid
+    takes the call (at most ``MAX_GRID_Z`` devices and ``MAX_GRID_Y``
+    row tiles); past ``MAX_GRID_Z`` devices, runs of that many; past
+    ``MAX_GRID_Y`` row tiles, one device at a time in runs of that many
+    tiles of rows. An output depends on its row, its column and gamma
+    alone, so the split changes no value."""
+    if -(-m // rows) <= MAX_GRID_Y:
+        return [(slice(lo, min(lo + MAX_GRID_Z, g)), slice(0, m))
+                for lo in range(0, g, MAX_GRID_Z)]
+    span = MAX_GRID_Y * rows
+    return [(slice(t, t + 1), slice(lo, min(lo + span, m)))
+            for t in range(g) for lo in range(0, m, span)]
 
 
 def batched_rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor,
                           gammas: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/gram.cu`` (per-device gamma) on x1's CUDA device."""
-    native.check_cuda("batched_rbf_gram", x1.device, x1=x1, x2=x2, gammas=gammas)
+    """Launch ``csrc/gram.cu`` (per-device gamma) on x1's CUDA device:
+    one launch, or ``launch_slices``' several past the grid."""
+    x1, x2, gammas = native.prepare("batched_rbf_gram", x1.device, x1=x1, x2=x2, gammas=gammas)
     if x1.dim() != 3 or x2.dim() != 3 or gammas.dim() != 1:
         raise ValueError("batched_rbf_gram: want x1 (g, m, d), x2 (g, n, d), gammas (g,)")
     g, m, d = x1.shape
@@ -91,14 +106,21 @@ def batched_rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor,
     if x2.shape[0] != g or x2.shape[2] != d or gammas.shape[0] != g:
         raise ValueError(f"batched_rbf_gram: shapes {tuple(x1.shape)}, "
                          f"{tuple(x2.shape)}, {tuple(gammas.shape)} disagree")
-    if g > 65535:
-        raise ValueError(f"batched_rbf_gram: at most 65535 devices per call, got {g}")
     out = torch.empty((g, m, n), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:
         return out
-    rows, staged = launch_plan("batched_rbf_gram", m, n, d)
-    lib = native.library("gram")
-    native.launch(LAUNCHES, x1.device, lib.batched_rbf_gram_launch,
-                  x1.data_ptr(), x2.data_ptr(), gammas.data_ptr(), out.data_ptr(),
-                  g, m, n, d, rows, staged)
+    rows, staged = launch_plan(m, n, d)
+    fn = native.library("gram").batched_rbf_gram_launch
+    parts = launch_slices(g, m, rows)
+    if len(parts) == 1:
+        native.launch(LAUNCHES, x1.device, fn, x1.data_ptr(), x2.data_ptr(), gammas.data_ptr(),
+                      out.data_ptr(), g, m, n, d, rows, staged)
+        return out
+    for dev, rs in parts:
+        a, b, gam = native.prepare("batched_rbf_gram", x1.device, x1=x1[dev, rs], x2=x2[dev],
+                                   gammas=gammas[dev])
+        part = torch.empty((a.shape[0], a.shape[1], n), dtype=torch.float32, device=x1.device)
+        native.launch(LAUNCHES, x1.device, fn, a.data_ptr(), b.data_ptr(), gam.data_ptr(),
+                      part.data_ptr(), a.shape[0], a.shape[1], n, d, rows, staged)
+        out[dev, rs] = part
     return out

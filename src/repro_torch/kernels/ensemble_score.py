@@ -81,8 +81,6 @@ def launch_scores(name: str, counter, fn, x: torch.Tensor, supports: tuple,
     x (b, d) against ``supports`` (the loader's tensors)."""
     b, d = x.shape
     k, n_max = coef.shape
-    if any(t.data_ptr() % 16 for t in (x, *supports)):
-        raise ValueError(f"{name}: x and the supports must be 16-byte aligned")
     out = torch.empty((b,), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
@@ -130,8 +128,11 @@ def ensemble_score_plain(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
 
 
 def _check(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
-           gammas: torch.Tensor) -> None:
-    native.check_cuda("ensemble_score", x.device, x=x, sup=sup, coef=coef, gammas=gammas)
+           gammas: torch.Tensor) -> tuple:
+    """The inputs as the kernel reads them (``native.prepare``), their
+    shapes checked."""
+    x, sup, coef, gammas = native.prepare("ensemble_score", x.device, x=x, sup=sup, coef=coef,
+                                          gammas=gammas)
     if x.dim() != 2 or sup.dim() != 3 or coef.dim() != 2 or gammas.dim() != 1:
         raise ValueError("ensemble_score: want x (b, d), sup (k, n_max, d), "
                          "coef (k, n_max), gammas (k,)")
@@ -142,6 +143,7 @@ def _check(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
                          f"{tuple(coef.shape)}, {tuple(gammas.shape)} disagree")
     if k == 0:
         raise ValueError("ensemble_score: empty ensemble")
+    return x, sup, coef, gammas
 
 
 def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
@@ -149,7 +151,7 @@ def ensemble_score_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.Tensor,
     """Launch ``csrc/ensemble_score.cu`` on x's CUDA device: the staged
     partials kernel where its tiles fit in shared memory, the chunked one
     past it."""
-    _check(x, sup, coef, gammas)
+    x, sup, coef, gammas = _check(x, sup, coef, gammas)
     lib = native.library("ensemble_score")
     return launch_scores("ensemble_score", LAUNCHES, lib.ensemble_score_launch, x, (sup,),
                          coef, gammas)
@@ -159,7 +161,7 @@ def ensemble_score_chunked_cuda(x: torch.Tensor, sup: torch.Tensor, coef: torch.
                                 gammas: torch.Tensor) -> torch.Tensor:
     """The chunked partials kernel at any d, for holding it bit for bit to
     the staged one where both run; no path of the port calls it."""
-    _check(x, sup, coef, gammas)
+    x, sup, coef, gammas = _check(x, sup, coef, gammas)
     lib = native.library("ensemble_score")
     return launch_scores("ensemble_score", LAUNCHES, lib.ensemble_score_chunked_launch, x,
                          (sup,), coef, gammas)

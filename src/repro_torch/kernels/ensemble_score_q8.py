@@ -47,9 +47,12 @@ def ensemble_score_q8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tenso
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
-           coef: torch.Tensor, gammas: torch.Tensor) -> None:
-    native.check_cuda("ensemble_score_q8", x.device, dtypes={"q": torch.int8},
-                      x=x, q=q, scale=scale, zero=zero, coef=coef, gammas=gammas)
+           coef: torch.Tensor, gammas: torch.Tensor) -> tuple:
+    """The inputs as the kernel reads them (``native.prepare``), their
+    shapes checked."""
+    x, q, scale, zero, coef, gammas = native.prepare(
+        "ensemble_score_q8", x.device, dtypes={"q": torch.int8},
+        x=x, q=q, scale=scale, zero=zero, coef=coef, gammas=gammas)
     if (x.dim() != 2 or q.dim() != 3 or scale.dim() != 2 or zero.dim() != 2
             or coef.dim() != 2 or gammas.dim() != 1):
         raise ValueError("ensemble_score_q8: want x (b, d), q (k, n_max, d), scale and "
@@ -63,6 +66,7 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, zero: torch.Te
                          f"{tuple(coef.shape)}, {tuple(gammas.shape)} disagree")
     if k == 0:
         raise ValueError("ensemble_score_q8: empty ensemble")
+    return x, q, scale, zero, coef, gammas
 
 
 def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -70,7 +74,7 @@ def ensemble_score_q8_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
                            gammas: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/ensemble_score.cu``'s int8 kernel on x's CUDA device
     (staged or chunked by d, as ``ensemble_score_cuda``)."""
-    _check(x, q, scale, zero, coef, gammas)
+    x, q, scale, zero, coef, gammas = _check(x, q, scale, zero, coef, gammas)
     lib = native.library("ensemble_score")
     return _ens.launch_scores("ensemble_score_q8", LAUNCHES, lib.ensemble_score_q8_launch, x,
                               (q, scale, zero), coef, gammas)
@@ -81,7 +85,7 @@ def ensemble_score_q8_chunked_cuda(x: torch.Tensor, q: torch.Tensor, scale: torc
                                    gammas: torch.Tensor) -> torch.Tensor:
     """The chunked int8 partials kernel at any d, for holding it bit for
     bit to the staged one where both run; no path of the port calls it."""
-    _check(x, q, scale, zero, coef, gammas)
+    x, q, scale, zero, coef, gammas = _check(x, q, scale, zero, coef, gammas)
     lib = native.library("ensemble_score")
     return _ens.launch_scores("ensemble_score_q8", LAUNCHES,
                               lib.ensemble_score_q8_chunked_launch, x, (q, scale, zero), coef,

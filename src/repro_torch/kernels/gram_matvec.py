@@ -68,7 +68,7 @@ def split_plan(m: int, n: int) -> tuple:
 
 def _launch(fn_name: str, x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor,
             gamma: float) -> torch.Tensor:
-    native.check_cuda("gram_matvec", x1.device, x1=x1, x2=x2, v=v)
+    x1, x2, v = native.prepare("gram_matvec", x1.device, x1=x1, x2=x2, v=v)
     if x1.dim() != 2 or x2.dim() != 2 or v.dim() != 1:
         raise ValueError("gram_matvec: want x1 (m, d), x2 (n, d), v (n,)")
     m, d = x1.shape

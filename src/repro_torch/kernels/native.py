@@ -26,14 +26,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gram", "gram_q8", "ensemble_score", "sdca", "gram_matvec",
-           "flash_attention", "flash_attention_tc")  # csrc/<name>.cu -> lib<name>.so
+           "flash_attention", "flash_attention_tc", "flash_attention_tc_f16")
+# csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,6 +92,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention_tc": {
         # the same arguments, bfloat16
         "flash_attention_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attention_tc_f16": {
+        # the same arguments, float16
+        "flash_attention_tc_f16_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                          _P],
     },
 }
 
@@ -185,14 +191,10 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_cuda(name: str, device: torch.device, dtypes: Optional[Dict[str, torch.dtype]] = None,
-               **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on ``device``
-    of the dtype the kernel takes: ``dtypes[arg]`` where the wrapper
-    names one, float32 otherwise. A kernel has no backward, so it also
-    raises, before anything else, when grad mode is on and a tensor
-    requires grad: its output would carry no ``grad_fn`` and cut the
-    gradient silently."""
+def refuse_grad(name: str, **tensors: torch.Tensor) -> None:
+    """A kernel has no backward, so raise when grad mode is on and a
+    tensor requires grad: the output would carry no ``grad_fn`` and cut
+    the gradient silently."""
     if torch.is_grad_enabled():
         needs = [arg for arg, t in tensors.items() if t.requires_grad]
         if needs:
@@ -202,17 +204,60 @@ def check_cuda(name: str, device: torch.device, dtypes: Optional[Dict[str, torch
                 "backward (the reference has no backward kernel for any Pallas kernel "
                 "either): call it under torch.no_grad(), or train with "
                 "use_pallas=False as the reference does")
+
+
+def check_device(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless ``device`` is a CUDA device and every tensor is on it."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {device}")
-    dtypes = dtypes or {}
     for arg, t in tensors.items():
-        want = dtypes.get(arg, torch.float32)
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != want:
-            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _castable(t: torch.Tensor, want: torch.dtype) -> bool:
+    """The reference's ``astype``: a float slot takes any real type; an
+    integer slot (int8 codes, int32 counts) any integer type."""
+    if t.dtype == torch.bool or t.is_complex():
+        return False
+    return want.is_floating_point or not t.is_floating_point()
+
+
+def prepare(name: str, device: torch.device, dtypes: Optional[Dict[str, torch.dtype]] = None,
+            **tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors as the kernel reads them (``kernel_inputs``), after
+    ``refuse_grad`` and ``check_device``."""
+    refuse_grad(name, **tensors)
+    check_device(name, device, **tensors)
+    return kernel_inputs(name, dtypes, **tensors)
+
+
+def kernel_inputs(name: str, dtypes: Optional[Dict[str, torch.dtype]] = None,
+                  **tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors in the order given, each as the kernel reads it. A
+    tensor of another type than the kernel's (``dtypes[arg]``, float32
+    where the wrapper names none) is cast to it, as the reference's
+    kernels cast with ``astype``; then a tensor that is not contiguous or
+    does not start on a 16-byte boundary (the kernels' ``cp.async`` rows)
+    gets one contiguous, aligned copy. A tensor that needs neither comes
+    back as it is, so a call from the port's own paths copies nothing; a
+    tensor passed twice (a fit's x1 as x2) stays one tensor."""
+    dtypes = dtypes or {}
+    done: Dict[int, torch.Tensor] = {}
+    out = []
+    for arg, t in tensors.items():
+        if id(t) not in done:
+            want = dtypes.get(arg, torch.float32)
+            u = t
+            if u.dtype != want:
+                if not _castable(u, want):
+                    raise TypeError(f"{name}: {arg} must be {want}, got {u.dtype}")
+                u = u.to(want, memory_format=torch.contiguous_format)
+            if not u.is_contiguous() or u.data_ptr() % 16:
+                u = u.clone(memory_format=torch.contiguous_format)
+            done[id(t)] = u
+        out.append(done[id(t)])
+    return tuple(out)
 
 
 def stream_handle(device: torch.device) -> int:

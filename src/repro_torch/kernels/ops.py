@@ -95,9 +95,11 @@ def sdca(K, y, n_real, lam: float, epochs: int = 20):
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """GQA attention: q (B, Sq, H, hd), k and v (B, Skv, K, hd) ->
-    (B, Sq, H, hd) in q's dtype, with causal and sliding-window masks.
-    On a CUDA tensor the kernel has no backward: under grad mode with an
-    input that requires grad it raises (``native.check_cuda``)."""
+    (B, Sq, H, hd) in q's dtype, with causal and sliding-window masks, at
+    any head dim and float types (mixed ones computed in fp32, as the
+    reference's kernel computes them). On a CUDA tensor the kernel has no
+    backward: under grad mode with an input that requires grad it raises
+    (``native.refuse_grad``)."""
     fn = _pick("flash_attention", q, _flash.flash_attention_cuda, _flash.flash_attention_plain)
     return maybe_profile("flash_attention", fn, q, k, v, causal, window)
 
@@ -481,7 +483,8 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
                    _flash.flash_attention_plain, flash_attention,
                    _mk_flash_attention, _ragged_flash_attention, _flash.LAUNCHES,
                    replaces="src/repro/kernels/flash_attention.py:68",
-                   # the serve path's bf16 kernel; fp32 runs csrc/flash_attention.cu
+                   # the serve path's bf16 kernel (fp16: csrc/flash_attention_tc_f16.cu,
+                   # the same code; fp32 and mixed types: csrc/flash_attention.cu)
                    source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                    tol=2e-5),
     )

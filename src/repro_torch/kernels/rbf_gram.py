@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.batched_gram import launch_plan
+from repro_torch.kernels.batched_gram import launch_plan, launch_slices
 
 LAUNCHES = native.LaunchCounter("rbf_gram")
 
@@ -37,8 +37,9 @@ def rbf_gram_plain(x1: torch.Tensor, x2: torch.Tensor, gamma: float) -> torch.Te
 
 
 def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Launch ``csrc/gram.cu`` (scalar gamma) on x1's CUDA device."""
-    native.check_cuda("rbf_gram", x1.device, x1=x1, x2=x2)
+    """Launch ``csrc/gram.cu`` (scalar gamma) on x1's CUDA device: one
+    launch, or runs of rows past the grid (``launch_slices``)."""
+    x1, x2 = native.prepare("rbf_gram", x1.device, x1=x1, x2=x2)
     if x1.dim() != 2 or x2.dim() != 2 or x1.shape[1] != x2.shape[1]:
         raise ValueError(f"rbf_gram: want x1 (m, d), x2 (n, d), got "
                          f"{tuple(x1.shape)}, {tuple(x2.shape)}")
@@ -47,9 +48,17 @@ def rbf_gram_cuda(x1: torch.Tensor, x2: torch.Tensor, gamma: float) -> torch.Ten
     out = torch.empty((m, n), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:
         return out
-    rows, staged = launch_plan("rbf_gram", m, n, d)
-    lib = native.library("gram")
-    native.launch(LAUNCHES, x1.device, lib.rbf_gram_launch,
-                  x1.data_ptr(), x2.data_ptr(), float(gamma), out.data_ptr(), m, n, d,
-                  rows, staged)
+    rows, staged = launch_plan(m, n, d)
+    fn = native.library("gram").rbf_gram_launch
+    parts = launch_slices(1, m, rows)
+    if len(parts) == 1:
+        native.launch(LAUNCHES, x1.device, fn, x1.data_ptr(), x2.data_ptr(), float(gamma),
+                      out.data_ptr(), m, n, d, rows, staged)
+        return out
+    for _, rs in parts:
+        (a,) = native.prepare("rbf_gram", x1.device, x1=x1[rs])
+        part = torch.empty((a.shape[0], n), dtype=torch.float32, device=x1.device)
+        native.launch(LAUNCHES, x1.device, fn, a.data_ptr(), x2.data_ptr(), float(gamma),
+                      part.data_ptr(), a.shape[0], n, d, rows, staged)
+        out[rs] = part
     return out

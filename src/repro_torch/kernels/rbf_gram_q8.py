@@ -75,8 +75,8 @@ def split_plan(m: int, n: int) -> tuple:
 
 def _launch(fn_name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             zero: torch.Tensor, gamma: float) -> torch.Tensor:
-    native.check_cuda("rbf_gram_q8", x.device, dtypes={"q": torch.int8},
-                      x=x, q=q, scale=scale, zero=zero)
+    x, q, scale, zero = native.prepare("rbf_gram_q8", x.device, dtypes={"q": torch.int8},
+                                       x=x, q=q, scale=scale, zero=zero)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1 or zero.dim() != 1:
         raise ValueError("rbf_gram_q8: want x (m, d), q (n, d), scale (d,), zero (d,)")
     m, d = x.shape
@@ -86,8 +86,6 @@ def _launch(fn_name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(scale.shape)}, {tuple(zero.shape)} disagree")
     if d < 1:
         raise ValueError("rbf_gram_q8: the kernel takes d >= 1")
-    if q.data_ptr() % 16:
-        raise ValueError("rbf_gram_q8: q must start on a 16-byte boundary (cp.async)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out

@@ -75,30 +75,43 @@ def sdca_plain(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
     return alpha.float()
 
 
+def pad_bucket(K: torch.Tensor, y: torch.Tensor) -> tuple:
+    """K and y with the bucket padded to a multiple of ``GROUP`` (the
+    kernel reads K rows ``GROUP`` columns at a time): K's new rows and
+    columns 0, y's new entries +1, as the engine pads a device's rows.
+    The padded coordinates lie past every ``n_real``, so their alphas
+    stay 0 and their K entries add exact zeros to every sum."""
+    g, b, _ = K.shape
+    pad = -b % GROUP
+    if pad == 0:
+        return K, y
+    return (torch.nn.functional.pad(K, (0, pad, 0, pad)),
+            torch.nn.functional.pad(y, (0, pad), value=1.0))
+
+
 def _launch(fn_name: str, K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
             lam: float, epochs: int, always_global: bool) -> torch.Tensor:
-    native.check_cuda("sdca", K.device, dtypes={"n_real": torch.int32},
-                      K=K, y=y, n_real=n_real)
+    K, y, n_real = native.prepare("sdca", K.device, dtypes={"n_real": torch.int32},
+                                  K=K, y=y, n_real=n_real)
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
         raise ValueError(f"sdca: want K (g, b, b), got {tuple(K.shape)}")
     g, b, _ = K.shape
     if tuple(y.shape) != (g, b) or tuple(n_real.shape) != (g,):
         raise ValueError(f"sdca: y {tuple(y.shape)} / n_real {tuple(n_real.shape)} "
                          f"do not match K {tuple(K.shape)}")
-    if b % GROUP or K.data_ptr() % 16:
-        raise ValueError(f"sdca: the kernel reads K rows 4 columns at a time: the bucket "
-                         f"({b}) must be a multiple of {GROUP} and K 16-byte aligned")
-    alpha = torch.empty((g, b), dtype=torch.float32, device=K.device)
     if g == 0 or b == 0:
-        return alpha.zero_()
+        return torch.zeros((g, b), dtype=torch.float32, device=K.device)
+    K, y = pad_bucket(K, y)
+    bp = K.shape[1]
+    alpha = torch.empty((g, bp), dtype=torch.float32, device=K.device)
     lib = native.library("sdca")
     v = None   # y o alpha in fp64, where it does not fit in shared memory
-    if always_global or lib.sdca_smem_bytes(b) > native.MAX_SMEM_BYTES:
-        v = torch.empty((g, b), dtype=torch.float64, device=K.device)
+    if always_global or lib.sdca_smem_bytes(bp) > native.MAX_SMEM_BYTES:
+        v = torch.empty((g, bp), dtype=torch.float64, device=K.device)
     native.launch(LAUNCHES, K.device, getattr(lib, fn_name),
                   K.data_ptr(), y.data_ptr(), n_real.data_ptr(), alpha.data_ptr(),
-                  None if v is None else v.data_ptr(), g, b, float(lam), int(epochs))
-    return alpha
+                  None if v is None else v.data_ptr(), g, bp, float(lam), int(epochs))
+    return alpha if bp == b else alpha[:, :b].contiguous()
 
 
 def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,

@@ -46,7 +46,7 @@ recomputes the rest, the experts' and the SSD's batched products
 (``aten.bmm``) among it. Neither changes a number. The hand-written
 CUDA kernels have no backward, as the reference's Pallas kernels have
 none: with ``use_pallas`` a train step on the card raises
-(``native.check_cuda``); on the CPU the plain flash version is
+(``native.refuse_grad``); on the CPU the plain flash version is
 differentiable.
 """
 from __future__ import annotations

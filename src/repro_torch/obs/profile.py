@@ -20,9 +20,9 @@ accounting, under the reference's keys:
     three-term model of ``roofline.analysis.roofline_report`` (no
     collective term for a single kernel call).
 
-The sheet a call is priced on (``hardware_for``): ``H100_SXM`` (bf16
-tensor cores) when its first operand is bfloat16, ``H100_SXM_FP32``
-otherwise; ``set_hardware(hw)`` puts one sheet in place for every call
+The sheet a call is priced on (``hardware_for``): ``H100_SXM`` (16-bit
+tensor cores) when the kernel computes the call in bfloat16 or float16,
+``H100_SXM_FP32`` otherwise; ``set_hardware(hw)`` puts one sheet in place for every call
 (``set_hardware(V5E)`` prices as the reference does) and
 ``set_hardware(None)`` goes back to the per-dtype choice. ``chip_smoke.py``
 takes its kernels' bounds from these same functions, so a span's
@@ -54,11 +54,22 @@ def set_hardware(hw: Optional[HardwareSpec]) -> None:
     _HW = hw
 
 
-def hardware_for(args: tuple) -> HardwareSpec:
-    """The sheet a call with ``args`` is priced on."""
+def hardware_for(args: tuple, name: Optional[str] = None) -> HardwareSpec:
+    """The sheet a call of kernel ``name`` with ``args`` is priced on: the
+    tensor cores' (``H100_SXM``) when it computes in bfloat16 or float16,
+    the fp32 one otherwise. Flash attention says which type a call runs
+    in (``flash_attention.run_dtype``); any other call runs in its
+    tensors' one type (fp32 where they differ)."""
     if _HW is not None:
         return _HW
-    return H100_SXM if str(getattr(args[0], "dtype", "")) == "torch.bfloat16" else H100_SXM_FP32
+    if name == "flash_attention":
+        from repro_torch.kernels.flash_attention import run_dtype
+
+        dtype = run_dtype(*args[:3])
+    else:
+        dtypes = {a.dtype for a in args if isinstance(a, torch.Tensor)}
+        dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+    return H100_SXM if dtype in (torch.bfloat16, torch.float16) else H100_SXM_FP32
 
 
 # ----------------------------------------------------------------------
@@ -169,7 +180,7 @@ def kernel_bound(name: str, args: tuple) -> Tuple[float, str]:
     ``kernel_cost`` on ``hardware_for(args)``, the bound a kernel span
     carries as ``roofline_bound_us``."""
     flops, nbytes = kernel_cost(name, None, args)
-    rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args))
+    rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args, name))
     return rl["step_lower_bound_s"], "operations" if rl["dominant"] == "compute" else "bytes"
 
 
@@ -216,7 +227,7 @@ def maybe_profile(name: str, fn: Callable, *args):
     attrs = {"backend": dev.type, "dur_s": dt}
     if cost is not None:
         flops, nbytes = cost
-        rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args))
+        rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args, name))
         bound = rl["step_lower_bound_s"]
         attrs.update(
             flops=flops,

@@ -151,12 +151,18 @@ def test_gram_matvec_cg_inputs(cuda_device, case):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """What stays refused: a tensor on another device, float codes where
+    the kernel takes int8. A float64 or transposed input is now cast or
+    copied and held to the plain version, and a bucket of 30 is padded
+    (the tests below take each such input for every wrapper)."""
     x = torch.randn(2, 8, 4, device=cuda_device)
     g = torch.ones(2, device=cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        ops.batched_rbf_gram(x.double(), x.double(), g.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.batched_rbf_gram(x.transpose(1, 2), x.transpose(1, 2), g)
+    gram = ops.KERNEL_REGISTRY["batched_rbf_gram"]
+    want = gram.plain(x, x, g)
+    for args in ((x.double(), x.double(), g.double()), (x.transpose(1, 2).contiguous()
+                 .transpose(1, 2), x, g)):
+        np.testing.assert_allclose(ops.batched_rbf_gram(*args).cpu().numpy(),
+                                   want.cpu().numpy(), atol=gram.tol, rtol=0)
     with pytest.raises(ValueError, match="on cpu"):
         ops.batched_rbf_gram(x, x.cpu(), g)
     xq = torch.randn(8, 4, device=cuda_device)
@@ -174,10 +180,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     want = ops.KERNEL_REGISTRY["rbf_gram_q8"].plain(*wargs)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=ops.KERNEL_REGISTRY["rbf_gram_q8"].tol, rtol=0)
-    K = torch.zeros(1, 30, 30, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        ops.sdca(K, torch.ones(1, 30, device=cuda_device),
-                 torch.tensor([30], dtype=torch.int32, device=cuda_device), 0.01)
+    args = _on(ops.make_sdca_problem(_rng("sdca30"), g=2, b=30, d=12, n_real=[30, 19]),
+               cuda_device)
+    got = ops.sdca(*args)
+    assert got.shape == (2, 30)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ops.KERNEL_REGISTRY["sdca"].plain(*args).cpu().numpy(),
+                               atol=ops.KERNEL_REGISTRY["sdca"].tol, rtol=0)
 
 
 def test_rbf_gram_q8_student(cuda_device):
@@ -477,19 +486,20 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    """A query head count that is not a multiple of the KV heads' stays
+    refused. Mixed types, fp16, hd 24 and a transposed view, refused
+    before, are taken now and held to the plain version."""
     q = torch.randn(1, 8, 4, 32, device=cuda_device)
     k = torch.randn(1, 8, 2, 32, device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
-        ops.flash_attention(q, k.bfloat16(), k)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        ops.flash_attention(q.half(), k.half(), k.half())
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_attention(torch.randn(1, 8, 3, 32, device=cuda_device), k, k)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
-                            k[..., :24].contiguous())
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.flash_attention(q.transpose(1, 2), k, k)
+    for args in ((q, k.bfloat16(), k), (q.half(), k.half(), k.half()),
+                 (q[..., :24].contiguous(), k[..., :24].contiguous(), k[..., :24].contiguous()),
+                 (q.transpose(1, 2).contiguous().transpose(1, 2), k, k)):
+        got = ops.flash_attention(*args)
+        want = spec.plain(*args)
+        assert got.dtype == args[0].dtype and _flash_close(got, want)
 
 
 def test_reduced_serve_matches_cpu(cuda_device):
@@ -527,6 +537,85 @@ SMOKE_FLASH = CHIP_SMOKE.FLASH_SHAPES
 def _bf16_close(got, want):
     diff = (got.float() - want.float()).abs()
     return bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+
+
+def _flash_close(got, want):
+    """chip_smoke.py's tolerance for the output's type: fp32 (and fp64)
+    2e-5; bf16 and fp16 1e-4 + 2^-7 or 2^-10 of the plain value."""
+    atol, rtol = CHIP_SMOKE.flash_tolerance(got.dtype)
+    diff = (got.float() - want.float()).abs()
+    return bool(torch.isfinite(got).all()) and bool((diff <= atol + rtol * want.float().abs()).all())
+
+
+# head dims past the four the kernels took before, in every type: the one-pass
+# widths (1 -> 16, 24 -> 32, 72, 80 and 96 -> 96, 100 -> 128, 160 and 192 ->
+# 192, 256) and the chunked kernels (320, 512)
+NEW_HEAD_DIMS = (1, 8, 24, 72, 80, 96, 100, 160, 192, 256, 320, 512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("hd", NEW_HEAD_DIMS)
+def test_flash_attention_at_every_head_dim(cuda_device, hd, dtype):
+    """Causal with a window on 333 rows (off the 64- and 128-row tiles),
+    4 query heads per KV head, and non-causal on 200 rows: within the
+    tolerance, one launch a call, two launches bitwise equal."""
+    rng = _rng("flash-hd", hd)
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    for (B, S, H, K), causal, window in (((2, 333, 8, 2), True, 77), ((1, 200, 2, 2), False, 0)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+                   .to(cuda_device, getattr(torch, dtype)) for h in (H, K, K))
+        before = spec.counter.count
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert spec.counter.count == before + 1
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal, window=window))
+        assert got.dtype == q.dtype and _flash_close(got, spec.plain(q, k, v, causal, window))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_reads_rows_off_16_byte_boundaries(cuda_device, dtype):
+    """Rows the 16-byte copies cannot take, read in place: q 2, 4 and 8
+    bytes off a 16-byte boundary at hd 64 (plain 2-byte loads, 4- and
+    8-byte cp.async), an odd hd (plain loads), hd 100 (8-byte rows) and
+    hd 98 (4-byte rows)."""
+    rng = _rng("flash-align-" + dtype)
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    t = getattr(torch, dtype)
+    for hd, off in ((64, 1), (64, 2), (64, 4), (37, 0), (100, 0), (98, 0)):
+        q32, k32, v32 = (torch.from_numpy(rng.normal(size=(1, 150, h, hd)).astype(np.float32))
+                         .to(cuda_device) for h in (4, 2, 2))
+        buf = torch.empty(q32.numel() + 8, dtype=t, device=cuda_device)
+        q = buf[off:off + q32.numel()].view(q32.shape)
+        q.copy_(q32.to(t))
+        assert q.data_ptr() % 16 == 2 * off
+        got = ops.flash_attention(q, k32.to(t), v32.to(t), causal=True, window=0)
+        assert _flash_close(got, spec.plain(q, k32.to(t), v32.to(t), True, 0)), (hd, off)
+
+
+def test_flash_attention_past_65535_batch_heads_is_one_launch(cuda_device):
+    """B x H = 70,400 query heads, folded into one grid dimension."""
+    rng = _rng("flash-grid")
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = (torch.from_numpy(rng.normal(size=(1100, 3, h, 8)).astype(np.float32))
+                   .to(cuda_device, dtype) for h in (64, 16, 16))
+        before = spec.counter.count
+        got = ops.flash_attention(q, k, v)
+        assert spec.counter.count == before + 1
+        assert _flash_close(got, spec.plain(q, k, v, True, 0))
+
+
+def test_flash_attention_takes_mixed_types_and_float64(cuda_device):
+    """As the reference: each input cast to fp32, the fp32 kernel, the
+    output in q's type."""
+    rng = _rng("flash-mixed")
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 130, h, 96)).astype(np.float32))
+               .to(cuda_device) for h in (4, 2, 2))
+    for args in ((q.bfloat16(), k, v), (q.half(), k.bfloat16(), v), (q, k.half(), v.half()),
+                 (q.double(), k.double(), v.double())):
+        got = ops.flash_attention(*args, causal=True, window=40)
+        assert got.dtype == args[0].dtype
+        assert _flash_close(got, spec.plain(*args, True, 40))
 
 
 @pytest.mark.parametrize("case", range(len(SMOKE_FLASH)), ids=[c[0] for c in SMOKE_FLASH])
@@ -762,6 +851,84 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
     with torch.no_grad():
         got = spec.dispatch(*args)
     assert got.grad_fn is None and spec.counter.count == before + 1
+
+
+SVM_NAMES = [n for n in NAMES if n != "flash_attention"]
+
+
+def _off_boundary(t):
+    """t's values in a tensor that starts one element past an aligned
+    allocation: 4 bytes off 16 for fp32, 1 byte for int8."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _strided(t):
+    """t's values in a non-contiguous view of the same shape."""
+    if t.dim() < 2:
+        return torch.stack([t, t], dim=-1)[..., 0]
+    return t.transpose(0, -1).contiguous().transpose(0, -1)
+
+
+@pytest.mark.parametrize("form", ["float64", "strided", "off 16 bytes"])
+@pytest.mark.parametrize("name", SVM_NAMES)
+def test_svm_wrappers_take_any_float_type_and_layout(cuda_device, name, form):
+    """The reference's kernels cast their inputs (``astype(jnp.float32)``)
+    and take any layout: each wrapper casts, or copies a non-contiguous or
+    misaligned tensor once, and holds the plain version on the fp32
+    inputs at the registry's tolerance, in one launch."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = _on(spec.make_ragged(_rng("forms" + name)), cuda_device)
+    change = {"float64": lambda t: t.double() if t.is_floating_point() else t.long(),
+              "strided": _strided, "off 16 bytes": _off_boundary}[form]
+    moved = tuple(change(a) if isinstance(a, torch.Tensor) else a for a in args)
+    before = spec.counter.count
+    got = spec.dispatch(*moved)
+    assert spec.counter.count == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                               atol=spec.tol, rtol=0)
+
+
+@pytest.mark.parametrize("b,n_real", [(30, [30, 17, 1]), (61, [61, 40, 33]), (2, [2, 1, 2])])
+def test_sdca_pads_a_bucket_off_the_multiple_of_4(cuda_device, b, n_real):
+    args = _on(ops.make_sdca_problem(_rng("sdca-pad", b), g=3, b=b, d=12, n_real=n_real),
+               cuda_device)
+    got = ops.sdca(*args)
+    assert got.shape == (3, b)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ops.KERNEL_REGISTRY["sdca"].plain(*args).cpu().numpy(),
+                               atol=ops.KERNEL_REGISTRY["sdca"].tol, rtol=0)
+
+
+def test_grams_past_the_grid_run_in_several_launches(cuda_device):
+    """65,537 devices (two launches), and 4,194,245 rows of 64-row tiles
+    (65,536 tiles: two launches a device): every output the plain
+    version's, each launch counted."""
+    from repro_torch.kernels import batched_gram as bg
+
+    rng = _rng("grid")
+    x1 = torch.from_numpy(rng.normal(size=(65_537, 4, 4)).astype(np.float32)).to(cuda_device)
+    x2 = torch.from_numpy(rng.normal(size=(65_537, 8, 4)).astype(np.float32)).to(cuda_device)
+    gam = torch.full((65_537,), 0.25, device=cuda_device)
+    tall = torch.from_numpy(rng.normal(size=(2, bg.MAX_GRID_Y * 64 + 5, 4)).astype(np.float32))
+    tall = tall.to(cuda_device)
+    spec = ops.KERNEL_REGISTRY["batched_rbf_gram"]
+    for args, launches in (((x1, x2, gam), 2), ((tall, x2[:2], gam[:2]), 4)):
+        rows = bg.tile_plan(args[0].shape[1], args[1].shape[1], 4)[0]
+        assert len(bg.launch_slices(args[0].shape[0], args[0].shape[1], rows)) == launches
+        before = spec.counter.count
+        got = ops.batched_rbf_gram(*args)
+        assert spec.counter.count == before + launches
+        np.testing.assert_allclose(got.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                                   atol=spec.tol, rtol=0)
+    one = ops.KERNEL_REGISTRY["rbf_gram"]
+    before = one.counter.count
+    got = ops.rbf_gram(tall[0], x2[0], 0.25)
+    assert one.counter.count == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), one.plain(tall[0], x2[0], 0.25).cpu().numpy(),
+                               atol=one.tol, rtol=0)
 
 
 def test_pallas_train_step_on_the_card_raises(cuda_device):

@@ -57,7 +57,8 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert r.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
