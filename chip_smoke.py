@@ -153,7 +153,8 @@ It imports the port and nothing of JAX or of the reference package
            (ledgers, ids and best k equal, AUCs within 1e-4); (c) the emnist
            round at d 784 in fp32 on cuda at a quarter of Table 1's scale
            (865 devices; the full 3,462 pushed the script past its time on
-           a slow host): seconds, spans, AUCs, launches; (d) ``train_svm`` on the ideal's 16,384
+           a slow host; ``tools/wide_round.py`` runs them): seconds, spans,
+           AUCs, launches, each kernel's summed launch times; (d) ``train_svm`` on the ideal's 16,384
            rows (bucket 16,384, the global SDCA) on cuda and on cpu, AUCs
            on the pooled test rows within 1e-4; every lifted kernel
            launched in (b)-(d);
@@ -379,6 +380,7 @@ the detailed timings there as JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -1916,6 +1918,42 @@ def wide_federation(scale, dim):
     return ds, time.perf_counter() - t0
 
 
+def wide_full_round(ops, trace, ds, device):
+    """(c) of the wide phase: the emnist round on ``ds`` (d 784, fp32) on
+    ``device``, traced: its wall seconds, spans, AUCs, best k, launches and
+    each kernel's summed launch times (the tracer's CUDA events, inside
+    the spans). Raises if an AUC is not finite or lies outside [0, 1].
+    ``tools/wide_round.py`` runs it at Table 1's full scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.protocol import run_protocol
+
+    before = ops.launch_counts()
+    tracer = trace.Tracer()
+    t0 = time.perf_counter()
+    with trace.use_tracer(tracer):
+        res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    after = ops.launch_counts()
+    aucs = auc_values(res)
+    kernel_s = collections.Counter()   # each launch's CUDA-event time, inside the spans
+    for e in tracer.events:
+        if e.get("cat") == "kernel":
+            kernel_s[e["name"][len("kernel."):]] += e["args"]["dur_s"]
+    out = {"dim": ds.devices[0].x.shape[1], "devices": ds.n_devices,
+           "samples": int(sum(dv.n for dv in ds.devices)), "round_seconds": wall,
+           "spans": {k: v for k, v in sorted(tracer.span_seconds().items())},
+           "kernel_seconds": dict(sorted(kernel_s.items())),
+           "local_mean_auc": res.local_mean_auc, "ideal_mean_auc": res.ideal_mean_auc,
+           "full_ensemble_auc": res.full_ensemble_auc, "best": res.best,
+           "launches": {k: after[k] - before[k] for k in after}}
+    if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
+        raise AssertionError("wide (c): AUCs not finite or outside [0, 1]")
+    return out
+
+
 def phase_wide(ops, trace, device):
     """The SVM path past the kernels' staged limits. From the start two
     spawned workers run the cpu rounds (``wide_cpu_rounds``) and the cpu
@@ -1927,8 +1965,8 @@ def phase_wide(ops, trace, device):
     launches counted from
     0: (b) WIDE_ROUNDS on cuda
     against the cpu's (ledgers, ids and best k equal, AUCs within 1e-4);
-    (c) the emnist round at d 784 in fp32 on cuda at WIDE_FULL_SCALE,
-    timed, its spans and launches; (d) ``train_svm`` on the ideal's
+    (c) ``wide_full_round`` on the emnist federation at d 784 and
+    WIDE_FULL_SCALE; (d) ``train_svm`` on the ideal's
     16,384 rows on cuda (bucket 16,384: the global SDCA), its AUC on the
     pooled test rows within 1e-4 of the cpu solve's. Every lifted kernel
     must launch in (b)-(d)."""
@@ -1938,7 +1976,6 @@ def phase_wide(ops, trace, device):
     import numpy as np
     import torch
 
-    from repro_torch.core.protocol import run_protocol
     from repro_torch.core.svm import SDCA_BUCKET, train_svm, validation_auc
 
     out = {}
@@ -1970,27 +2007,10 @@ def phase_wide(ops, trace, device):
         t0 = time.perf_counter()
         ds, gen_s = fed_future.result()
         wait_s = time.perf_counter() - t0
-        before = ops.launch_counts()
-        tracer = trace.Tracer()
-        t0 = time.perf_counter()
-        with trace.use_tracer(tracer):
-            res = run_protocol(ds, ks=MAIN_KS, random_trials=3, device=device)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        after = ops.launch_counts()
-        aucs = auc_values(res)
-        out["full"] = {"dim": WIDE_FULL_DIM, "scale": WIDE_FULL_SCALE, "devices": ds.n_devices,
-                       "samples": int(sum(dv.n for dv in ds.devices)),
-                       "generate_seconds": gen_s, "generate_wait_seconds": wait_s,
-                       "round_seconds": wall,
-                       "spans": {k: v for k, v in sorted(tracer.span_seconds().items())},
-                       "local_mean_auc": res.local_mean_auc,
-                       "ideal_mean_auc": res.ideal_mean_auc,
-                       "full_ensemble_auc": res.full_ensemble_auc, "best": res.best,
-                       "launches": {k: after[k] - before[k] for k in after}}
-        if not np.all(np.isfinite(aucs)) or aucs.min() < 0.0 or aucs.max() > 1.0:
-            raise AssertionError("wide (c): AUCs not finite or outside [0, 1]")
-        del ds, res
+        out["full"] = {"scale": WIDE_FULL_SCALE, "generate_seconds": gen_s,
+                       "generate_wait_seconds": wait_s,
+                       **wide_full_round(ops, trace, ds, device)}
+        del ds
         t0 = time.perf_counter()
         model = train_svm(x, y, device=device)
         ideal_auc = validation_auc(model, xt, yt)
@@ -2118,8 +2138,8 @@ DEVICE_CHECK_MS = 1.0    # a call this long by events is device-bound: see devic
 def device_time(fn, args, reps, call_ms=0.0):
     """At least ``reps`` back-to-back calls of ``fn(*args)`` (warm) under
     the profiler, read as ``profile_call`` reads it: (device ms a call,
-    the kernels' launches the profiler recorded, their names, the windows'
-    calls). Nothing else runs on the card in the window; each kernel's
+    the kernels' launches the profiler recorded, each kernel's device ms a
+    call by name, the windows' calls). Nothing else runs on the card in the window; each kernel's
     device time over its own count, summed over the call's kernels, is the
     call's device time (the profiler does not record the window's first
     few launches, so the calls made are no divisor). A call of ``call_ms``
@@ -2135,9 +2155,12 @@ def device_time(fn, args, reps, call_ms=0.0):
         kernels = prof["by_kernel"]
         windows.append(calls)
         if kernels:
-            ms = 1e3 * sum(k["seconds"] / k["count"] for k in kernels)
+            split = collections.Counter()   # names are cut at 100 characters: add any alike
+            for k in kernels:
+                split[k["name"]] += 1e3 * k["seconds"] / k["count"]
+            ms = sum(split.values())
             if best is None or ms > best[0]:
-                best = (ms, sum(k["count"] for k in kernels), sorted(k["name"] for k in kernels))
+                best = (ms, sum(k["count"] for k in kernels), dict(sorted(split.items())))
             if call_ms < DEVICE_CHECK_MS or ms >= 0.5 * call_ms:
                 break
         calls *= 4
@@ -4573,7 +4596,7 @@ def phase_timing(ops, device, rng, names):
             library = LIBRARY.get(name)
             turns, reps = time_pair(spec.kernel, spec.plain, targs, library=library)
             try:
-                dev_ms, dev_launches, dev_names, windows = device_time(
+                dev_ms, dev_launches, dev_split, windows = device_time(
                     spec.kernel, targs, reps["kernel"], mean(turns["kernel"]))
             except AssertionError as e:
                 raise AssertionError(f"{name} [{label}]: {e}") from e
@@ -4582,7 +4605,7 @@ def phase_timing(ops, device, rng, names):
             row = {
                 "kernel": name, "case": label,
                 "ms": mean(turns["kernel"]), "device_ms": dev_ms,
-                "device_launches_recorded": dev_launches, "device_kernels": dev_names,
+                "device_launches_recorded": dev_launches, "device_kernels": dev_split,
                 "device_windows": windows,
                 "plain_ms": mean(turns["plain"]),
                 "library_ms": mean(turns["library"]) if library else None,
@@ -4632,7 +4655,6 @@ def phase_profile(ops, device, names, timing_rows, make_dataset, run_protocol, t
     PROFILE_FRAC_MAX`` and ``roofline_bound_us`` the ``timing`` table's
     bound (one function computes both); then ``main``'s emnist round under
     a tracer: one ``kernel.<name>`` span per launch of every kernel."""
-    import collections
     import math
 
     import torch

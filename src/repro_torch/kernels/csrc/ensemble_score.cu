@@ -52,20 +52,34 @@
 // computed and never stored.
 //
 // Feature dims whose tiles outgrow shared memory (smem_bytes(d) > 227 KB, d >
-// 220) take partials_chunked_kernel, one more template over the loader: the
-// same grid, split plan, thread tiles and sums, but the block walks (work
-// item, feature chunk of DC = 64) steps in order, block-synchronously. Each
-// step stages the queries' chunk (re-read from L2 for every item: the whole
-// d of 128 queries no longer fits beside a support tile) and the item's
-// chunk (fp32 by 4-byte cp.async; int8 dequantised through the loader with
-// the plain version's rounding as it is stored), double-buffered, and each
-// thread carries its 8 x 4 cross products across an item's chunks in
-// registers. The coefficients and norms (from the norms pass) come with an
-// item's first chunk, the exp after its last. The queries' norms are fmaf
-// chains over x in global memory. Padded supports are computed with zero
-// coefficients instead of skipped, which adds exactly 0. Every chain runs
-// over the same features in the same order as in the staged kernel, so the
-// two give the same bits wherever both run.
+// 220) take partials_chunked_kernel, one more template over the loader,
+// with the same grid, split plan and sums. query_norms_kernel first chains
+// the queries' |x_q|^2 once a call (coalesced, norms_kernel's chains). Then one
+// block of 256 threads an SM walks its split's items two at a time (an odd
+// last one alone), each pair's features in chunks of DC = 64: a thread owns
+// queries lane + 16 i (i < 8) and supports 4 group .. 4 group + 3 of BOTH
+// items, an 8 x (4 + 4) register tile, so a query float4 read from shared
+// memory feeds 32 FMAs (16 loads per 256 FMAs) and a staged queries' chunk
+// feeds 128 supports. A step's chunks go through a ring of STAGES = 3
+// slots by cp.async, two steps ahead, so a step waits for copies committed
+// two steps before (cp.async.wait_group 1) behind one block barrier: 16-byte
+// copies where d % 4 == 0 and every base is 16-byte aligned (the wrapper's
+// tensors always are), 4-byte ones else. int8 rings the raw chunks and the
+// members' scale and zero chunks (16-byte copies where d % 16 == 0, 4-byte
+// where d % 4 == 0, byte loads else), one step further ahead, and each step
+// dequantises the next step's chunks into one of two fp32 tiles with the
+// plain version's rounding (a byte to its float by PRMT and FADD, exact,
+// not the quarter-rate I2F). An item's coefficients, norms and gamma are
+// loaded before its last chunk's FMAs, its exp after them, item A's terms
+// before item B's. A warp whose rows of an item are all past n_max skips
+// that item, as in the staged kernel. Each chain runs over the same
+// features in the same order, and each thread adds its items' terms in the
+// same order, as in the staged kernel, so the two give the same bits
+// wherever both run. The cross term stays on fp32 FMAs: a tensor-core
+// product would change the bits. At b 8192, k 282, n 230, d 784 it runs at
+// about half the FMA peak with the clock at its top: 254 registers leave
+// two warps a scheduler, and 16 warps an SM (128 registers, 32-feature
+// steps, or 4 x (4 + 4) tiles of 512 threads) spilled and ran slower.
 //
 // Bound on the H100: fp32 operations, about 2d + 8 per query-support pair:
 // 5.71 ms at b 8192, k 2821, n_max 230, d 32 (67 TFLOP/s). The fp32 ensemble
@@ -91,6 +105,13 @@ constexpr int RED_LD = 17;           // row stride of the final per-query sums
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DC = 64;               // features a step of the chunked kernel stages
 constexpr int CLD = DC + 4;          // its tiles' row stride: 17 float4s, odd
+constexpr int STAGES = 3;            // its ring of staged steps
+constexpr int PAIR = 2 * EN;         // supports a step of it covers: two items
+// int8 bytes a step rings: the two items' raw chunks, then each item's scale
+// and zero chunks
+constexpr int RAW_STEP = PAIR * DC + 2 * 2 * DC * 4;
+constexpr int NORM_ROWS = 64;        // rows a block of query_norms_kernel chains, one a thread
+constexpr int NORM_DC = 32;          // features it stages at a time, a warp a row
 constexpr int MAX_SMEM = 232448;     // shared memory a block may take (227 KB)
 
 // d rounded up to a float4
@@ -112,11 +133,18 @@ int smem_bytes(int d) {
   return 4 * floats + (d == FAST_D ? 2 * WARPS * RAW_WARP : 0);
 }
 
-// the chunked kernel: two buffers of the queries' and the item's chunks (the
-// first reused as the [BQ][RED_LD] group sums), coefficients and norms of
-// two items, the queries' norms
-constexpr int chunked_smem_bytes() { return 4 * (2 * (BQ + EN) * CLD + 4 * EN + BQ); }
-static_assert(2 * (BQ + EN) * CLD >= BQ * RED_LD, "group sums fit the buffers");
+// the chunked kernel: a ring of STAGES queries' chunks (the first reused as
+// the [BQ][RED_LD] group sums); fp32, a ring of STAGES two items' chunks;
+// int8, two dequantised two items' chunks and a ring of STAGES raw steps;
+// the queries' norms
+template <bool INT8>
+constexpr int chunked_smem_bytes() {
+  return INT8 ? 4 * (STAGES * BQ * CLD + 2 * PAIR * CLD + BQ) + STAGES * RAW_STEP
+              : 4 * (STAGES * (BQ + PAIR) * CLD + BQ);
+}
+static_assert(BQ * CLD >= BQ * RED_LD, "group sums fit a queries' chunk");
+static_assert(chunked_smem_bytes<false>() <= MAX_SMEM && chunked_smem_bytes<true>() <= MAX_SMEM,
+              "the chunked kernel fits a block");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -229,31 +257,6 @@ __device__ __forceinline__ bool dequantise(const Int8Supports&, int r0, int ld, 
   }
 }
 
-// The chunked kernel's support chunk: features c0 .. c0 + DC - 1 (those at
-// or past dp never read) of the item's rows j0 .. j0 + EN - 1, zero past
-// `rows` or d. fp32: 4-byte copies; int8: through the loader.
-__device__ __forceinline__ void stage_chunk(const Fp32Supports& sup, int t, int j0, int rows,
-                                            int n_max, int d, int c0, float* St, int tid) {
-  const int dp = padded(d);
-  const float* s = sup.s + ((int64_t)t * n_max + j0) * d;
-  for (int i = tid; i < EN * DC; i += THREADS) {
-    const int r = i / DC, c = i % DC;
-    if (c0 + c >= dp) continue;
-    const bool valid = r < rows && c0 + c < d;
-    cp_async4(St + r * CLD + c, s + (valid ? (int64_t)r * d + c0 + c : 0), valid);
-  }
-}
-__device__ __forceinline__ void stage_chunk(const Int8Supports& sup, int t, int j0, int rows,
-                                            int n_max, int d, int c0, float* St, int tid) {
-  const int dp = padded(d);
-  const Int8Supports m = sup.member(t, n_max, d);
-  for (int i = tid; i < EN * DC; i += THREADS) {
-    const int r = i / DC, c = i % DC;
-    if (c0 + c >= dp) continue;
-    St[r * CLD + c] = r < rows && c0 + c < d ? m.at(j0 + r, c0 + c, d) : 0.f;
-  }
-}
-
 template <class Supports>
 __global__ void norms_kernel(const Supports sup, float* __restrict__ norms, int k, int n_max,
                              int d) {
@@ -267,6 +270,35 @@ __global__ void norms_kernel(const Supports sup, float* __restrict__ norms, int 
     s = fmaf(v, v, s);
   }
   norms[j] = s;
+}
+
+// the chunked kernel's queries' |x_q|^2, once a call: norms_kernel's fmaf
+// chain a row in ascending feature order, but a block stages its NORM_ROWS
+// rows NORM_DC features at a time, a warp reading NORM_DC consecutive
+// features of a row (coalesced), every load of a thread in flight at once,
+// and each thread then carries its row's chain over the staged features
+__global__ void __launch_bounds__(NORM_ROWS)
+query_norms_kernel(const float* __restrict__ x, float* __restrict__ xnorms, int b, int d) {
+  constexpr int WARPS_N = NORM_ROWS / 32, PER = NORM_ROWS / WARPS_N;  // rows a warp loads
+  __shared__ float tile[NORM_ROWS][NORM_DC + 1];
+  const int tid = threadIdx.x, lane = tid % 32, q0 = blockIdx.x * NORM_ROWS;
+  float s = 0.f;
+  for (int c0 = 0; c0 < d; c0 += NORM_DC) {
+    const int c = c0 + lane;
+    float v[PER];
+#pragma unroll
+    for (int m = 0; m < PER; ++m) {
+      const int q = q0 + tid / 32 + WARPS_N * m;
+      v[m] = q < b && c < d ? __ldg(x + (int64_t)q * d + c) : 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < PER; ++m) tile[tid / 32 + WARPS_N * m][lane] = v[m];
+    __syncthreads();
+    const int width = min(NORM_DC, d - c0);
+    for (int i = 0; i < width; ++i) s = fmaf(tile[tid][i], tile[tid][i], s);
+    __syncthreads();
+  }
+  if (q0 + tid < b) xnorms[q0 + tid] = s;
 }
 
 // acc[i][s] += x_i . s_s over features 0 .. width - 1 (a multiple of 4), one
@@ -291,6 +323,43 @@ __device__ __forceinline__ void fma_tile(float (&acc)[TQ][TS], const float* Xs, 
         acc[i][s] = fmaf(xv.y, sv[s].y, acc[i][s]);
         acc[i][s] = fmaf(xv.z, sv[s].z, acc[i][s]);
         acc[i][s] = fmaf(xv.w, sv[s].w, acc[i][s]);
+      }
+    }
+  }
+}
+
+// The chunked kernel's FMAs over one chunk of `width` features (a multiple
+// of 4): acc += x . s, rows lane + 16 i of Xs against supports TS grp ..
+// TS grp + 3 of SA into a and, with TWO, of SB into b, each query float4
+// feeding both; one fmaf chain a pair in ascending feature order, row
+// stride CLD
+template <bool TWO>
+__device__ __forceinline__ void fma_chunk(float (&a)[TQ][TS], float (&b)[TQ][TS], const float* Xs,
+                                          const float* SA, const float* SB, int width, int lane,
+                                          int grp) {
+#pragma unroll 4
+  for (int c = 0; c < width; c += 4) {
+    float4 sa[TS], sb[TS];
+#pragma unroll
+    for (int s = 0; s < TS; ++s) {
+      sa[s] = *reinterpret_cast<const float4*>(SA + (TS * grp + s) * CLD + c);
+      if constexpr (TWO) sb[s] = *reinterpret_cast<const float4*>(SB + (TS * grp + s) * CLD + c);
+    }
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + (lane + 16 * i) * CLD + c);
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        a[i][s] = fmaf(xv.x, sa[s].x, a[i][s]);
+        a[i][s] = fmaf(xv.y, sa[s].y, a[i][s]);
+        a[i][s] = fmaf(xv.z, sa[s].z, a[i][s]);
+        a[i][s] = fmaf(xv.w, sa[s].w, a[i][s]);
+        if constexpr (TWO) {
+          b[i][s] = fmaf(xv.x, sb[s].x, b[i][s]);
+          b[i][s] = fmaf(xv.y, sb[s].y, b[i][s]);
+          b[i][s] = fmaf(xv.z, sb[s].z, b[i][s]);
+          b[i][s] = fmaf(xv.w, sb[s].w, b[i][s]);
+        }
       }
     }
   }
@@ -420,99 +489,284 @@ partials_kernel(const float* __restrict__ x, const Supports sup, const float* __
   write_partial(accq, Ss, partial, b, q0, blockIdx.y, tid, lane, grp);
 }
 
-// Any d: (work item, chunk) steps in order, block-synchronous (see the
-// header). Step s = (item i0 + s / chunks, chunk s % chunks) reads buffer
-// s & 1; an item's coefficients and norms sit in slot (s / chunks) & 1.
-template <class Supports>
-__global__ void __launch_bounds__(THREADS, 2)
+// byte `sel & 3` of u (an int8 + 128) as the int8's float: __byte_perm puts
+// it under 2^23's exponent (0x4B0000xx), then 2^23 + 128 comes off, exactly
+__device__ __forceinline__ float byte_float(uint32_t u, uint32_t sel) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
+}
+
+// A work item of the chunked kernel: its member, first support and real
+// rows (0: past the split)
+struct Item {
+  int t, j0, rows;
+};
+// rows of an item that warps read: its real ones, then zeros up to the last
+// warp that has real ones (the rest are neither staged nor read)
+__device__ __forceinline__ int live_rows(int rows) { return (rows + WROWS - 1) / WROWS * WROWS; }
+
+// Any d (see the header): the split's items in pairs, an odd last one alone,
+// and each pair's feature chunks in order; step u = (pair u / chunks, chunk
+// u % chunks). Ring slot u % STAGES holds step u's queries' chunk and, fp32,
+// its two items' chunks; int8 rings the raw chunks one step further ahead
+// and dequantises step u + 1's during step u, into tile (u + 1) & 1. The
+// copies committed in step s are step s + 2's (int8: its queries' chunk and
+// step s + 3's raw chunks), so cp.async.wait_group<STAGES - 2> at the top of
+// step s waits for the copies committed two steps before, no later ones.
+// Thread (grp, lane) owns queries lane + 16 i and supports TS grp .. TS grp
+// + 3 of both items, as partials_kernel's threads own one item's.
+template <class Supports, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 partials_chunked_kernel(const float* __restrict__ x, const Supports sup,
                         const float* __restrict__ coef, const float* __restrict__ gammas,
-                        const float* __restrict__ norms, float* __restrict__ partial, int b,
-                        int n_max, int d, int tiles, int per_split, int items) {
+                        const float* __restrict__ norms, const float* __restrict__ xnorms,
+                        float* __restrict__ partial, int b, int n_max, int d, int tiles,
+                        int per_split, int items) {
+  constexpr bool INT8 = Supports::INT8;
+  constexpr int F4 = DC / 4;  // float4s of a row's chunk
   extern __shared__ float4 smem4[];
-  float* buf0 = reinterpret_cast<float*>(smem4);  // [2][BQ + EN][CLD]: queries, then supports
-  float* cs = buf0 + 2 * (BQ + EN) * CLD;          // [2][EN] coefficients
-  float* ns = cs + 2 * EN;                         // [2][EN] support norms
-  float* sxs = ns + 2 * EN;                        // [BQ] the queries' norms
+  float* Xr = reinterpret_cast<float*>(smem4);  // [STAGES][BQ][CLD] the queries' chunks
+  float* Sr = Xr + STAGES * BQ * CLD;           // [STAGES (int8: 2)][PAIR][CLD] the items'
+  float* sxs = Sr + (INT8 ? 2 : STAGES) * PAIR * CLD;               // [BQ] queries' norms
+  unsigned char* raw = reinterpret_cast<unsigned char*>(sxs + BQ);  // int8: [STAGES][RAW_STEP]
 
-  const int tid = threadIdx.x, lane = tid % 16, grp = tid / 16;
+  const int tid = threadIdx.x, lane = tid % 16, grp = tid / 16, r0 = WROWS * (tid / 32);
   const int q0 = blockIdx.x * BQ;
   const int i0 = blockIdx.y * per_split, i1 = min(i0 + per_split, items);
   const int dp = padded(d), chunks = (dp + DC - 1) / DC;
-  const int steps = (i1 - i0) * chunks;
+  const int steps = (i1 - i0 + 1) / 2 * chunks;
 
-  auto stage = [&](int s) {
-    float* Xs = buf0 + (s & 1) * (BQ + EN) * CLD;
-    const int it = i0 + s / chunks, c0 = (s % chunks) * DC;
-    const int t = it / tiles, j0 = (it - t * tiles) * EN, rows = min(EN, n_max - j0);
-    for (int i = tid; i < BQ * DC; i += THREADS) {
-      const int r = i / DC, c = i % DC;
-      if (c0 + c >= dp) continue;
-      const bool valid = q0 + r < b && c0 + c < d;
-      cp_async4(Xs + r * CLD + c, x + (valid ? (int64_t)(q0 + r) * d + c0 + c : 0), valid);
+  auto item = [&](int it) {
+    Item m{0, 0, 0};
+    if (it < i1) {
+      m.t = it / tiles;
+      m.j0 = (it - m.t * tiles) * EN;
+      m.rows = min(EN, n_max - m.j0);
     }
-    stage_chunk(sup, t, j0, rows, n_max, d, c0, Xs + BQ * CLD, tid);
-    if (s % chunks == 0 && tid < 2 * EN) {
-      const int r = tid % EN, slot = (s / chunks) & 1;
-      const bool valid = r < rows;
-      const int64_t off = (int64_t)t * n_max + j0 + (valid ? r : 0);
-      if (tid < EN) cp_async4(cs + slot * EN + r, coef + off, valid);
-      else cp_async4(ns + slot * EN + r, norms + off, valid);
+    return m;
+  };
+
+  // step u's queries' chunk into ring slot u % STAGES
+  auto stage_x = [&](int u) {
+    const int c0 = (u % chunks) * DC;
+    float* Xs = Xr + (u % STAGES) * BQ * CLD;
+    if constexpr (VEC) {  // float4 tid % F4 of rows tid / F4 + THREADS / F4 m
+      const int c = 4 * (tid % F4);
+      if (c0 + c < dp) {
+#pragma unroll
+        for (int r = tid / F4; r < BQ; r += THREADS / F4) {
+          const bool valid = q0 + r < b;
+          cp_async16(Xs + r * CLD + c, x + (int64_t)(valid ? q0 + r : 0) * d + c0 + c, valid);
+        }
+      }
+    } else {  // feature tid % DC of rows tid / DC + THREADS / DC m
+      const int c = tid % DC;
+      if (c0 + c < dp) {
+#pragma unroll 4
+        for (int r = tid / DC; r < BQ; r += THREADS / DC) {
+          const bool valid = q0 + r < b && c0 + c < d;
+          cp_async4(Xs + r * CLD + c, x + (valid ? (int64_t)(q0 + r) * d + c0 + c : 0), valid);
+        }
+      }
     }
   };
 
-  if (steps > 0) stage(0);
-  cp_async_commit();
-  if (tid < BQ) {  // the queries' norms: the staged kernel's chains, from global memory
-    float s = 0.f;
-    if (q0 + tid < b) {
-      const float* xr = x + (int64_t)(q0 + tid) * d;
-      for (int c = 0; c < d; ++c) s = fmaf(xr[c], xr[c], s);
-    }
-    sxs[tid] = s;
-  }
-  __syncthreads();
-  float sx[TQ], accq[TQ];
+  // step v's two items: fp32, their chunks into ring slot v % STAGES; int8,
+  // their raw chunks (16-byte copies where d % 16 == 0, 4-byte ones where
+  // d % 4 == 0, else byte loads) and each member's scale and zero chunks
+  // into raw slot v % STAGES
+  auto stage_items = [&](int v) {
+    const int p = v / chunks, c0 = (v - p * chunks) * DC;
+    for (int h = 0; h < 2; ++h) {
+      const Item it = item(i0 + 2 * p + h);
+      const int live = live_rows(it.rows);
+      const int64_t row0 = (int64_t)it.t * n_max + it.j0;
+      if constexpr (!INT8) {
+        float* Ss = Sr + ((v % STAGES) * PAIR + h * EN) * CLD;
+        const float* s = sup.s + row0 * d;
+        if constexpr (VEC) {
+          const int c = 4 * (tid % F4);
+          if (c0 + c < dp) {
 #pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    sx[i] = sxs[lane + 16 * i];
-    accq[i] = 0.f;
+            for (int r = tid / F4; r < EN; r += THREADS / F4) {
+              if (r >= live) break;
+              const bool valid = r < it.rows;
+              cp_async16(Ss + r * CLD + c, s + (valid ? (int64_t)r * d : 0) + c0 + c, valid);
+            }
+          }
+        } else {
+          const int c = tid % DC;
+          if (c0 + c < dp) {
+#pragma unroll 4
+            for (int r = tid / DC; r < EN; r += THREADS / DC) {
+              if (r >= live) break;
+              const bool valid = r < it.rows && c0 + c < d;
+              cp_async4(Ss + r * CLD + c, s + (valid ? (int64_t)r * d + c0 + c : 0), valid);
+            }
+          }
+        }
+      } else {
+        if (it.rows == 0) continue;
+        unsigned char* rr = raw + (v % STAGES) * RAW_STEP + h * EN * DC;
+        const int8_t* q = sup.q + row0 * d;
+        if (VEC && d % 16 == 0) {  // 16-byte piece tid % 4 of row tid / 4
+          const int r = tid / (DC / 16), c = 16 * (tid % (DC / 16));
+          if (r < live && c0 + c < dp) {
+            const bool valid = r < it.rows;
+            cp_async16(rr + r * DC + c, q + (valid ? (int64_t)r * d : 0) + c0 + c, valid);
+          }
+        } else if (VEC) {  // 4-byte word tid % F4 of rows tid / F4 + THREADS / F4 m
+          const int c = 4 * (tid % F4);
+          if (c0 + c < dp) {
+#pragma unroll
+            for (int r = tid / F4; r < EN; r += THREADS / F4) {
+              if (r >= live) break;
+              const bool valid = r < it.rows;
+              cp_async4(rr + r * DC + c, q + (valid ? (int64_t)r * d : 0) + c0 + c, valid);
+            }
+          }
+        } else {  // byte tid % DC of rows tid / DC + THREADS / DC m, loaded and stored
+          const int c = tid % DC;
+          if (c0 + c < dp) {
+#pragma unroll 4
+            for (int r = tid / DC; r < EN; r += THREADS / DC) {
+              if (r >= live) break;
+              rr[r * DC + c] = r < it.rows && c0 + c < d
+                                   ? static_cast<unsigned char>(__ldg(q + (int64_t)r * d + c0 + c))
+                                   : 0;
+            }
+          }
+        }
+        // the member's scale (e < DC) and zero (e >= DC) over the chunk's
+        // features, 0 past d
+        const float* scale = sup.scale + (int64_t)it.t * d;
+        const float* zero = sup.zero + (int64_t)it.t * d;
+        float* sz = reinterpret_cast<float*>(raw + (v % STAGES) * RAW_STEP + PAIR * DC) + h * 2 * DC;
+        if constexpr (VEC) {
+          if (tid < 2 * F4) {
+            const int e = 4 * tid, c = c0 + e % DC;
+            const bool valid = c < d;
+            cp_async16(sz + e, (e < DC ? scale : zero) + (valid ? c : 0), valid);
+          }
+        } else if (tid < 2 * DC) {
+          const int c = c0 + tid % DC;
+          const bool valid = c < d;
+          cp_async4(sz + tid, (tid < DC ? scale : zero) + (valid ? c : 0), valid);
+        }
+      }
+    }
+  };
+
+  // int8: raw slot v % STAGES into tile v & 1 with the plain version's
+  // rounding (a rounded multiply, then a rounded add): a thread does
+  // features 4 (tid % F4) .. + 3 of rows tid / F4 + THREADS / F4 m
+  auto dequantise_step = [&](int v) {
+    const int p = v / chunks, c0 = (v - p * chunks) * DC, c = 4 * (tid % F4);
+    if (c >= dp - c0) return;
+    const unsigned char* rw = raw + (v % STAGES) * RAW_STEP;
+    float* St = Sr + (v & 1) * PAIR * CLD;
+    for (int h = 0; h < 2; ++h) {
+      const Item it = item(i0 + 2 * p + h);
+      const int live = live_rows(it.rows);
+      const float* scale = reinterpret_cast<const float*>(rw + PAIR * DC) + h * 2 * DC;
+      const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+      const float4 ze = *reinterpret_cast<const float4*>(scale + DC + c);
+#pragma unroll
+      for (int r = tid / F4; r < EN; r += THREADS / F4) {
+        if (r >= live) break;
+        // each byte q as a float exactly, without I2F: q + 128 into the low
+        // byte of 2^23's bits, less 2^23 + 128
+        const uint32_t u =
+            *reinterpret_cast<const uint32_t*>(rw + (h * EN + r) * DC + c) ^ 0x80808080u;
+        float4 s;
+        s.x = __fadd_rn(__fmul_rn(byte_float(u, 0x7540), sc.x), ze.x);
+        s.y = __fadd_rn(__fmul_rn(byte_float(u, 0x7541), sc.y), ze.y);
+        s.z = __fadd_rn(__fmul_rn(byte_float(u, 0x7542), sc.z), ze.z);
+        s.w = __fadd_rn(__fmul_rn(byte_float(u, 0x7543), sc.w), ze.w);
+        *reinterpret_cast<float4*>(St + (h * EN + r) * CLD + c) = s;
+      }
+    }
+  };
+
+  // the copies committed two steps before step u: its queries' chunk, and
+  // its items' chunks (int8: step u + 1's raw ones)
+  auto prefetch = [&](int u) {
+    if (u < steps) stage_x(u);
+    if (u + INT8 < steps) stage_items(u + INT8);
+  };
+
+  if (INT8 && steps > 0) stage_items(0);
+  prefetch(0);
+  cp_async_commit();
+  prefetch(1);
+  cp_async_commit();
+  if (tid < BQ) sxs[tid] = q0 + tid < b ? xnorms[q0 + tid] : 0.f;
+  if (INT8 && steps > 0) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    dequantise_step(0);
   }
 
-  float acc[TQ][TS];
+  float accq[TQ], a[TQ][TS], bb[TQ][TS];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) accq[i] = 0.f;
+  // the pair's coefficients and norms (0 past an item's rows, as the staged
+  // kernel's) and members' gammas, loaded before its last chunk's FMAs
+  float cs[2][TS], ns[2][TS], gl[2];
+  auto rbf = [&](float (&acc)[TQ][TS], int h) {
+#pragma unroll
+    for (int s = 0; s < TS; ++s) {
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const float d2 = fmaxf(sxs[lane + 16 * i] + ns[h][s] - 2.f * acc[i][s], 0.f);
+        accq[i] = fmaf(cs[h][s], ex2(gl[h] * d2), accq[i]);
+      }
+    }
+  };
+
   for (int s = 0; s < steps; ++s) {
-    const int k = s % chunks;
-    cp_async_wait<0>();
-    __syncthreads();  // step s has landed; everyone is done with buffer (s + 1) & 1
-    if (s + 1 < steps) stage(s + 1);
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step s has landed; every thread is done with step s - 1
+    prefetch(s + 2);  // into the slots step s - 1 read
     cp_async_commit();
-    const float* Xs = buf0 + (s & 1) * (BQ + EN) * CLD;
-    const float* St = Xs + BQ * CLD;
-    const int width = min(DC, dp - k * DC);
+    if (INT8 && s + 1 < steps) dequantise_step(s + 1);
+
+    const int p = s / chunks, k = s - p * chunks, width = min(DC, dp - k * DC);
+    const Item A = item(i0 + 2 * p), B = item(i0 + 2 * p + 1);
+    const bool doA = r0 < A.rows, doB = r0 < B.rows;  // as the staged kernel's warps
+    const float* Xs = Xr + (s % STAGES) * BQ * CLD;
+    const float* SA = Sr + (INT8 ? s & 1 : s % STAGES) * PAIR * CLD;
+    const float* SB = SA + EN * CLD;
     if (k == 0) {
 #pragma unroll
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
-        for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TS; ++j) a[i][j] = bb[i][j] = 0.f;
     }
-    fma_tile<8>(acc, Xs, St, CLD, width, lane, grp);
-    if (k == chunks - 1) {  // the item's last chunk: the exp
-      const int slot = (s / chunks) & 1;
-      const float gl = -__ldg(gammas + (i0 + s / chunks) / tiles) * LOG2E;
+    if (k == chunks - 1) {
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const float cj = cs[slot * EN + TS * grp + j], nj = ns[slot * EN + TS * grp + j];
+      for (int h = 0; h < 2; ++h) {
+        const Item& it = h ? B : A;
+        gl[h] = it.rows ? -__ldg(gammas + it.t) * LOG2E : 0.f;
 #pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          const float d2 = fmaxf(sx[i] + nj - 2.f * acc[i][j], 0.f);
-          accq[i] = fmaf(cj, ex2(gl * d2), accq[i]);
+        for (int j = 0; j < TS; ++j) {
+          const int r = TS * grp + j;
+          const int64_t off = (int64_t)it.t * n_max + it.j0 + r;
+          cs[h][j] = r < it.rows ? __ldg(coef + off) : 0.f;
+          ns[h][j] = r < it.rows ? __ldg(norms + off) : 0.f;
         }
       }
+    }
+    if (doA && doB) fma_chunk<true>(a, bb, Xs, SA, SB, width, lane, grp);
+    else if (doA) fma_chunk<false>(a, a, Xs, SA, SA, width, lane, grp);
+    else if (doB) fma_chunk<false>(bb, bb, Xs, SB, SB, width, lane, grp);
+    if (k == chunks - 1) {  // the pair's last chunk: A's exp, then B's
+      if (doA) rbf(a, 0);
+      if (doB) rbf(bb, 1);
     }
   }
 
   cp_async_wait<0>();
-  write_partial(accq, buf0, partial, b, q0, blockIdx.y, tid, lane, grp);
+  write_partial(accq, Xr, partial, b, q0, blockIdx.y, tid, lane, grp);
 }
 
 __global__ void mean_kernel(const float* __restrict__ partial, float* __restrict__ out, int b,
@@ -541,24 +795,26 @@ int launch_partials(const float* x, const Supports sup, const float* coef, const
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Supports>
+template <class Supports, bool VEC>
 int launch_chunked(const float* x, const Supports sup, const float* coef, const float* gammas,
-                   const float* norms, float* partial, int b, int k, int n_max, int d,
-                   int per_split, int splits, cudaStream_t stream) {
-  constexpr int smem = chunked_smem_bytes();
-  const cudaError_t err = cudaFuncSetAttribute(
-      partials_chunked_kernel<Supports>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   const float* norms, const float* xnorms, float* partial, int b, int k,
+                   int n_max, int d, int per_split, int splits, cudaStream_t stream) {
+  constexpr int smem = chunked_smem_bytes<Supports::INT8>();
+  const cudaError_t err = cudaFuncSetAttribute(partials_chunked_kernel<Supports, VEC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (n_max + EN - 1) / EN;
   const dim3 grid((b + BQ - 1) / BQ, splits);
-  partials_chunked_kernel<Supports><<<grid, THREADS, smem, stream>>>(
-      x, sup, coef, gammas, norms, partial, b, n_max, d, tiles, per_split, k * tiles);
+  partials_chunked_kernel<Supports, VEC><<<grid, THREADS, smem, stream>>>(
+      x, sup, coef, gammas, norms, xnorms, partial, b, n_max, d, tiles, per_split, k * tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the three passes on one stream; norms (k * n_max) and partial (splits * b)
-// are the wrapper's scratch. The staged partials kernel where its tiles fit
-// in shared memory, the chunked one past that (or always, with `chunked`).
+// the three passes on one stream; norms (k * n_max, then b for the chunked
+// kernel's queries) and partial (splits * b) are the wrapper's scratch. The
+// staged partials kernel where its tiles fit in shared memory, the chunked
+// one past that (or always, with `chunked`): its 16-byte copies where d % 4
+// == 0 and every base is 16-byte aligned, its 4-byte ones else.
 template <class Supports>
 int launch_scores(const float* x, const Supports sup, const float* coef, const float* gammas,
                   float* norms, float* partial, float* out, int b, int k, int n_max, int d,
@@ -571,15 +827,24 @@ int launch_scores(const float* x, const Supports sup, const float* coef, const f
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int rc =
-      chunked || smem_bytes(d) > MAX_SMEM
-          ? launch_chunked<Supports>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
-                                     per_split, splits, stream)
-      : d == FAST_D
-          ? launch_partials<Supports, FAST_D>(x, sup, coef, gammas, norms, partial, b, k,
+  int rc;
+  if (chunked || smem_bytes(d) > MAX_SMEM) {
+    float* xnorms = norms + n_sup;
+    query_norms_kernel<<<(b + NORM_ROWS - 1) / NORM_ROWS, NORM_ROWS, 0, stream>>>(x, xnorms, b,
+                                                                                  d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rc = d % 4 == 0 && aligned16(x) && sup.aligned()
+             ? launch_chunked<Supports, true>(x, sup, coef, gammas, norms, xnorms, partial, b, k,
                                               n_max, d, per_split, splits, stream)
-          : launch_partials<Supports, 0>(x, sup, coef, gammas, norms, partial, b, k, n_max, d,
-                                         per_split, splits, stream);
+             : launch_chunked<Supports, false>(x, sup, coef, gammas, norms, xnorms, partial, b,
+                                               k, n_max, d, per_split, splits, stream);
+  } else {
+    rc = d == FAST_D ? launch_partials<Supports, FAST_D>(x, sup, coef, gammas, norms, partial, b,
+                                                          k, n_max, d, per_split, splits, stream)
+                     : launch_partials<Supports, 0>(x, sup, coef, gammas, norms, partial, b, k,
+                                                    n_max, d, per_split, splits, stream);
+  }
   if (rc != 0) return rc;
   mean_kernel<<<(b + 255) / 256, 256, 0, stream>>>(partial, out, b, splits, k);
   return static_cast<int>(cudaGetLastError());
@@ -588,7 +853,8 @@ int launch_scores(const float* x, const Supports sup, const float* coef, const f
 }  // namespace
 
 extern "C" int ensemble_score_smem_bytes(int d) { return smem_bytes(d); }
-extern "C" int ensemble_score_chunked_smem_bytes() { return chunked_smem_bytes(); }
+extern "C" int ensemble_score_chunked_smem_bytes() { return chunked_smem_bytes<false>(); }
+extern "C" int ensemble_score_q8_chunked_smem_bytes() { return chunked_smem_bytes<true>(); }
 
 extern "C" int ensemble_score_launch(const float* x, const float* sup, const float* coef,
                                      const float* gammas, float* norms, float* partial,

@@ -15,10 +15,14 @@ exists. ``split_plan`` picks the split from (k, n_max) alone, never from
 b, so a query's score is bit-identical whatever chunk it is scored in.
 Past d 220 the query tile and two support tiles no longer fit in shared
 memory over the whole feature dim, and the launcher takes a chunked
-partials kernel that stages queries and supports 64 features at a time
-and carries each pair's fmaf chain across the chunks: the same chains in
-the same order, so the same bits where both run
-(``ensemble_score_chunked_cuda`` launches it at any d, for that check).
+partials kernel: one block an SM walks its split's items two at a time,
+64 features a step through a three-step ``cp.async`` ring (16-byte
+copies where d % 4 == 0), an 8 x (4 + 4) register tile a thread, the
+queries' norms from one coalesced pass a call. Each pair's fmaf chain
+runs across the chunks in the staged kernel's order, and each thread
+adds its items' terms in the staged kernel's order, so the two give the
+same bits where both run (``ensemble_score_chunked_cuda`` launches it at
+any d, for that check).
 
 Bound on the H100: fp32 operations. A query-support pair costs about
 2d + 8 operations; at the full ensemble (b 8192, k 2821, n_max 230,
@@ -77,15 +81,16 @@ def split_plan(k: int, n_max: int) -> SplitPlan:
 def launch_scores(name: str, counter, fn, x: torch.Tensor, supports: tuple,
                   coef: torch.Tensor, gammas: torch.Tensor) -> torch.Tensor:
     """Allocate the scratch of ``csrc/ensemble_score.cu`` (support norms,
-    per-split partials) and the output, then run its launcher ``fn`` on
-    x (b, d) against ``supports`` (the loader's tensors)."""
+    then the chunked kernel's query norms; per-split partials) and the
+    output, then run its launcher ``fn`` on x (b, d) against ``supports``
+    (the loader's tensors)."""
     b, d = x.shape
     k, n_max = coef.shape
     out = torch.empty((b,), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
     plan = split_plan(k, n_max)
-    norms = torch.empty((k * n_max,), dtype=torch.float32, device=x.device)
+    norms = torch.empty((k * n_max + b,), dtype=torch.float32, device=x.device)
     partial = torch.empty((plan.splits * b,), dtype=torch.float32, device=x.device)
     native.launch(counter, x.device, fn, x.data_ptr(), *(t.data_ptr() for t in supports),
                   coef.data_ptr(), gammas.data_ptr(), norms.data_ptr(), partial.data_ptr(),

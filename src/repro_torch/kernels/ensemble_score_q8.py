@@ -11,8 +11,9 @@ rows of an item and the member's scale and zero rows raw with 16-byte
 are of the dequantised values. Zero coefficients
 annihilate padded rows, whose dequantised value (the zero point) is
 finite. Returns sum / k. Past d 220 the chunked partials kernel (see
-``ensemble_score``) dequantises each 64-feature chunk through the
-loader, with the same rounding.
+``ensemble_score``) rings each step's raw int8 chunks and the members'
+scale and zero chunks by ``cp.async`` and dequantises them in shared
+memory a step ahead of their use, with the same rounding.
 
 Bound on the H100: fp32 operations, as ``ensemble_score`` (5.71 ms at
 the full ensemble); the packed int8 ensemble is a quarter of the fp32

@@ -69,6 +69,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                              _I, _I, _I, _P],
         "ensemble_score_smem_bytes": [_I],
         "ensemble_score_chunked_smem_bytes": [],
+        "ensemble_score_q8_chunked_smem_bytes": [],
     },
     "sdca": {
         # K, y, n_real, alpha, v (fp64 scratch or null), g, b, lam, epochs, stream

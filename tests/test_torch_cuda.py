@@ -1098,6 +1098,62 @@ def test_chunked_paths_against_the_staged_ones(cuda_device, name, d):
         assert torch.equal(staged, chunked)
 
 
+SCORERS = ["ensemble_score", "ensemble_score_q8"]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("d", [221, 784, 1023])
+@pytest.mark.parametrize("name", SCORERS)
+def test_chunked_scorers_match_plain(cuda_device, name, d, offset):
+    """The chunked scorers (16-byte copies at d 784, 4-byte copies and
+    byte loads at the ragged 221 and 1,023) within the registry's tol of
+    the plain version. With ``offset`` the C launcher itself gets an x one
+    float off 16 bytes, so at d 784 it takes the 4-byte instantiation: the
+    wrappers would hand it an aligned copy (``native.kernel_inputs``)."""
+    from repro_torch.kernels import ensemble_score as ens
+    from repro_torch.kernels import native
+
+    spec = ops.KERNEL_REGISTRY[name]
+    args = wide_case(name, d, cuda_device)
+    if offset:
+        x, *sup, coef, gam = args
+        view = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
+        view.copy_(x)
+        assert view.data_ptr() % 16 and all(t.data_ptr() % 16 == 0 for t in sup)
+        lib = native.library("ensemble_score")
+        launcher = {"ensemble_score": lib.ensemble_score_chunked_launch,
+                    "ensemble_score_q8": lib.ensemble_score_q8_chunked_launch}[name]
+        got = ens.launch_scores(name, native.LaunchCounter(name), launcher, view, tuple(sup),
+                                coef, gam)
+    else:
+        got = CHIP_SMOKE.wide_private(name)(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), spec.plain(*args).cpu().numpy(),
+                               atol=spec.tol, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 220])
+@pytest.mark.parametrize("name", SCORERS)
+def test_chunked_scorers_are_the_staged_bits_at_the_rounds_shape(cuda_device, name, d):
+    """At b 8,192, k 282, n 230 (five items a split: two pairs and an odd
+    item, tiles of 64, 64, 64 and 38 rows) the chunked kernel gives the
+    staged kernel's bits."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = CHIP_SMOKE.wide_inputs(name, d, cuda_device, k=282)
+    assert torch.equal(CHIP_SMOKE.wide_private(name)(*args), spec.kernel(*args))
+
+
+@pytest.mark.parametrize("d", [784, 1023])
+@pytest.mark.parametrize("name", SCORERS)
+def test_chunked_scorers_bitwise_across_b_and_launches(cuda_device, name, d):
+    """A row's score is the same bits in an 8,192-row call and in a call
+    of the first 100 rows, and in two launches."""
+    spec = ops.KERNEL_REGISTRY[name]
+    args = CHIP_SMOKE.wide_inputs(name, d, cuda_device, k=282)
+    full = spec.kernel(*args)
+    assert torch.equal(full, spec.kernel(*args))
+    assert torch.equal(full[:100], spec.kernel(args[0][:100].contiguous(), *args[1:]))
+
+
 def _ideal_bucket(cap, device, epochs):
     """The pooled emnist ideal at ``cap`` rows (scale 0.1 pools ~24,000
     train rows): ``train_svm``'s SDCA problem, bucket ceil(cap / 64) * 64."""
@@ -1146,6 +1202,7 @@ def test_smem_mirrors_match_the_libraries(cuda_device):
         fits = [d for d in range(1, 1025) if fn(d) <= native.MAX_SMEM_BYTES]
         assert fits == list(range(1, 221))
     assert ens.ensemble_score_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
+    assert ens.ensemble_score_q8_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
     assert gmv.gram_matvec_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
     shared = [b for b in range(4, 65_537, 4) if sd.sdca_smem_bytes(b) <= native.MAX_SMEM_BYTES]
     assert shared == list(range(4, 12_385, 4))

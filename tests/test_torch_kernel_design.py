@@ -5,7 +5,11 @@ What can be held here is the plan and the arithmetic they follow:
 
 - ``ensemble_score``'s split plan (``kernels/ensemble_score.py::split_plan``)
   covers every (member, support tile) work item exactly once and is chosen
-  without the query count, so a query's score cannot depend on b;
+  without the query count, so a query's score cannot depend on b; its
+  chunked kernel's walk (two items a step, 64 features a step) visits every
+  (item, chunk) once and adds each thread's terms in the staged kernel's
+  order, and its three-slot ``cp.async`` ring, modelled step by step, never
+  reads a slot before its copies land nor refills it before its last read;
 - the bf16 tensor-core flash kernel's arithmetic (``csrc/flash_attention_tc.cu``),
   emulated in plain PyTorch: bf16 products summed in fp32, the online softmax
   in the log2 domain over 64-key tiles, P split into two bf16 parts for P V.
@@ -122,6 +126,143 @@ def test_split_plan_covers_every_item_once(k, n_max):
         assert plan.per_split == 1 and plan.splits == plan.items
     else:
         assert 2 * plan.splits > ens.SPLIT_TARGET
+
+
+# the chunked scorer's walk (csrc/ensemble_score.cu, partials_chunked_kernel)
+ENS_DC = 64      # its DC: features a step
+ENS_WROWS = 8    # its WROWS: the support rows of a warp (two groups of TS = 4)
+
+
+def _ens_source():
+    return (ROOT / "src/repro_torch/kernels/csrc/ensemble_score.cu").read_text()
+
+
+def chunked_walk(plan, split, d):
+    """The chunked kernel's steps for split ``split`` at feature dim d, in
+    order: (the step's items, its first feature, its width). Its items go
+    in pairs, an odd last one alone; each pair's chunks in order."""
+    dp = -(-d // 4) * 4
+    chunks = -(-dp // ENS_DC)
+    i0 = split * plan.per_split
+    i1 = min(i0 + plan.per_split, plan.items)
+    for s in range((i1 - i0 + 1) // 2 * chunks):
+        p, k = divmod(s, chunks)
+        yield ([i for i in (i0 + 2 * p, i0 + 2 * p + 1) if i < i1], k * ENS_DC,
+               min(ENS_DC, dp - k * ENS_DC))
+
+
+def _item_rows(plan, n_max, item):
+    return min(ens.SUPPORT_TILE, n_max - (item % plan.tiles) * ens.SUPPORT_TILE)
+
+
+def _group_terms(plan, n_max, grp, items):
+    """(member, support) terms of support group ``grp`` over ``items`` in
+    order, each item's four supports where the group's warp has real rows
+    of it (the warp skips it else)."""
+    out = []
+    for it in items:
+        t, tile = divmod(it, plan.tiles)
+        if ENS_WROWS * (grp // 2) < _item_rows(plan, n_max, it):
+            out += [(t, tile * ens.SUPPORT_TILE + 4 * grp + s) for s in range(4)]
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 221, 784])
+@pytest.mark.parametrize("k, n_max", [(1, 48), (3, 77), (7, 230), (282, 230), (301, 20),
+                                      (540, 77)])
+def test_chunked_scorer_walk_covers_every_chunk_once_in_the_staged_order(k, n_max, d):
+    """Every (member, tile, chunk) once, each item's chunks in feature
+    order over its split's steps, the splits the plan's; and each thread's
+    per-query sum takes its (member, support) terms in the staged kernel's
+    order: at a pair's last chunk item A's four supports, then B's."""
+    src = _ens_source()
+    for line in ("  const int steps = (i1 - i0 + 1) / 2 * chunks;",
+                 "    const int p = s / chunks, k = s - p * chunks, width = min(DC, dp - k * DC);",
+                 "    const Item A = item(i0 + 2 * p), B = item(i0 + 2 * p + 1);",
+                 "    const bool doA = r0 < A.rows, doB = r0 < B.rows;",
+                 "    if (k == chunks - 1) {  // the pair's last chunk: A's exp, then B's\n"
+                 "      if (doA) rbf(a, 0);\n      if (doB) rbf(bb, 1);"):
+        assert line in src, line
+    plan = ens.split_plan(k, n_max)
+    dp = -(-d // 4) * 4
+    starts = list(range(0, dp, ENS_DC))
+    seen = []
+    for split in range(plan.splits):
+        steps = list(chunked_walk(plan, split, d))
+        visits = [(it, c0) for items, c0, _ in steps for it in items]
+        items = sorted({it for it, _ in visits})
+        assert [divmod(it, plan.tiles) for it in items] == plan.work(split)
+        for it in items:
+            assert [c0 for i, c0 in visits if i == it] == starts
+        assert all(w % 4 == 0 and 0 < w <= ENS_DC and c0 + w <= dp for _, c0, w in steps)
+        seen += items
+        last = [items for items, c0, w in steps if c0 + w == dp]
+        for grp in range(16):
+            chunked = _group_terms(plan, n_max, grp, [it for pair in last for it in pair])
+            assert chunked == _group_terms(plan, n_max, grp, items)   # the staged kernel's walk
+    assert seen == list(range(plan.items))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_chunked_scorer_ring_holds_each_step_until_it_is_read(int8):
+    """The chunked kernel's three-slot ring, modelled step by step: the
+    copies committed at step s (after its barrier) are step s + 2's
+    queries' chunk and (fp32) items' chunks, or (int8) step s + 3's raw
+    chunks; a step waits with cp.async.wait_group<STAGES - 2>, so it sees
+    the groups committed two or more steps before. Every read finds the
+    step it wants landed, and no copy overwrites a slot before its last
+    read (int8: raw slot v read by the dequantisation at step v - 1, tile
+    v & 1 written there and read at step v)."""
+    src = _ens_source()
+    for line in ("    cp_async_wait<STAGES - 2>();\n    __syncthreads();",
+                 "    prefetch(s + 2);", "    if (u < steps) stage_x(u);",
+                 "    if (u + INT8 < steps) stage_items(u + INT8);",
+                 "  if (INT8 && steps > 0) stage_items(0);\n  prefetch(0);\n  cp_async_commit();\n"
+                 "  prefetch(1);\n  cp_async_commit();",
+                 "    if (INT8 && s + 1 < steps) dequantise_step(s + 1);"):
+        assert line in src, line
+    stages = ENS_STAGES
+    for steps in range(1, 14):
+        slots = {}   # (buffer, slot) -> (step held, committed at, read last at)
+        pending = []   # (committed at, buffer, slot, step)
+
+        def prefetch(u, at):
+            if u < steps:
+                pending.append((at, "x", u % stages, u))
+            v = u + int8
+            if v < steps:
+                pending.append((at, "raw" if int8 else "items", v % stages, v))
+
+        def land(upto):   # wait_group: every group committed at or before `upto`
+            for g in [g for g in pending if g[0] <= upto]:
+                pending.remove(g)
+                at, buf, slot, step = g
+                slots[(buf, slot)] = step
+
+        def read(buf, slot, step):
+            assert slots.get((buf, slot)) == step, (steps, buf, slot, step, slots)
+            assert not [g for g in pending if (g[1], g[2]) == (buf, slot)], (buf, slot, step)
+
+        if int8:
+            pending.append((-2, "raw", 0, 0))
+        prefetch(0, -2)
+        prefetch(1, -1)
+        tiles = {}
+        if int8:
+            land(-2)
+            read("raw", 0, 0)
+            tiles[0] = 0
+        for s in range(steps):
+            land(s - 2)
+            prefetch(s + 2, s)   # after the barrier: every thread is done with step s - 1
+            if int8 and s + 1 < steps:
+                read("raw", (s + 1) % stages, s + 1)
+                tiles[(s + 1) % 2] = s + 1
+            read("x", s % stages, s)
+            if int8:
+                assert tiles[s % 2] == s
+            else:
+                read("items", s % stages, s)
 
 
 # ----------------------------------------------------------------------
@@ -945,7 +1086,12 @@ def ens_smem_bytes(d):
     return 4 * (bq * _row_stride(d) + support + 4 * en) + raw
 
 
-ENS_CHUNKED_BYTES = 4 * (2 * (128 + 64) * (GMV_CHUNK + 4) + 4 * 64 + 128)
+ENS_STAGES = 3             # ensemble_score.cu's STAGES: the chunked kernel's ring
+ENS_PAIR = 2 * ens.SUPPORT_TILE   # its PAIR: two items a step
+ENS_RAW_STEP = ENS_PAIR * GMV_CHUNK + 2 * 2 * GMV_CHUNK * 4   # its RAW_STEP (int8 bytes)
+ENS_CHUNKED_BYTES = 4 * (ENS_STAGES * (128 + ENS_PAIR) * (GMV_CHUNK + 4) + 128)
+ENS_Q8_CHUNKED_BYTES = (4 * (ENS_STAGES * 128 * (GMV_CHUNK + 4) + 2 * ENS_PAIR * (GMV_CHUNK + 4)
+                             + 128) + ENS_STAGES * ENS_RAW_STEP)
 
 
 def gmv_smem_bytes(d):
@@ -982,8 +1128,14 @@ def test_wide_smem_formulas_match_the_sources():
     src = {name: (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").read_text()
            for name in ("ensemble_score", "gram_matvec", "gram_q8", "sdca")}
     assert "return 4 * floats + (d == FAST_D ? 2 * WARPS * RAW_WARP : 0);" in src["ensemble_score"]
-    assert ("constexpr int chunked_smem_bytes() { return 4 * (2 * (BQ + EN) * CLD + 4 * EN + BQ); }"
-            in src["ensemble_score"])
+    assert ("  return INT8 ? 4 * (STAGES * BQ * CLD + 2 * PAIR * CLD + BQ) + STAGES * RAW_STEP\n"
+            "              : 4 * (STAGES * (BQ + PAIR) * CLD + BQ);" in src["ensemble_score"])
+    assert f"constexpr int STAGES = {ENS_STAGES};" in src["ensemble_score"]
+    assert "constexpr int PAIR = 2 * EN;" in src["ensemble_score"]
+    assert "constexpr int RAW_STEP = PAIR * DC + 2 * 2 * DC * 4;" in src["ensemble_score"]
+    # one block of the scorers' chunked kernel an SM, two of gram_q8's
+    assert "__launch_bounds__(THREADS, 1)\npartials_chunked_kernel(" in src["ensemble_score"]
+    assert "__launch_bounds__(THREADS, 2)\ngram_q8_chunked_kernel(" in src["gram_q8"]
     assert ("return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;"
             in src["gram_matvec"])
     assert ("constexpr int chunked_smem_bytes() { return 4 * 2 * (BQ + TILE) * CLD + 8 * 2 * TILE + 8 * BQ; }"
@@ -1024,12 +1176,14 @@ def test_staged_paths_are_chosen_exactly_where_they_fit_today():
 def test_chunked_and_global_instantiations_fit_every_shape():
     """The chunked kernels' shared memory does not depend on d, nor the
     global SDCA's on b: one size for every d up to 4,096 and every bucket
-    up to 65,536, within a block's 227 KB, and two blocks an SM for the
-    two chunked kernels that promise two (__launch_bounds__(THREADS, 2);
-    1 KB an SM is the runtime's)."""
-    for bytes_ in (ENS_CHUNKED_BYTES, Q8_CHUNKED_BYTES):
-        assert 2 * (bytes_ + 1024) <= 233_472
-    assert GMV_CHUNKED_BYTES <= MAX_SMEM
+    up to 65,536, within a block's 227 KB, and two blocks an SM for
+    gram_q8's chunked kernel, which promises two
+    (__launch_bounds__(THREADS, 2); 1 KB an SM is the runtime's). The
+    scorers' chunked kernels take one block an SM (its ring of three
+    steps of 128 queries and 128 supports)."""
+    assert 2 * (Q8_CHUNKED_BYTES + 1024) <= 233_472
+    for bytes_ in (ENS_CHUNKED_BYTES, ENS_Q8_CHUNKED_BYTES, GMV_CHUNKED_BYTES):
+        assert bytes_ <= MAX_SMEM
     assert SDCA_BLOCK_BYTES <= MAX_SMEM
     # every shape past the staged limits goes to these
     assert all(ens_smem_bytes(d) > MAX_SMEM for d in range(221, 4097))
