@@ -340,7 +340,7 @@ It imports the port and nothing of JAX or of the reference package
            input read once, each output written once) over 3.35 TB/s, the
            H100 SXM's published peaks; flash attention (also at Phi-3-mini's
            prefill in bf16 and fp16, at Gemma-2B's in bf16 and through the
-           chunked kernels at hd 512 in bf16 and fp32) also beside
+           chunked kernels at hd 512 in bf16, fp16 and fp32) also beside
            ``library_ms``, one call of
            ``torch.nn.functional.scaled_dot_product_attention`` on the same
            tensors (with a window, its mask as a boolean ``attn_mask``; a
@@ -4568,6 +4568,7 @@ TIMING_CASES = {
                         "phi3-mini prefill b4 s2048 h32 k32 hd96 causal window2047 float16",
                         "gemma prefill b4 s2048 h8 k1 hd256 causal bfloat16",
                         "chunked b1 s2048 h8 k8 hd512 causal bfloat16",
+                        "chunked b1 s2048 h8 k8 hd512 causal float16",
                         "chunked b1 s2048 h8 k8 hd512 causal float32"),
 }
 LIBRARY = {"flash_attention": sdpa_library}

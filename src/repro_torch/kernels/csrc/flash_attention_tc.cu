@@ -43,9 +43,10 @@
 // start on 16-byte boundaries (a head starts h * hd elements into its
 // row); otherwise the tiles come by 8- or 4-byte cp.async, or by plain
 // 2-byte loads for an odd hd or a tensor 2 bytes off. Past hd 256 the
-// chunked kernel below gives each block
-// one 128-column slab of O and recomputes S for each slab from 128-column
-// chunks of q and k.
+// chunked kernel below splits hd over a cluster of CTAs (flash_chunked.cuh):
+// each stages its 256-column slice of q once and its slice of K and V in a
+// three-step ring of 32-key tiles, sums its part of S, and the cluster adds
+// the parts in rank order, so S is computed once a (query tile, kv tile).
 //
 // Numerics. The products of 16-bit q and k are exact in the fp32
 // accumulator, as in the reference up to summation order. The reference
@@ -72,7 +73,10 @@
 // hd 64, causal) the work is 68.75 GFLOP against 83.9 MB of q, k, v and o:
 // 0.0695 ms at 989 TFLOP/s bf16. The P V product's split doubles its mma
 // count, so this kernel issues 1.5x the bound's tensor work (and a padded hd
-// the padding's share more).
+// the padding's share more). The chunked kernel at hd 512 (B 1, S 2048, H 8,
+// causal: 0.0348 ms) issues the same 1.5x; per 32-key step it adds one
+// cluster exchange (a GPU-scope fence, the cluster barrier, one batch of
+// ld.shared::cluster), ~20 % of its time on an H100 (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -80,12 +84,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_chunked.cuh"
+
 namespace {
 
 constexpr int BQ = 128;       // query rows per block
 constexpr int BK = 64;        // keys per staged tile
 constexpr int THREADS = 256;  // 8 warps x 16 query rows
-constexpr int CW = 128;       // the chunked kernel's q/k chunk and O slab, in columns
+constexpr int CW = 256;       // the chunked kernel's staged slice of q, k, v and o, in columns
+constexpr int CBK = 32;       // the chunked kernel's keys a step
+constexpr int CSTAGES = 3;    // the chunked kernel's ring of K and V steps
 constexpr float NEG_INF = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -96,10 +104,11 @@ struct Tile {
   static constexpr int BYTES = ELEMS * 2;
 };
 
-// the chunked kernel: Q's and K's chunk and V's slab, each staged once
+// the chunked kernel: Q's slice, the ring of K and V steps, its warps' parts of S
 struct ChunkTile {
   static constexpr int LD = CW + 8;
-  static constexpr int BYTES = (BQ + 2 * BK) * LD * 2;
+  static constexpr int STAGE = 2 * CBK * LD;  // 16-bit elements of one step's K and V
+  static constexpr int BYTES = 2 * (BQ * LD + CSTAGES * STAGE) + 4 * BQ * CBK;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -270,12 +279,12 @@ __device__ __forceinline__ void load_q_frag(uint32_t (&a)[4], const uint16_t* Qs
   ldmatrix_x4(a, Qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * LD + kk * 16 + (mi >> 1) * 8);
 }
 
-// s += A K^T for one 16-column k step: 8 column tiles of 8 keys
-template <typename T, int LD>
-__device__ __forceinline__ void qk_step(float (&s)[8][4], const uint32_t (&a)[4],
+// s += A K^T for one 16-column k step: KT / 8 column tiles of 8 keys
+template <typename T, int LD, int KT = BK>
+__device__ __forceinline__ void qk_step(float (&s)[KT / 8][4], const uint32_t (&a)[4],
                                         const uint16_t* Kt, int lane, int kk) {
 #pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
+  for (int jp = 0; jp < KT / 16; ++jp) {
     uint32_t kf[4];
     ldmatrix_x4(kf, Kt + (jp * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
                         ((lane / 8) & 1) * 8);
@@ -295,17 +304,17 @@ struct RowState {
 // the log2 domain, mask where the tile crosses a boundary for this warp's
 // rows, the online softmax, then O += (P_hi + P_lo) V, 16 keys at a time,
 // P's accumulator fragments being the A fragments of the product. Vt is the
-// tile's [BK][LD] V rows, from column 0 of the O columns this state holds.
-template <typename T, int NT, int LD>
-__device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[8][4],
+// tile's [KT][LD] V rows, from column 0 of the O columns this state holds.
+template <typename T, int NT, int LD, int KT = BK>
+__device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[KT / 8][4],
                                            const uint16_t* Vt, int k0, int Skv, int w0,
                                            int row0, int row1, int causal, int window,
                                            float scale2, int c4, int lane) {
-  const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > w0) ||
+  const bool masked = k0 + KT > Skv || (causal && k0 + KT - 1 > w0) ||
                       (window > 0 && k0 <= w0 + 15 - window);
   float mx0 = st.m0, mx1 = st.m1;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float val = s[j][e] * scale2;
@@ -320,7 +329,7 @@ __device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[8][4],
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
-  // a row's 64 keys are spread over the 4 lanes of its quad
+  // a row's KT keys are spread over the 4 lanes of its quad
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
@@ -330,7 +339,7 @@ __device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[8][4],
   st.m1 = mx1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < KT / 8; ++j) {
     s[j][0] = ex2(s[j][0] - mx0);
     s[j][1] = ex2(s[j][1] - mx0);
     s[j][2] = ex2(s[j][2] - mx1);
@@ -348,7 +357,7 @@ __device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[8][4],
     st.acc[n][3] *= corr1;
   }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KT / 16; ++kk) {
     uint32_t phi[4], plo[4];
     Elem<T>::split_pair(s[2 * kk][0], s[2 * kk][1], phi[0], plo[0]);
     Elem<T>::split_pair(s[2 * kk][2], s[2 * kk][3], phi[1], plo[1]);
@@ -369,7 +378,8 @@ __device__ __forceinline__ void softmax_pv(RowState<NT>& st, float (&s)[8][4],
 }
 
 // o's rows row0 and row1 of this warp: acc / max(l, 1e-20) rounded once to T,
-// at O columns c0 + n * 8 + 2 c4 (+1) below hd. oh points at column 0 of the
+// at O columns c0 + n * 8 + 2 c4 (+1) below hd (the chunked kernel passes
+// the end of its CTA's columns, even or hd). oh points at column 0 of the
 // head in row 0; pairs: 4-byte stores (hd even), else one element at a time.
 template <typename T, int NT>
 __device__ __forceinline__ void store_rows(RowState<NT>& st, uint16_t* oh, int64_t qstride,
@@ -401,17 +411,18 @@ __device__ __forceinline__ void store_rows(RowState<NT>& st, uint16_t* oh, int64
   }
 }
 
-// The kv tiles [t_lo, t_hi) a query tile walks; keyless: a row of it has no
-// valid key (then it walks every tile)
+// The kv tiles [t_lo, t_hi) of TBK keys a query tile walks; keyless: a row
+// of it has no valid key (then it walks every tile)
+template <int TBK = BK>
 __device__ __forceinline__ void tile_range(int q0, int Sq, int Skv, int causal, int window,
                                            int& t_lo, int& t_hi, bool& keyless) {
   const int q_last = min(q0 + BQ, Sq) - 1;  // the tile's last real row
   t_lo = 0;
-  t_hi = (Skv + BK - 1) / BK;
+  t_hi = (Skv + TBK - 1) / TBK;
   keyless = window > 0 && q_last - window + 1 >= Skv;
   if (!keyless) {
-    if (causal) t_hi = min(t_hi, q_last / BK + 1);
-    if (window > 0) t_lo = max(0, q0 - window + 1) / BK;
+    if (causal) t_hi = min(t_hi, q_last / TBK + 1);
+    if (window > 0) t_lo = max(0, q0 - window + 1) / TBK;
   }
 }
 
@@ -526,39 +537,93 @@ flash_tc_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                     0, hd, c4, pairs);
 }
 
-// Past hd 256: one block per (query tile, 128-column slab of O, head, batch),
-// the four folded into one grid dimension. For each kv tile the block adds
-// S = Q K^T up over the head dim in 128-column chunks (q's and k's chunk
-// staged, then their k steps in ascending column order), with the slab's V
-// rows staged beside the first chunk; then the online softmax and O_slab +=
-// P V_slab as in the one-pass kernel. Every slab's block recomputes S, so
-// Q K^T costs ceil(hd / 128) times the one-pass kernel's, and q is read
-// again for every kv tile: correct first, not fast.
-template <typename T>
+// Rows r0 .. r0 + ROWS - 1 of the chunked kernel's slice of one head into a
+// padded [ROWS][CW + 8] tile: columns from `cols` on and rows at or past S
+// zero-filled; BYTES-wide copies (2: plain loads), the loop not unrolled
+// (unrolled, its per-copy offsets stay live across the kv loop and spill)
+template <int ROWS, int BYTES>
+__device__ __forceinline__ void load_chunk(uint16_t* dst, const uint16_t* head,
+                                           int64_t row_stride, int r0, int S, int cols, int tid) {
+  constexpr int E = BYTES / 2, CPR = CW / E;
+#pragma unroll 1
+  for (int i = tid; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, c = (i % CPR) * E, pos = r0 + r;
+    const bool valid = pos < S && c < cols;
+    if constexpr (BYTES == 2) {
+      dst[r * (CW + 8) + c] = valid ? head[pos * row_stride + c] : uint16_t(0);
+    } else {
+      cp_async<BYTES>(dst + r * (CW + 8) + c, head + (valid ? pos * row_stride + c : 0), valid);
+    }
+  }
+}
+
+// The same by the widest copy the call allows (V16: 16 bytes, the main path)
+template <int ROWS, bool V16>
+__device__ __forceinline__ void load_slice(uint16_t* dst, const uint16_t* head,
+                                           int64_t row_stride, int r0, int S, int cols, int vec,
+                                           int tid) {
+  if (V16 || vec == 16) {
+    load_chunk<ROWS, 16>(dst, head, row_stride, r0, S, cols, tid);
+  } else if (vec == 8) {
+    load_chunk<ROWS, 8>(dst, head, row_stride, r0, S, cols, tid);
+  } else if (vec == 4) {
+    load_chunk<ROWS, 4>(dst, head, row_stride, r0, S, cols, tid);
+  } else {
+    load_chunk<ROWS, 2>(dst, head, row_stride, r0, S, cols, tid);
+  }
+}
+
+// Past hd 256: one cluster of nc CTAs per (query tile of 128 rows, O group,
+// head, batch), the four folded into one grid dimension of clusters
+// (flash_chunked.cuh has the plan). CTA r stages its slice of q once (ss
+// columns; past hd 2,048 one 256-column sub-chunk a step) and, per step, a
+// 32-key tile of its slice of K and, on a kv tile's last step, of V's
+// columns that its O group holds, in a ring of CSTAGES steps filled by
+// cp.async. Warp w holds rows 16 w .. 16 w + 15 and all the slice's
+// columns, as the one-pass kernel at HD 256: it adds its rows' part of
+// S = Q K^T up over the slice in fp32 fragments and stores it in Xs; after
+// the cluster barrier it reads the same rows' parts from the other CTAs
+// (one batch of loads a CTA, ld.shared::cluster) and every CTA forms
+// ((p0 + p1) + p2) + ..., its own part entering at its rank from its
+// registers, so all nc hold the same S bit for bit; then the online
+// softmax and O += (P_hi + P_lo) V on its slice, as the one-pass kernel
+// does them. A step's copies are issued after the publishing fence (a
+// GPU-scope membar waits for every copy in flight), CSTAGES - 1 steps
+// ahead. Xs is written again only after every CTA has read it: the second
+// half of the barrier (cluster_done after P V, cluster_wait before the next
+// write) costs no wait in the common case, and one before the exit keeps a
+// CTA's shared memory alive until its peers are done with it.
+template <typename T, bool V16>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_chunked_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                         const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int Sq, int Skv,
-                        int H, int Kh, int hd, int nq, int nslab, int causal, int window,
-                        float scale, int vec) {
+                        int H, int Kh, int hd, int nq, int nc, int ss, int nsub, int causal,
+                        int window, float scale, int vec) {
+  namespace fc = flash_chunked;
   constexpr int LD = ChunkTile::LD;
-  constexpr int KSTEPS = CW / 16, NT = CW / 8;
+  constexpr int KSTEPS = CW / 16, NT = CW / 8, NJ = CBK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* Qs = reinterpret_cast<uint16_t*>(smem);  // [BQ][LD]
-  uint16_t* Ks = Qs + BQ * LD;                       // [BK][LD]
-  uint16_t* Vs = Ks + BK * LD;                       // [BK][LD]
+  uint16_t* Ring = Qs + BQ * LD;                     // [CSTAGES][K, V][CBK][LD]
+  float4* Xs = reinterpret_cast<float4*>(Ring + CSTAGES * ChunkTile::STAGE);  // [8][NJ][32]
 
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x % nq);
-  int rest = static_cast<int>(blockIdx.x / nq);
-  const int slab = rest % nslab;
-  rest /= nslab;
+  const int rank = static_cast<int>(fc::cluster_rank());
+  const int cid = static_cast<int>(blockIdx.x) / nc;
+  const int qi = nq - 1 - cid % nq;  // the heaviest causal tiles first
+  int rest = cid / nq;
+  const int grp = rest % nsub;
+  rest /= nsub;
   const int h = rest % H, b = rest / H;
   const int kvh = h / (H / Kh);
-  const int q0 = qi * BQ, c0 = slab * CW;
+  const int q0 = qi * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c4 = lane % 4;
   const int w0 = q0 + warp * 16;
   const int row0 = w0 + g, row1 = row0 + 8;
   const float scale2 = scale * LOG2E;
+  // this CTA's slice of hd, and its O group's columns (none in a short last slice)
+  const int sc0 = rank * ss, se = min(sc0 + ss, hd);
+  const int oc0 = sc0 + grp * CW, oce = min(oc0 + CW, se);
 
   const int64_t qstride = (int64_t)H * hd, kvstride = (int64_t)Kh * hd;
   const uint16_t* qh = q + (int64_t)b * Sq * qstride + (int64_t)h * hd;
@@ -567,7 +632,24 @@ flash_tc_chunked_kernel(const uint16_t* __restrict__ q, const uint16_t* __restri
 
   int t_lo, t_hi;
   bool keyless_row;
-  tile_range(q0, Sq, Skv, causal, window, t_lo, t_hi, keyless_row);
+  tile_range<CBK>(q0, Sq, Skv, causal, window, t_lo, t_hi, keyless_row);
+  const int nsteps = (t_hi - t_lo) * nsub;
+
+  auto issue = [&](int it) {
+    uint16_t* Kd = Ring + (it % CSTAGES) * ChunkTile::STAGE;
+    const int t = t_lo + it / nsub, j = it % nsub, c = sc0 + j * CW;
+    load_slice<CBK, V16>(Kd, kh + (c < hd ? c : 0), kvstride, t * CBK, Skv, min(CW, se - c),
+                         vec, tid);
+    if (j == nsub - 1)
+      load_slice<CBK, V16>(Kd + CBK * LD, vh + (oc0 < hd ? oc0 : 0), kvstride, t * CBK, Skv,
+                           oce - oc0, vec, tid);
+  };
+  load_slice<BQ, V16>(Qs, qh + sc0, qstride, q0, Sq, min(CW, se - sc0), vec, tid);
+#pragma unroll
+  for (int p = 0; p < CSTAGES - 1; ++p) {
+    if (p < nsteps) issue(p);
+    cp_async_commit();  // the first group holds q too
+  }
 
   RowState<NT> st;
 #pragma unroll
@@ -578,41 +660,88 @@ flash_tc_chunked_kernel(const uint16_t* __restrict__ q, const uint16_t* __restri
   st.m1 = NEG_INF;
   st.l0 = 0.f;
   st.l1 = 0.f;
+  float s[NJ][4];
+  const uint32_t xa = fc::smem_u32(Xs + warp * NJ * 32 + lane);  // this thread's part of S
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    const bool active = !(causal && !keyless_row && k0 > w0 + 15);
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    for (int c = 0; c < hd; c += CW) {
-      load_tile<CW, BQ>(Qs, qh + c, qstride, q0, Sq, hd - c, vec, tid);
-      load_tile<CW, BK>(Ks, kh + c, kvstride, k0, Skv, hd - c, vec, tid);
-      if (c == 0) load_tile<CW, BK>(Vs, vh + c0, kvstride, k0, Skv, hd - c0, vec, tid);
+  for (int it = 0; it < nsteps; ++it) {
+    const int t = t_lo + it / nsub, j = it % nsub, k0 = t * CBK;
+    const bool last = j == nsub - 1;
+    cp_async_wait<CSTAGES - 2>();  // step it (and, first, q) has landed
+    __syncthreads();  // ... for every thread; and every warp is done with step it - 1
+    if (nsub > 1 && it > 0) {  // q's sub-chunk j, in place of the last step's
+      const int c = sc0 + j * CW;
+      load_slice<BQ, V16>(Qs, qh + (c < hd ? c : 0), qstride, q0, Sq, min(CW, se - c), vec,
+                          tid);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          uint32_t a[4];
-          load_q_frag<LD>(a, Qs, warp, lane, kk);
-          qk_step<T, LD>(s, a, Ks, lane, kk);
-        }
-      }
-      __syncthreads();  // every warp is done with this chunk before the next is staged
     }
-    if (active)
-      softmax_pv<T, NT, LD>(st, s, Vs, k0, Skv, w0, row0, row1, causal, window, scale2, c4,
-                            lane);
-    __syncthreads();  // every warp is done with V's slab before the next tile's
+
+    // a tile wholly past the causal frontier of this warp's 16 rows: skipped,
+    // as in the one-pass kernel (the same warps of every CTA skip it)
+    const bool active = !(causal && !keyless_row && k0 > w0 + 15);
+    const uint16_t* Kt = Ring + (it % CSTAGES) * ChunkTile::STAGE;
+    if (j == 0) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = 0.f;
+    }
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a[4];
+        load_q_frag<LD>(a, Qs, warp, lane, kk);
+        qk_step<T, LD, CBK>(s, a, Kt, lane, kk);
+      }
+    }
+    if (last) {
+      if (it >= nsub) fc::cluster_wait();  // every CTA has read the last tile's parts
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        Xs[(warp * NJ + jj) * 32 + lane] = make_float4(s[jj][0], s[jj][1], s[jj][2], s[jj][3]);
+      fc::cluster_publish();
+    }
+    if (it + CSTAGES - 1 < nsteps) issue(it + CSTAGES - 1);  // into step it - 1's stage
+    cp_async_commit();
+    if (!last) continue;
+
+    fc::cluster_wait();  // every CTA's part of this tile is in its Xs
+    if (active) {
+      // S: the nc parts added in rank order, ((p0 + p1) + p2) + ...: this
+      // CTA's own part enters at its rank, from its registers (an fp32 sum
+      // is commutative, so (...) + s and s + (...) are the same bits)
+      float4 t[NJ];
+      auto add_to_s = [&]() {
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          s[jj][0] += t[jj].x;
+          s[jj][1] += t[jj].y;
+          s[jj][2] += t[jj].z;
+          s[jj][3] += t[jj].w;
+        }
+      };
+      for (int rr = 0; rr < nc; ++rr) {
+        if (rr == rank) continue;
+        const uint32_t at = fc::map_rank(xa, rr);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const float4 x = fc::ld_cluster(at + jj * 32 * 16);
+          if (rr == 0 || rr > rank) t[jj] = x;
+          else fc::add4(t[jj], x);   // the ranks before this one, summed first
+        }
+        if (rr == rank - 1 || rr > rank) add_to_s();
+      }
+      softmax_pv<T, NT, LD, CBK>(st, s, Kt + CBK * LD, k0, Skv, w0, row0, row1, causal, window,
+                                 scale2, c4, lane);
+    }
+    fc::cluster_done();  // the parts read went into P V's mma (asm volatile, in order)
   }
+  fc::cluster_wait();  // no CTA reads this one's Xs any more
 
   const bool pairs = (hd & 1) == 0 && (reinterpret_cast<uintptr_t>(o) & 3) == 0;
   store_rows<T, NT>(st, o + (int64_t)b * Sq * qstride + (int64_t)h * hd, qstride, Sq, row0, row1,
-                    c0, hd, c4, pairs);
+                    oc0, oce, c4, pairs);
 }
 
 template <class Kernel>
@@ -639,21 +768,35 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool V16>
+int launch_chunked_v(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                     int Skv, int H, int Kh, int hd, int causal, int window, float scale, int vec,
+                     cudaStream_t stream) {
+  constexpr int smem = ChunkTile::BYTES;
+  const int err = set_smem(flash_tc_chunked_kernel<T, V16>, smem);
+  if (err != 0) return err;
+  const flash_chunked::Plan p = flash_chunked::plan(hd, CW);
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int64_t blocks = (int64_t)nq * p.nsub * H * B * p.nc;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_chunked::ClusterLaunch launch(static_cast<unsigned>(blocks), THREADS, p.nc, smem, stream);
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &launch.cfg, flash_tc_chunked_kernel<T, V16>, static_cast<const uint16_t*>(q),
+      static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o),
+      Sq, Skv, H, Kh, hd, nq, p.nc, p.ss, p.nsub, causal, window, scale, vec);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_chunked(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
                    int H, int Kh, int hd, int causal, int window, float scale, int vec,
                    cudaStream_t stream) {
-  constexpr int smem = ChunkTile::BYTES;
-  const int err = set_smem(flash_tc_chunked_kernel<T>, smem);
-  if (err != 0) return err;
-  const int nq = (Sq + BQ - 1) / BQ, nslab = (hd + CW - 1) / CW;
-  const int64_t blocks = (int64_t)nq * nslab * H * B;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  flash_tc_chunked_kernel<T><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), Sq, Skv, H, Kh, hd, nq, nslab,
-      causal, window, scale, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (vec == 16)
+    return launch_chunked_v<T, true>(q, k, v, o, B, Sq, Skv, H, Kh, hd, causal, window, scale,
+                                     vec, stream);
+  return launch_chunked_v<T, false>(q, k, v, o, B, Sq, Skv, H, Kh, hd, causal, window, scale,
+                                    vec, stream);
 }
 
 // The widest copy (16, 8, 4 or 2 bytes) that every row start of q, k and v

@@ -24,14 +24,21 @@ q, k, v read in place from (B, S, heads, hd):
 
 Every head dim: both are built for the padded widths ``HEAD_DIMS``; a
 call's hd is rounded up to the next, the padding columns are zero in
-shared memory and never written to o. Past 256 a chunked kernel gives
-each block one 128-column slab of o and recomputes Q K^T over 128-column
-chunks (correct, not fast). Any batch and head count: the grid folds
-(query tile, head, batch) into one dimension, one launch a call.
+shared memory and never written to o. Past 256 each has a chunked kernel
+that splits hd over a thread-block cluster (``csrc/flash_chunked.cuh``):
+each CTA stages its slice of at most ``CHUNK`` columns of q, k and v once,
+sums its part of Q K^T, and the cluster adds the parts in rank order
+through distributed shared memory, so every CTA holds the same S and
+writes its own slice of o. Q K^T is summed once a (query tile, kv tile)
+up to hd 2,048 (8 CTAs, the portable cluster size); past it once per
+256-column group of o. Any batch and head count: the grid folds (query
+tile, head, batch) into one dimension, one launch a call.
 
 Bound on the H100: operations. At the serve shape (B 4, S 2048, H 32,
 K 8, hd 64, causal) the bf16 tensor-core bound is 0.0695 ms; in fp32
-the FMA limit is 1.03 ms.
+the FMA limit is 1.03 ms. Through the chunked kernels at hd 512 (B 1,
+S 2048, H 8, causal) 0.0348 ms and 0.513 ms; ``PERF.md`` has their
+times beside SDPA's.
 
 Keys are masked by length (``k_pos < Skv``) on every call, so the
 kernels and the plain version agree with the reference's oracle
@@ -51,7 +58,7 @@ LAUNCHES = native.LaunchCounter("flash_attention")
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)   # the padded widths built; past 256 chunked
-CHUNK = 128   # the chunked kernels' q/k chunk and o slab, in columns
+CHUNK = 256   # the chunked kernels' slice of q, k, v and o a CTA stages, in columns
 # the element types the kernels take as they are: library and its C launcher
 LIBRARIES = {torch.float32: ("flash_attention", "flash_attention_launch"),
              torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch"),

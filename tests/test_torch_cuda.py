@@ -571,6 +571,61 @@ def test_flash_attention_at_every_head_dim(cuda_device, hd, dtype):
         assert got.dtype == q.dtype and _flash_close(got, spec.plain(q, k, v, causal, window))
 
 
+# the chunked kernels' head dims: clusters of 2 (257-512), 3 (640) and 4
+# (1,000, 1,024) CTAs, ragged slices (257, 333, 1,000) and hd 2,100, past the
+# 2,048 up to which S is summed once (three O groups in fp32 and bf16 alike)
+CHUNKED_HEAD_DIMS = (257, 333, 384, 512, 640, 1000, 1024, 2100)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("hd", CHUNKED_HEAD_DIMS)
+def test_flash_chunked_at_wide_head_dims(cuda_device, hd, dtype):
+    """The cluster kernels past hd 256: causal with a window on 333 rows and
+    non-causal on 200, within the tolerance, one launch a call, two launches
+    bitwise equal."""
+    rng = _rng("flash-chunked", hd)
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    for (B, S, H, K), causal, window in (((2, 333, 4, 2), True, 77), ((1, 200, 2, 1), False, 0)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32))
+                   .to(cuda_device, getattr(torch, dtype)) for h in (H, K, K))
+        before = spec.counter.count
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert spec.counter.count == before + 1
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal, window=window))
+        assert got.dtype == q.dtype and _flash_close(got, spec.plain(q, k, v, causal, window))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("hd", (333, 512))
+def test_flash_chunked_row_does_not_depend_on_the_batch(cuda_device, hd, dtype):
+    """A B 3 call's first batch row is bitwise the same input's B 1 call."""
+    rng = _rng("flash-chunked-batch", hd)
+    t = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, 300, h, hd)).astype(np.float32))
+               .to(cuda_device, t) for h in (4, 2, 2))
+    whole = ops.flash_attention(q, k, v, causal=True, window=0)
+    alone = ops.flash_attention(q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous(),
+                                causal=True, window=0)
+    assert torch.equal(whole[:1], alone)
+
+
+def test_flash_chunked_reads_a_q_2_bytes_off_16(cuda_device):
+    """A bf16 q 2 bytes off a 16-byte boundary at hd 333: the chunked kernel's
+    plain 2-byte loads, read in place."""
+    rng = _rng("flash-chunked-align")
+    spec = ops.KERNEL_REGISTRY["flash_attention"]
+    q32, k32, v32 = (torch.from_numpy(rng.normal(size=(1, 150, h, 333)).astype(np.float32))
+                     .to(cuda_device) for h in (4, 2, 2))
+    buf = torch.empty(q32.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    q = buf[1:1 + q32.numel()].view(q32.shape)
+    q.copy_(q32.bfloat16())
+    assert q.data_ptr() % 16 == 2
+    k, v = k32.bfloat16(), v32.bfloat16()
+    got = ops.flash_attention(q, k, v, causal=True, window=0)
+    assert _flash_close(got, spec.plain(q, k, v, True, 0))
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=0))
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_flash_attention_reads_rows_off_16_byte_boundaries(cuda_device, dtype):
     """Rows the 16-byte copies cannot take, read in place: q 2, 4 and 8

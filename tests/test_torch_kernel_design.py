@@ -15,6 +15,14 @@ What can be held here is the plan and the arithmetic they follow:
   in the log2 domain over 64-key tiles, P split into two bf16 parts for P V.
   The emulation stays within the on-card bf16 tolerance of the plain version
   and of the JAX reference's oracle;
+- the chunked flash kernels past hd 256 (``csrc/flash_chunked.cuh``): the
+  cluster's partition of hd sums every column into S once and writes every
+  column of o once (at hd 257 to 2,100), the plan mirrors the header, the
+  tensor-core kernel's arithmetic (each CTA's part of S, the parts added in
+  rank order, then the one-pass kernel's softmax and P_hi + P_lo), emulated,
+  holds the bf16 tolerance against the plain version and the oracle at hd
+  320, 333 and 512, and both kernels' shared-memory formulas mirror the
+  sources;
 - the tiled, delayed-update SDCA kernel's order (``csrc/sdca.cu``), emulated in
   plain PyTorch: fp64 tile matvecs summed lane by lane over 4-column groups,
   then by a butterfly across the lanes, one tile ahead of the steps; fp64
@@ -94,12 +102,18 @@ def _rng(purpose: str, index: int = 0) -> np.random.Generator:
     return np.random.default_rng(derive_stream_seed(11, purpose, index))
 
 
-def _flash_shapes():
-    """chip_smoke.py's FLASH_SHAPES (it imports nothing but the standard library)."""
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports nothing but the standard library)."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.FLASH_SHAPES
+    return mod
+
+
+def _flash_shapes():
+    """chip_smoke.py's FLASH_SHAPES."""
+    return _chip_smoke().FLASH_SHAPES
 
 
 # ----------------------------------------------------------------------
@@ -269,14 +283,15 @@ def test_chunked_scorer_ring_holds_each_step_until_it_is_read(int8):
 # the bf16 tensor-core flash kernel's arithmetic
 # ----------------------------------------------------------------------
 
-def _tile_range(q0, q_last, Skv, causal, window):
-    """The kernel's kv tiles for a query tile (flash_attention_tc.cu)."""
-    t_lo, t_hi = 0, -(-Skv // BK)
+def _tile_range(q0, q_last, Skv, causal, window, bq=BQ, bk=BK):
+    """The kernel's kv tiles of bk keys for a query tile of bq rows
+    (flash_attention_tc.cu's tile_range<TBQ, TBK>)."""
+    t_lo, t_hi = 0, -(-Skv // bk)
     if not (window > 0 and q_last - window + 1 >= Skv):
         if causal:
-            t_hi = min(t_hi, q_last // BK + 1)
+            t_hi = min(t_hi, q_last // bk + 1)
         if window > 0:
-            t_lo = max(0, q0 - window + 1) // BK
+            t_lo = max(0, q0 - window + 1) // bk
     return t_lo, t_hi
 
 
@@ -378,6 +393,192 @@ def test_two_part_p_keeps_sixteen_bits():
     two = p_hi + _bf16(p - p_hi)
     assert float(((two - p).abs() / p).max()) <= 2.0 ** -16
     assert float(((p_hi - p).abs() / p).max()) > 2.0 ** -10
+
+
+# ----------------------------------------------------------------------
+# the chunked flash kernels past hd 256: the cluster's partition of hd,
+# the tensor-core kernel's arithmetic, the shared-memory formulas
+# ----------------------------------------------------------------------
+
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
+CW = 256          # flash_attention.CHUNK: the columns of q, k, v and o a CTA stages
+MAX_CLUSTER = 8   # flash_chunked.cuh's MAX_CLUSTER, the portable cluster size
+CH_BQ, CH_BK = 128, 32   # flash_attention_tc.cu's chunked tile: BQ rows, CBK keys a step
+
+
+def chunk_plan(hd, cw=CW):
+    """flash_chunked.cuh's plan: (nc CTAs a cluster, each CTA's slice ss of
+    hd, nsub CW-wide sub-chunks of a slice = steps a kv tile = groups of O)."""
+    nc = min(MAX_CLUSTER, -(-hd // cw))
+    ss = -(-(-(-hd // nc)) // 16) * 16
+    return nc, ss, -(-ss // cw)
+
+
+def chunk_ctas(hd, cw=CW):
+    """Every CTA of one query tile's clusters, as the kernels index them:
+    (group, rank) -> (the hd columns it sums into S, its step order; the
+    columns of o it writes)."""
+    nc, ss, nsub = chunk_plan(hd, cw)
+    ctas = {}
+    for grp in range(nsub):
+        for rank in range(nc):
+            sc0 = rank * ss
+            se = min(sc0 + ss, hd)
+            s_cols = [c for j in range(nsub) for c in range(sc0 + j * cw, min(sc0 + (j + 1) * cw, se))]
+            oc0 = sc0 + grp * cw
+            ctas[grp, rank] = (s_cols, list(range(oc0, min(oc0 + cw, se))))
+    return ctas
+
+
+CHUNK_HDS = [257, 320, 333, 512, 1000, 2100]
+
+
+@pytest.mark.parametrize("hd", CHUNK_HDS)
+def test_chunked_partition_sums_each_column_once_and_writes_each_output_once(hd):
+    """Each cluster (one O group of a query tile) sums every hd column into
+    S exactly once, split over its CTAs; every column of o is written by
+    exactly one CTA; every rank holds a column. Up to hd 2,048 (8 CTAs of
+    256 columns) a query tile is one cluster, so S is summed once a (query
+    tile, kv tile); past it once per O group."""
+    nc, ss, nsub = chunk_plan(hd)
+    ctas = chunk_ctas(hd)
+    for grp in range(nsub):
+        s_cols = [c for rank in range(nc) for c in ctas[grp, rank][0]]
+        assert sorted(s_cols) == list(range(hd))
+        assert all(ctas[grp, rank][0] for rank in range(nc))
+    o_cols = [c for cols in ctas.values() for c in cols[1]]
+    assert sorted(o_cols) == list(range(hd))
+    assert ss % 16 == 0 and nc <= MAX_CLUSTER
+    assert (nsub == 1) == (hd <= MAX_CLUSTER * CW)
+    # rows: the query tiles partition the rows, so each (row, column) of o
+    # is one CTA's
+    rows = [r for q0 in range(0, 333, CH_BQ) for r in range(q0, min(q0 + CH_BQ, 333))]
+    assert rows == list(range(333))
+
+
+def test_chunked_plan_mirrors_the_header():
+    """chunk_plan is flash_chunked.cuh's plan, term for term, and both
+    kernels launch with it at CW = flash_attention.CHUNK."""
+    from repro_torch.kernels import flash_attention as fa
+
+    src = (CSRC / "flash_chunked.cuh").read_text()
+    for line in ("constexpr int MAX_CLUSTER = 8;",
+                 "  p.nc = (hd + cw - 1) / cw;",
+                 "  if (p.nc > MAX_CLUSTER) p.nc = MAX_CLUSTER;",
+                 "  const int per = (hd + p.nc - 1) / p.nc;",
+                 "  p.ss = (per + 15) / 16 * 16;",
+                 "  p.nsub = (p.ss + cw - 1) / cw;"):
+        assert line in src
+    assert fa.CHUNK == CW
+    for name in ("flash_attention", "flash_attention_tc"):
+        text = (CSRC / f"{name}.cu").read_text()
+        assert "flash_chunked::plan(hd, CW)" in text
+        assert "const int sc0 = rank * ss, se = min(sc0 + ss, hd);" in text
+        assert "const int oc0 = sc0 + grp * CW, oce = min(oc0 + CW, se);" in text
+
+
+def flash_tc_chunked_emulated(q, k, v, causal=True, window=0):
+    """The chunked tensor-core kernel's arithmetic in plain PyTorch: per
+    query tile of CH_BQ rows and kv tile of CH_BK keys, each CTA's part of
+    the scores (its slice's columns, fp32 products of the bf16 inputs) is
+    summed, and the parts are added in rank order, ((p0 + p1) + p2) + ...;
+    then the online softmax in the log2 domain (masks as in the one-pass
+    kernel), P V as P_hi V + P_lo V, the output acc / max(l, 1e-20) rounded
+    once to bf16."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    rep = H // K
+    scale2 = np.float32(1.0 / math.sqrt(hd)) * np.float32(LOG2E)
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    ctas = chunk_ctas(hd)
+    nc, _, nsub = chunk_plan(hd)
+    assert nsub == 1, "the emulation covers hd up to 2,048, one sub-chunk a slice"
+    slices = [torch.tensor(ctas[0, rank][0]) for rank in range(nc)]
+    out = torch.empty((B, H, Sq, hd), dtype=torch.float32)
+    for q0 in range(0, Sq, CH_BQ):
+        rows = torch.arange(q0, min(q0 + CH_BQ, Sq))
+        t_lo, t_hi = _tile_range(q0, int(rows[-1]), Skv, causal, window, CH_BQ, CH_BK)
+        m = torch.full((B, H, len(rows)), NEG_INF)
+        l = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), hd))
+        for t in range(t_lo, t_hi):
+            keys = torch.arange(t * CH_BK, min(t * CH_BK + CH_BK, Skv))
+            s = None
+            for cols in slices:   # the parts in rank order
+                part = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows][..., cols],
+                                    kf[:, :, keys][..., cols])
+                s = part if s is None else s + part
+            s = s * scale2
+            kp, qp = keys[None, :], rows[:, None]
+            masked = torch.zeros((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                masked |= kp > qp
+            if window > 0:
+                masked |= kp <= qp - window
+            s = torch.where(masked, torch.tensor(NEG_INF), s)
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = corr * l + p.sum(-1)
+            p_hi = _bf16(p)
+            p_lo = _bf16(p - p_hi)
+            vt = vf[:, :, keys]
+            acc = corr[..., None] * acc + (p_hi @ vt + p_lo @ vt)
+            m = mx
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+CHUNKED_EMULATED = [(hd, mask) for hd in (320, 333, 512) for mask in range(4)]
+
+
+@pytest.mark.parametrize("hd,mask", CHUNKED_EMULATED,
+                         ids=[f"hd{hd}-mask{m}" for hd, m in CHUNKED_EMULATED])
+def test_flash_tc_chunked_arithmetic_holds_the_bf16_tolerance(hd, mask):
+    """The emulated chunked kernel against the plain version and the
+    reference's oracle at the bf16 tolerance, 1e-4 + 2^-7 |plain|, under
+    chip_smoke.py's four head-dim masks (1 and 4 query heads per KV head,
+    causal, windows, 200 and 333 rows)."""
+    label, (B, Sq, Skv, H, K), causal, window = _chip_smoke().HD_MASKS[mask]
+    rng = _rng("flash-chunked-" + label, hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32)).to(torch.bfloat16)
+               for S, h in ((Sq, H), (Skv, K), (Skv, K)))
+    got = flash_tc_chunked_emulated(q, k, v, causal, window).float()
+    want = flash_attention_plain(q, k, v, causal, window).float()
+    assert bool(((got - want).abs() <= BF16_ATOL + BF16_RTOL * want.abs()).all())
+    oracle = np.asarray(ref.flash_attention_ref(  # repro: allow[kernel-registry-bypass] reason=parity test against the reference's oracle, as tests/test_kernels.py does
+        *(t.float().numpy() for t in (q, k, v)), causal=causal, window=window))
+    assert np.all(np.abs(got.numpy() - oracle) <= BF16_ATOL + BF16_RTOL * np.abs(oracle))
+
+
+def test_chunked_smem_formulas_match_the_sources():
+    """The chunked kernels' shared memory, term for term with the sources:
+    the tensor-core kernel's q slice, three steps of K and V and its warps'
+    parts of S; the fp32 kernel's q slice, two K buffers, one V, the four
+    warp pairs' parts of S, P^T and the rows' corrections. Each fits a
+    block's 227 KB, one block an SM."""
+    tc = (CSRC / "flash_attention_tc.cu").read_text()
+    f32 = (CSRC / "flash_attention.cu").read_text()
+    ld = CW + 8
+    tc_bytes = 2 * (CH_BQ * ld + 3 * 2 * CH_BK * ld) + 4 * CH_BQ * CH_BK
+    assert "constexpr int BQ = 128;" in tc and f"constexpr int CBK = {CH_BK};" in tc
+    assert "constexpr int CSTAGES = 3;" in tc
+    assert "  static constexpr int STAGE = 2 * CBK * LD;" in tc
+    assert "  static constexpr int BYTES = 2 * (BQ * LD + CSTAGES * STAGE) + 4 * BQ * CBK;" in tc
+    assert "__launch_bounds__(THREADS, 1)\nflash_tc_chunked_kernel(" in tc
+    bq, bk, groups, cld, tld = 64, 32, 4, CW + 4, 64 + 4
+    f32_bytes = 4 * (bq * cld + 3 * bk * cld + groups * bq * bk + bk * tld + bq)
+    for line in ("constexpr int CBK = 32;", "constexpr int GROUPS = 4;",
+                 "constexpr int CLD = CW + 4;", "constexpr int TLD = BQ + 4;",
+                 "  return BQ * CLD + 3 * CBK * CLD + GROUPS * BQ * CBK + CBK * TLD + BQ;"):
+        assert line in f32, line
+    assert "__launch_bounds__(THREADS, 1)\nflash_chunked_kernel(" in f32
+    for b in (tc_bytes, f32_bytes):
+        assert b <= MAX_SMEM
+        assert 2 * (b + 1024) > 233_472   # one block an SM
+    assert (tc_bytes, f32_bytes) == (185_344, 208_128)
 
 
 # ----------------------------------------------------------------------

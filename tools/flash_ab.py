@@ -5,20 +5,25 @@ card: a parent commit's sources, or a variant of this tree's.
         [--sass DIR] [--require-bits NAME ...] [--rounds N]
 
 Each DIR holds ``flash_attention.cu`` (float32), ``flash_attention_tc.cu``
-(bfloat16) or both, with this tree's C launchers; a parent's come from
-``git show <commit>:src/repro_torch/kernels/csrc/<file> > DIR/<file>``.
-Every DIR is built with this tree's nvcc flags, all builds at once, and
-then, for each build against this tree's libraries:
+(bfloat16), ``flash_attention_tc_f16.cu`` (float16, which includes the
+bf16 source) or several, with this tree's C launchers, and the headers
+they include (``flash_chunked.cuh``); a parent's come from ``git show
+<commit>:src/repro_torch/kernels/csrc/<file> > DIR/<file>``. Every DIR is
+built with this tree's nvcc flags, all builds at once, and then, for each
+build against this tree's libraries:
 
-- bits: at hd 16, 32, 64 and 128 on the five shapes and masks of
-  ``BITS_SHAPES``, this tree's output bitwise the build's or not (the
-  builds named by ``--require-bits`` must agree on every case, or the run
-  fails);
-- time: at ``TIMED`` (the llama3.2-1b serve prefill in fp32 and bf16 and
-  the hd-128 prefill of llava's width in bf16), the build and this tree in
-  ``--rounds`` rounds of turns (build, this, this, build), each turn a run
-  of back-to-back launches over ~40 ms timed with CUDA events: ms a call
-  of each turn, their means and the spread (max - min) / mean of each side;
+- bits: at every one-pass width, hd 16, 32, 64, 128, 192 and 256, on the
+  five shapes and masks of ``BITS_SHAPES``, this tree's output bitwise
+  the build's or not (the builds named by ``--require-bits`` must agree on
+  every case, or the run fails);
+- time: at ``TIMED`` (the llama3.2-1b serve prefill in fp32 and bf16, the
+  hd-128 prefill of llava's width in bf16, and the chunked kernels at hd
+  512 in bf16, fp16 and fp32), the build and this tree in ``--rounds``
+  rounds of turns (build, this, this, build), each turn a run of
+  back-to-back launches over ~40 ms timed with CUDA events: ms a call of
+  each turn, their means and the spread (max - min) / mean of each side;
+  at a chunked row (hd past 256, where the bits may differ) each side's
+  largest error against the plain version on the same inputs instead;
 - resources: registers, stack and spill bytes of every kernel
   (``ptxas -v``) of each build's libraries, and of this tree's where the
   run builds them (not yet built in this checkout's ``_build/``); with
@@ -47,7 +52,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # library -> (C launcher, the torch dtype name it takes)
 LIBS = {"flash_attention": ("flash_attention_launch", "float32"),
-        "flash_attention_tc": ("flash_attention_tc_launch", "bfloat16")}
+        "flash_attention_tc": ("flash_attention_tc_launch", "bfloat16"),
+        "flash_attention_tc_f16": ("flash_attention_tc_f16_launch", "float16")}
 # (label, (B, Sq, Skv, H, K), causal, window): one of each mask, and the serve shape
 BITS_SHAPES = (
     ("b2 s256 h4 k4 causal", (2, 256, 256, 4, 4), True, 0),
@@ -56,11 +62,15 @@ BITS_SHAPES = (
     ("b2 s201 h8 k2 non-causal window64", (2, 201, 201, 8, 2), False, 64),
     ("serve b4 s2048 h32 k8 causal", (4, 2048, 2048, 32, 8), True, 0),
 )
-BITS_HDS = (16, 32, 64, 128)
+BITS_HDS = (16, 32, 64, 128, 192, 256)
 # (label, (B, S, H, K, hd), dtype name), all causal
 TIMED = (("serve b4 s2048 h32 k8 hd64 causal", (4, 2048, 32, 8, 64), "bfloat16"),
          ("serve b4 s2048 h32 k8 hd64 causal", (4, 2048, 32, 8, 64), "float32"),
-         ("b4 s2048 h32 k8 hd128 causal", (4, 2048, 32, 8, 128), "bfloat16"))
+         ("b4 s2048 h32 k8 hd128 causal", (4, 2048, 32, 8, 128), "bfloat16"),
+         ("chunked b1 s2048 h8 k8 hd512 causal", (1, 2048, 8, 8, 512), "bfloat16"),
+         ("chunked b1 s2048 h8 k8 hd512 causal", (1, 2048, 8, 8, 512), "float16"),
+         ("chunked b1 s2048 h8 k8 hd512 causal", (1, 2048, 8, 8, 512), "float32"))
+CHUNKED_HD = 256   # past it the chunked kernels run: their rows report errors, not bits
 TURN_MS = 40.0
 
 
@@ -148,6 +158,7 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.kernels import native
+    from repro_torch.kernels.flash_attention import flash_attention_plain
 
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA card", file=sys.stderr)
@@ -236,18 +247,25 @@ def main(argv=None) -> int:
                 for side in (name, "this", "this", name):
                     turns[side].append(time_ms(calls[side], reps[side]))
             mean = {s: sum(t) / len(t) for s, t in turns.items()}
-            out["timing"].append({
-                "case": f"{label} {dt}", "against": name, "ms": mean,
-                "this_over_other": mean["this"] / mean[name],
-                "spread": {s: (max(t) - min(t)) / mean[s] for s, t in turns.items()},
-                "turns": turns})
+            row = {"case": f"{label} {dt}", "against": name, "ms": mean,
+                   "this_over_other": mean["this"] / mean[name],
+                   "spread": {s: (max(t) - min(t)) / mean[s] for s, t in turns.items()},
+                   "turns": turns}
+            if hd > CHUNKED_HD:   # the bits may differ: each side against the plain version
+                want = flash_attention_plain(q, k, v, True, 0).float()
+                row["max_abs_err_vs_plain"] = {}
+                for side, fn in calls.items():
+                    fn()
+                    torch.cuda.synchronize()
+                    row["max_abs_err_vs_plain"][side] = float((o.float() - want).abs().max())
+            out["timing"].append(row)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps({k: out[k] for k in ("nvidia_smi", "build_errors", "bits")}))
     for row in out["timing"]:
         print(json.dumps({k: row[k] for k in ("case", "against", "ms", "this_over_other",
-                                              "spread")}))
+                                              "spread", "max_abs_err_vs_plain") if k in row}))
     if failed or errors:
         print(f"flash_ab: not bitwise this tree's: {failed}; not built: {sorted(errors)}",
               file=sys.stderr)
