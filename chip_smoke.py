@@ -14,8 +14,9 @@ It imports the port and nothing of JAX or of the reference package
            tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
            instructions in the compiled code (``cuobjdump -sass``, one per
            library, all at once): the bf16 and fp16 flash kernels,
-           ``rbf_gram_q8``'s ``gram_q8`` and the fp32 Grams' ``gram`` must
-           have all three, the scorers and ``gram_matvec`` LDGSTS;
+           ``rbf_gram_q8``'s ``gram_q8``, the fp32 Grams' ``gram`` and
+           ``gram_matvec`` (its chunked route past d 64) must have all
+           three, the scorers LDGSTS;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
@@ -143,8 +144,9 @@ It imports the port and nothing of JAX or of the reference package
            ``rbf_gram_q8`` b 8,192 against 4,096 int8 supports; drawn on
            the card) against their plain versions, two launches bitwise,
            and each chunked kernel's private entry against the staged
-           kernel where both run (bitwise; ``gram_matvec``, which sums its
-           64-feature chunks in fp64, within the tol); SDCA on the pooled
+           kernel where both run (bitwise; ``gram_matvec``, whose chunked
+           route runs the cross term on the tensor cores, within the tol);
+           SDCA on the pooled
            emnist ideal at buckets 12,416 and 16,384 against its plain
            version at 2 epochs, and its global instantiation bitwise the
            shared one at bucket 2,048; then, launches counted from 0: (b)
@@ -264,8 +266,9 @@ It imports the port and nothing of JAX or of the reference package
            all 32 behind 2,880 zero patches, whisper whole with 416-token
            prompts behind 1,500 zero frames: parameters = ``param_count`` +
            ``uncounted_params``, prefill and decode seconds cold and warm,
-           cache bytes, peak memory, busy share (a serve under the
-           profiler), flash launches = self-attention layers, the
+           cache bytes, peak memory, busy share (a serve of the prompts
+           and FAMILY_PROFILE_GEN tokens under the profiler, over a warm
+           serve of the same), flash launches = self-attention layers, the
            encoder's included (one prefill), and no other kernel, the
            prompts' NLL through the kernel within 2^-7 of plain
            attention's, with the largest logit gap and, for the MoE, the
@@ -722,7 +725,8 @@ def agreement(spec, got, want):
 SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
 SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"),
                  "flash_attention_tc_f16": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
-                 "gram_matvec": ("LDGSTS",), "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
+                 "gram_matvec": ("HMMA", "LDSM", "LDGSTS"),
+                 "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
                  "gram": ("HMMA", "LDSM", "LDGSTS")}
 
 
@@ -1729,8 +1733,8 @@ def wide_sweep(ops, device):
     (registry tol), one launch counted a call, two launches bitwise equal;
     and where both instantiations run (WIDE_BOTH), the chunked one through
     its private entry against the staged one: bitwise for the scorers and
-    rbf_gram_q8, within the tol for gram_matvec, whose chunked kernel sums
-    64-feature chunks apart (PERF.md section 6)."""
+    rbf_gram_q8, within the tol for gram_matvec, whose chunked route runs
+    the cross term on the tensor cores (PERF.md section 6)."""
     import torch
 
     rows, failed = [], []
@@ -3349,6 +3353,10 @@ FAMILY_INPUT_STD = 0.02
 FAMILY_SERVE_LAYERS = {FAMILY_MOE: 16, FAMILY_SSM: 64, FAMILY_HYBRID: 5, FAMILY_VLM: 32,
                        FAMILY_AUDIO: 6}
 FAMILY_SERVE_PROMPT = {FAMILY_AUDIO: 416}
+# the profiled serve's greedy tokens: the prefill and a window of decode
+# steps (the profiler's cost grows with the launches, ~1,000 a decode step
+# of mamba2's 64 layers: its 32-token serve took 35.5 s profiled, 4.4 warm)
+FAMILY_PROFILE_GEN = 8
 # (c): 2 fp32 layers; B * S = 2 * 128 <= 256, so every MoE call is dropless;
 # llava's 64 random patches sit in the cache in front of the prompt,
 # whisper's decoder reads its 1,500 frames' keys and values from the cache
@@ -3560,8 +3568,10 @@ def families_serve(ops, device, arch):
     peak = torch.cuda.max_memory_allocated(device)
     steps["warm_serve"], (warm_tokens, warm_sched) = _sync_seconds(
         lambda: serve_prompts(cfg, params, prompts, SERVE_GEN))
+    steps["warm_window_serve"], (window_tokens, _) = _sync_seconds(
+        lambda: serve_prompts(cfg, params, prompts, FAMILY_PROFILE_GEN))
     steps["profiled_serve"], (profile, (again, _)) = _sync_seconds(lambda: profile_call(
-        lambda: serve_prompts(cfg, params, prompts, SERVE_GEN), cpu_ops=False))
+        lambda: serve_prompts(cfg, params, prompts, FAMILY_PROFILE_GEN), cpu_ops=False))
     cold, warm = sched.score_fn.timings[0], warm_sched.score_fn.timings[0]
 
     def rates(timing):
@@ -3618,8 +3628,10 @@ def families_serve(ops, device, arch):
         "moe_twice": moe, "tokens_head": tokens[:, :8].tolist(),
         # the profiler's own cost dwarfs a serve's wall (as in ``deep`` (b)),
         # so the busy share is the profiled serve's device seconds over the
-        # unprofiled warm serve's wall; the profiled call's own share beside it
-        "device_busy_share": profile["device_seconds"] / steps["warm_serve"],
+        # wall of an unprofiled warm serve of the same FAMILY_PROFILE_GEN
+        # tokens; the profiled call's own share beside it
+        "profile_gen": FAMILY_PROFILE_GEN,
+        "device_busy_share": profile["device_seconds"] / steps["warm_window_serve"],
         "device_busy_share_profiled": profile["device_busy_share"],
         "profile": {k: profile[k] for k in ("wall_seconds", "device_seconds",
                                             "device_launches", "by_kernel")},
@@ -3631,7 +3643,7 @@ def families_serve(ops, device, arch):
                              f"{param_count(cfg)} + uncounted {uncounted_params(cfg)}")
     if tokens.shape != (SERVE_BATCH, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
         raise AssertionError(f"families (b) {arch}: tokens {tokens.shape} outside the vocabulary")
-    if not (np.array_equal(again, tokens) and np.array_equal(warm_tokens, tokens)):
+    if not (np.array_equal(again, window_tokens) and np.array_equal(warm_tokens, tokens)):
         raise AssertionError(f"families (b) {arch}: a repeat of the serve generated other tokens")
     if counts["flash_attention"] != attn_layers or sum(counts.values()) != attn_layers:
         raise AssertionError(f"families (b) {arch}: launches {counts}, want {attn_layers} "

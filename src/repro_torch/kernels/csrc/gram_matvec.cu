@@ -40,27 +40,66 @@
 // loops, no runtime division by d). Supports past n are staged as zeros with
 // v = 0 and add exactly 0; rows past m are computed and never stored.
 //
-// Feature dims past one chunk (d > DC = 64) take gram_matvec_chunked: the
-// same blocks, thread tiles and sums over supports, but the block walks
-// (support tile, feature chunk of 64) steps in order, block-synchronously:
-// it stages the rows' chunk (re-read from L2 a tile) and the tile's chunk
-// (4-byte cp.async, double-buffered: the next step loads while this one
-// computes). Its per-pair arithmetic is not the staged kernel's one fp32
-// chain over all d features, which drifts past the registry's 1e-5 from the
-// plain version at l 4,096 already at d 129 (PERF.md section 6) and
-// at d > 220 would not fit in shared memory anyway: each chunk's products go
-// into an fp32 fmaf chain of at most 64 features, and the chunk sums into
-// fp64 (32 a thread, carried across a tile's chunks); the norms likewise
-// (the rows' from global memory once a block, the supports' by threads 0-63
-// as the chunks pass), and d2 in fp64. The exp and the fp64 FMA with v
-// come once a tile, after its last chunk. So the chunked kernel does not
-// give the staged kernel's bits where both run (d <= 64, through its
-// private entry); it takes one block an SM (its fp64 sums need ~250
-// registers a thread). d 16 and 32, the rounds' dims, keep the staged
-// kernel.
+// Feature dims past one chunk (d > DC = 64) take the chunked route, whose
+// cross term runs on the bf16 tensor cores. One fp32 chain over all d
+// features, the staged kernel's, drifts past the registry's 1e-5 from the
+// plain version at l 4,096 already at d 129 (PERF.md section 6), so no fp32
+// sum here spans more than DC = 64 features; the chunks' sums are fp64.
 //
-// Per-pair arithmetic (the same as the kernel this replaces; the CPU
-// emulation in tests/test_torch_kernel_design.py follows it):
+//   split_planes (once a call, once for x2 = x1, the CG's case): warp w of a
+//           block takes one row; it writes the row's three bf16 planes, hi =
+//           bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid) (both
+//           differences exact in fp32; gram.cu's split), padded with zeros
+//           to dp = d rounded up to DC features and to a multiple of BQ rows,
+//           so that every later copy is one 16-byte cp.async whatever d is;
+//           and the row's norm in fp64: lane k runs the fmaf chain of chunk k
+//           (ascending features), and the chunks' sums are added in order
+//           in fp64 (the arithmetic of the chunked kernel this replaced).
+//           6 bytes a feature a row: 20 MB at l 4,096 d 784, which stays in
+//           the 50 MB L2. Splitting in the main kernel instead would convert
+//           every support tile once per row block.
+//   gram_matvec_chunked  grid (splits, row blocks of BQ = 128), one block an
+//           SM (221,184 bytes of shared memory, __launch_bounds__(THREADS,
+//           1)): block (s, b) walks (support tile of TILE = 64, chunk of DC
+//           = 64 features) steps of split s's tiles
+//           (kernels/gram_matvec.py::split_plan at CHUNKED_TARGET_BLOCKS,
+//           one wave). Each step's three planes of the rows' chunk and of
+//           the tile's chunk (192 rows x 128 bytes a plane) arrive by 16-byte
+//           cp.async in a ring of STAGES = 3 steps, two steps ahead, one
+//           barrier a step. Rows are unpadded: the 16-byte chunk c of row r
+//           lies at c ^ (r % 8), so the 8 rows one ldmatrix reads and a
+//           quarter-warp's copies fall on 8 distinct bank groups. 8 warps as
+//           4 x 2; warp (wm, wn) owns rows 32 wm .. + 31 and supports 32 wn ..
+//           + 31 of the step: 2 x 4 m16n8 fragments. A step runs, k step
+//           after k step, the six plane products of order >= 2^-16 as
+//           mma.sync.m16n8k16 (bf16 x bf16, fp32 accumulation, exact
+//           products), smallest first: lo.hi, mid.mid, hi.lo, mid.hi,
+//           hi.mid, hi.hi (gram.cu's order), the five smaller ones into one
+//           set of 32 fp32 accumulators a thread and hi.hi into another, so
+//           that 4 roundings a step, not 24, fall at the size of the cross
+//           term (the tensor cores' fp32 adds truncate; one set was 9.5e-6
+//           from the plain version at l 4,096 d 129, two 7.6e-6). At the end
+//           of the step each pair is added in fp32, hi.hi's + the rest's
+//           (one rounding to nearest), and converted once into 32 fp64 cross
+//           sums: a conversion to fp64 issues at 16 an SM a clock, and two a
+//           pair took 17 % more time (PERF.md section 6).
+//           After a tile's last chunk the epilogue runs on the fragments:
+//           d2 = max(sx + sy - 2 cross, 0) in fp64, K = expf(-gamma
+//           fp32(d2)), acc += (double)v_j K, a thread's 8 columns of the
+//           tile in ascending order, tile after tile. At the end the quad's
+//           four lanes are added by shuffles ((l0 + l1) + l2) + l3, and the
+//           two warps of a row in wn order through shared memory, into
+//           partial[split][row].
+//
+// The chunked route gives other bits than the staged kernel where both run
+// (d <= 64, through its private entry gram_matvec_chunked_launch), within
+// the tolerance; d 16 and 32, the rounds' dims, keep the staged kernel and
+// its bits. gram_matvec_emulated and gram_matvec_chunked_emulated in
+// tests/test_torch_kernel_design.py follow the two on the CPU.
+//
+// Per-pair arithmetic of the staged kernel (the same as the kernel this
+// replaces; the CPU emulation in tests/test_torch_kernel_design.py follows
+// it):
 //   cross = 0; for c = 0 .. d-1: cross = fmaf(x1[i][c], x2[j][c], cross)
 //   sq    = 0; for c = 0 .. d-1: sq = fmaf(a[c], a[c], sq)      (each norm)
 //   d2    = fmaxf(sqx + sqs - 2.f * cross, 0.f)
@@ -72,10 +111,20 @@
 // No fp32 sub-sums, no TF32: the norm expansion's cancellation leaves the
 // registry's 1e-5 little headroom at l = 4096 (PERF.md section 7).
 //
-// Bound on the H100: fp32 operations, about 2d + 8 per (row, support) pair;
-// 0.018 ms at l = 4096, d = 32 (67 TFLOP/s), against 1 MB of inputs. What
-// holds it back is the instructions a pair: 32 FMAs, 3 shared loads and ~18
-// for the epilogue (expf alone ~10), ~53 in all (PERF.md section 6).
+// Bound on the H100: operations. A pair's 2d cross-term operations are
+// priced at the rate of an fp32-accurate product from three bf16 planes,
+// 989 / 6 = 164.8 TFLOP/s (obs/profile.py::kernel_bound), whichever
+// pipe runs them: 0.0065 ms at l = 4096, d = 32, and 0.160 ms at d = 784,
+// against 1 MB and 26 MB of inputs. The staged kernel runs them as fp32
+// FMAs on the CUDA cores; what holds it back is the instructions a pair: 32
+// FMAs, 3 shared loads and ~18 for the epilogue (expf alone ~10), ~53 in
+// all (PERF.md section 6). The chunked kernel at l 4,096 d 784 takes ~4,800
+// cycles a step for its 1,536 mma an SM (1.5 ldmatrix a 6 mma; the rows'
+// chunks are copied again for every support tile, ~2 GB a call from L2):
+// mma.sync's issue rate, a step's conversions to fp64 (~10 %) and the
+// lockstep of its phases hold it (PERF.md section 6; wgmma from the same
+// ring took 0.855x its time).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,8 +142,7 @@ constexpr int WARPS = THREADS / 32;  // warp w owns support groups 2 w and 2 w +
 constexpr int WROWS = TS * 32 / LANES;  // ... so rows WROWS w .. WROWS (w + 1) - 1 of every tile
 constexpr int FAST_D = 32;           // the feature dim with 16-byte staging
 constexpr int RED_LD = 17;           // row stride (doubles) of the group sums
-constexpr int DC = 64;               // features a step of the chunked kernel stages
-constexpr int CLD = DC + 4;          // its tiles' row stride: 17 float4s, odd
+constexpr int DC = 64;               // features a step of the chunked kernel: its fp32 chains
 
 // d rounded up to a float4
 __host__ __device__ constexpr int padded(int d) { return (d + 3) / 4 * 4; }
@@ -114,11 +162,33 @@ int smem_bytes(int d) {
   return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;
 }
 
-// the chunked kernel: two buffers of the rows' and the tile's chunks (the
-// first reused as the [BQ][RED_LD] fp64 group sums), the tile's v and norms
-// in fp64, the rows' norms in fp64
-constexpr int chunked_smem_bytes() { return 4 * 2 * (BQ + TILE) * CLD + 8 * 2 * TILE + 8 * BQ; }
-static_assert(4 * 2 * (BQ + TILE) * CLD >= 8 * BQ * RED_LD, "group sums fit the buffers");
+// the chunked kernel's three bf16 planes (PLANES), of which the six products
+// of order >= 2^-16 (PRODUCTS) run, KSTEP features an mma; a ring of STAGES
+// steps, each the planes of SROWS staged rows (the block's BQ rows, then the
+// tile's TILE supports) x DC features, 128 bytes a row; warps as CWM x CWN
+constexpr int PLANES = 3;
+constexpr int PRODUCTS = 6;
+constexpr int KSTEP = 16;
+constexpr int STAGES = 3;
+constexpr int SROWS = BQ + TILE;
+constexpr int STEP_ELEMS = PLANES * SROWS * DC;    // bf16 a ring slot
+constexpr int CWM = 4, CWN = 2;                   // warps along rows and supports
+constexpr int MT = BQ / CWM / 16, NT = TILE / CWN / 8;   // m16 and n8 fragments a warp: 2 x 4
+constexpr int CPR = DC * 2 / 16;                  // 16-byte copies a staged row of a plane
+constexpr int RPR = THREADS / CPR;                // staged rows a round of copies covers
+constexpr int SPLIT_ROWS = 8;                     // rows a block of split_planes: a warp each
+static_assert(CWM * CWN == WARPS && MT == 2 && NT == 4, "8 warps of 32 x 32");
+static_assert(BQ % RPR == 0 && TILE % RPR == 0, "a round of copies is all rows or all supports");
+
+constexpr int chunked_smem_bytes() { return 2 * STAGES * STEP_ELEMS; }
+static_assert(8 * BQ * CWN <= chunked_smem_bytes(), "the warps' row sums fit the ring");
+
+// the chunked route's scratch, laid out by the launcher: dp = d rounded up to
+// DC, each operand's rows rounded up to BQ; x2's planes and norms follow
+// x1's unless x2 is x1
+constexpr int padded_dim(int d) { return (d + DC - 1) / DC * DC; }
+constexpr int padded_rows(int rows) { return (rows + BQ - 1) / BQ * BQ; }
+int scratch_rows(int m, int n, bool same) { return padded_rows(m) + (same ? 0 : padded_rows(n)); }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -138,14 +208,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b for one 16 x 8 x 16 tile: a row-major bf16 (4 regs), b column-major
+// bf16 (2 regs), d fp32 (4 regs)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // acc[i][s] += x_i . s_s over features 0 .. width - 1 (a multiple of 4), one
 // fmaf chain a pair in ascending feature order: rows lane + LANES i of Xs and
 // TS grp .. TS grp + 3 of St, row strides ld (odd float4s: conflict-free);
-// UNROLL float4 steps unrolled
-template <int UNROLL>
+// 8 float4 steps unrolled
 __device__ __forceinline__ void fma_tile(float (&acc)[TQ][TS], const float* Xs, const float* St,
                                          int ld, int width, int lane, int grp) {
-#pragma unroll UNROLL
+#pragma unroll 8
   for (int c = 0; c < width; c += 4) {
     float4 sv[TS];
 #pragma unroll
@@ -288,7 +378,7 @@ gram_matvec_partial(const float* __restrict__ x1, const float* __restrict__ x2,
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
         for (int s = 0; s < TS; ++s) acc[i][s] = 0.f;
-      fma_tile<8>(acc, Xs, St, ld, dp, lane, grp);
+      fma_tile(acc, Xs, St, ld, dp, lane, grp);
 #pragma unroll
       for (int s = 0; s < TS; ++s) {
         const float nj = ns[buf * TILE + TS * grp + s];
@@ -306,125 +396,237 @@ gram_matvec_partial(const float* __restrict__ x1, const float* __restrict__ x2,
   write_partial(acc64, reinterpret_cast<double*>(Ss), partial, m, q0, blockIdx.x, tid, lane, grp);
 }
 
-// Any d: (support tile, chunk) steps in order, block-synchronous (see the
-// header). Step s = (tile t0 + s / chunks, chunk s % chunks) reads buffer s & 1.
-__global__ void __launch_bounds__(THREADS, 1)
-gram_matvec_chunked(const float* __restrict__ x1, const float* __restrict__ x2,
-                    const float* __restrict__ v, float gamma, double* __restrict__ partial,
-                    int m, int n, int d, int per_split) {
-  extern __shared__ float4 smem4[];
-  float* buf0 = reinterpret_cast<float*>(smem4);  // [2][BQ + TILE][CLD]: rows, then supports
-  double* vd = reinterpret_cast<double*>(buf0 + 2 * (BQ + TILE) * CLD);  // [TILE]
-  double* ns = vd + TILE;                                               // [TILE]
-  double* sxs = ns + TILE;                                              // [BQ]
+// The chunked route's prologue: row r of x (rows x d) -> its three bf16
+// planes at planes[p][r][0 .. dp) (zeros past d, and for r >= rows) and its
+// norm at norms[r] (0 past rows). Warp w of block b takes row SPLIT_ROWS b +
+// w; lane l converts features 4 l .. 4 l + 3 of each 128.
+__global__ void __launch_bounds__(THREADS)
+split_planes(const float* __restrict__ x, int rows, int d, int dp, int64_t plane,
+             __nv_bfloat16* __restrict__ planes, double* __restrict__ norms) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * SPLIT_ROWS + threadIdx.x / 32;
+  const bool real = r < rows;
+  const float* xr = x + (int64_t)(real ? r : 0) * d;
+  __nv_bfloat16* dst = planes + (int64_t)r * dp;
+  for (int c = 4 * lane; c < dp; c += 128) {
+    float w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = real && c + j < d ? __ldg(xr + c + j) : 0.f;
+    uint32_t out[PLANES][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // two features a conversion (cvt.rn.bf16x2.f32)
+      const float v0 = w[2 * h], v1 = w[2 * h + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+      const float2 fh = __bfloat1622float2(hi);
+      const float r0 = __fsub_rn(v0, fh.x), r1 = __fsub_rn(v1, fh.y);  // exact
+      const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+      const float2 fm = __bfloat1622float2(mid);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(__fsub_rn(r0, fm.x), __fsub_rn(r1, fm.y));
+      out[0][h] = as_u32(hi);
+      out[1][h] = as_u32(mid);
+      out[2][h] = as_u32(lo);
+    }
+#pragma unroll
+    for (int q = 0; q < PLANES; ++q)
+      *reinterpret_cast<uint2*>(dst + q * plane + c) = make_uint2(out[q][0], out[q][1]);
+  }
+  // the norm: lane k the fp32 fmaf chain of chunk k0 + k, the chunks' sums
+  // added in chunk order in fp64 (every lane adds them all, from shuffles)
+  const int chunks = dp / DC;
+  double s = 0.0;
+  for (int k0 = 0; k0 < chunks; k0 += 32) {
+    const int k = k0 + lane;
+    float part = 0.f;
+    if (real && k < chunks) {
+      const int end = min(k * DC + DC, d);
+      for (int c = k * DC; c < end; ++c) part = fmaf(__ldg(xr + c), __ldg(xr + c), part);
+    }
+    const int here = min(32, chunks - k0);
+    for (int j = 0; j < here; ++j) s += static_cast<double>(__shfl_sync(0xffffffffu, part, j));
+  }
+  if (lane == 0) norms[r] = s;
+}
 
-  const int tid = threadIdx.x, lane = tid % LANES, grp = tid / LANES;
+// The chunked kernel (see the header). p1 / p2: the planes of x1 / x2, plane
+// strides ps1 / ps2 elements, rows dp elements; n1 / n2 their norms.
+__global__ void __launch_bounds__(THREADS, 1)
+gram_matvec_chunked(const __nv_bfloat16* __restrict__ p1, const double* __restrict__ n1,
+                    int64_t ps1, const __nv_bfloat16* __restrict__ p2,
+                    const double* __restrict__ n2, int64_t ps2, const float* __restrict__ v,
+                    float gamma, double* __restrict__ partial, int m, int n, int dp,
+                    int per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][PLANES][SROWS][DC]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / CWN, wn = warp % CWN;
   const int q0 = blockIdx.y * BQ;
   const int tiles = (n + TILE - 1) / TILE;
   const int t0 = blockIdx.x * per_split, t1 = min(t0 + per_split, tiles);
-  const int dp = padded(d), chunks = (dp + DC - 1) / DC;
+  const int chunks = dp / DC;
   const int steps = (t1 - t0) * chunks;
 
-  // step s's chunks: the rows' and the tile's features c0 .. c0 + DC - 1
-  // (those at or past dp are never read; those in [d, dp) are zeros)
-  auto stage = [&](int s) {
-    float* Xs = buf0 + (s & 1) * (BQ + TILE) * CLD;
-    float* St = Xs + BQ * CLD;
-    const int j0 = (t0 + s / chunks) * TILE, c0 = (s % chunks) * DC;
-    for (int i = tid; i < (BQ + TILE) * DC; i += THREADS) {
-      const int r = i / DC, c = i % DC;
-      if (c0 + c >= dp) continue;
-      const bool is_row = r < BQ;
-      const int64_t row = is_row ? (int64_t)q0 + r : (int64_t)j0 + r - BQ;
-      const bool valid = (is_row ? row < m : row < n) && c0 + c < d;
-      const float* src = is_row ? x1 : x2;
-      cp_async4((is_row ? Xs + r * CLD : St + (r - BQ) * CLD) + c,
-                src + (valid ? row * d + c0 + c : 0), valid);
+  // the copies: this thread takes 16-byte chunk cc of staged rows cr + RPR i
+  // of each plane, stored at chunk cc ^ (row % 8) (= cc ^ (cr % 8))
+  const int cr = tid / CPR, cc = tid % CPR;
+  const int sw = (cc ^ (cr & 7)) * 8;
+  const __nv_bfloat16* a_src = p1 + (int64_t)(q0 + cr) * dp + cc * 8;
+  const __nv_bfloat16* b_src = p2 + (int64_t)(t0 * TILE + cr) * dp + cc * 8;
+  auto stage = [&](int s, int slot) {
+    __nv_bfloat16* dst = ring + slot * STEP_ELEMS + cr * DC + sw;
+    const int64_t ko = (int64_t)(s / chunks) * TILE * dp + (s % chunks) * DC;  // tile, chunk
+    const int ka = (s % chunks) * DC;
+#pragma unroll 1
+    for (int p = 0; p < PLANES; ++p) {
+      const __nv_bfloat16* a = a_src + p * ps1 + ka;
+      const __nv_bfloat16* b = b_src + p * ps2 + ko;
+      __nv_bfloat16* o = dst + p * SROWS * DC;
+#pragma unroll
+      for (int i = 0; i < BQ / RPR; ++i)
+        cp_async16(o + i * RPR * DC, a + (int64_t)i * RPR * dp, true);
+#pragma unroll
+      for (int i = 0; i < TILE / RPR; ++i)
+        cp_async16(o + (BQ + i * RPR) * DC, b + (int64_t)i * RPR * dp, true);
     }
   };
 
-  if (steps > 0) stage(0);
-  cp_async_commit();
-  // the rows' norms from global memory: a chunk's squares in fp32, the
-  // chunks' sums in fp64
-  if (tid < BQ) {
-    double s = 0.0;
-    if (q0 + tid < m) {
-      const float* xr = x1 + (int64_t)(q0 + tid) * d;
-      for (int c0 = 0; c0 < d; c0 += DC) {
-        float p = 0.f;
-        for (int c = c0; c < min(c0 + DC, d); ++c) p = fmaf(xr[c], xr[c], p);
-        s += static_cast<double>(p);
-      }
-    }
-    sxs[tid] = s;
-  }
-  __syncthreads();
-  double sx[TQ], acc64[TQ];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    sx[i] = sxs[lane + LANES * i];
-    acc64[i] = 0.0;
-  }
+  // the products, smallest first: lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi
+  // (plane of x1, plane of x2; 0 hi, 1 mid, 2 lo)
+  constexpr int PA[PRODUCTS] = {2, 1, 0, 1, 0, 0};
+  constexpr int PB[PRODUCTS] = {0, 1, 2, 0, 1, 0};
+  // ldmatrix rows of this lane (the swizzle's row % 8 is lane % 8 for both)
+  // and its 16-byte chunk within a k step before the swizzle: A's matrices
+  // are (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of an m16
+  // tile; B's (n 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) of two
+  // n8 tiles
+  const int a_row = 32 * wm + ((lane / 8) & 1) * 8 + lane % 8;
+  const int b_row = BQ + 32 * wn + (lane / 16) * 8 + lane % 8;
+  const int a_hi = lane / 16, b_hi = (lane / 8) & 1;
+  const uint32_t ring_addr = smem_addr(ring);
 
-  double cross[TQ][TS];  // the tile's cross products: the chunks' fp32 sums, added in fp64
-  double nrm = 0.0;      // threads 0 .. TILE - 1: support tid's norm over the chunks so far
-  for (int s = 0; s < steps; ++s) {
-    const int k = s % chunks, t = t0 + s / chunks;
-    cp_async_wait<0>();
-    __syncthreads();  // step s has landed; everyone is done with buffer (s + 1) & 1
-    if (s + 1 < steps) stage(s + 1);
+  // epilogue rows of this thread: 32 wm + 16 mt + 8 h + g; columns of a
+  // tile: 32 wn + 8 nt + c2 + e
+  const int g = lane / 4, c2 = (lane % 4) * 2;
+  double sx[MT][2], tot[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sx[mt][h] = n1[q0 + 32 * wm + 16 * mt + 8 * h + g];  // rows padded: in bounds, 0 past m
+      tot[mt][h] = 0.0;
+    }
+  const float neg_gamma = -gamma;
+
+  double cross[MT][NT][4];  // the tile's cross products: the steps' fp32 sums, added in fp64
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cross[mt][nt][e] = 0.0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) stage(s, s);
     cp_async_commit();
-    const float* Xs = buf0 + (s & 1) * (BQ + TILE) * CLD;
-    const float* St = Xs + BQ * CLD;
-    const int c0 = k * DC, width = min(DC, dp - c0);
-    if (k == 0) {
-#pragma unroll
-      for (int i = 0; i < TQ; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) cross[i][j] = 0.0;
-      nrm = 0.0;
+  }
+  int slot = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int k = s % chunks;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step s have landed ...
+    __syncthreads();              // ... and everyone's; every warp is done with step s - 1
+    {
+      const int ahead = s + STAGES - 1, aslot = slot == 0 ? STAGES - 1 : slot - 1;
+      if (ahead < steps) stage(ahead, aslot);
+      cp_async_commit();
     }
-    if (tid < TILE) {
-      const float* sr = St + tid * CLD;
-      const int real = min(width, d - c0);
-      float p = 0.f;
-      for (int c = 0; c < real; ++c) p = fmaf(sr[c], sr[c], p);
-      nrm += static_cast<double>(p);
-    }
-    float acc[TQ][TS];
+    const uint32_t base = ring_addr + 2 * slot * STEP_ELEMS;
+    float acc[2][MT][NT][4];  // the five smaller products' sums, then hi.hi's
 #pragma unroll
-    for (int i = 0; i < TQ; ++i)
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
-    fma_tile<4>(acc, Xs, St, CLD, width, lane, grp);
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < TQ; ++i)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) cross[i][j] += static_cast<double>(acc[i][j]);
-    if (k == chunks - 1) {  // the tile's last chunk: its norms and v, then the exp
-      if (tid < TILE) {
-        const int j = t * TILE + tid;
-        ns[tid] = nrm;
-        vd[tid] = j < n ? static_cast<double>(__ldg(v + j)) : 0.0;
+          for (int e = 0; e < 4; ++e) acc[a][mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DC / KSTEP; ++ks) {
+      uint32_t af[PLANES][MT][4], bf[PLANES][NT / 2][4];
+#pragma unroll
+      for (int p = 0; p < PLANES; ++p) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(af[p][mt], base + 2 * ((p * SROWS + a_row + 16 * mt) * DC +
+                                             ((2 * ks + a_hi) ^ (lane % 8)) * 8));
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp)
+          ldmatrix_x4(bf[p][jp], base + 2 * ((p * SROWS + b_row + 16 * jp) * DC +
+                                             ((2 * ks + b_hi) ^ (lane % 8)) * 8));
       }
-      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const double nj = ns[TS * grp + j];
-        const double vj = vd[TS * grp + j];
+      for (int q = 0; q < PRODUCTS; ++q) {
+        const int a = q == PRODUCTS - 1;  // hi.hi into its own accumulator
 #pragma unroll
-        for (int i = 0; i < TQ; ++i) {
-          const double d2 = fmax(sx[i] + nj - 2.0 * cross[i][j], 0.0);
-          const float kv = expf(-gamma * static_cast<float>(d2));
-          acc64[i] = fma(vj, static_cast<double>(kv), acc64[i]);
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int jp = 0; jp < NT / 2; ++jp) {
+            mma_bf16(acc[a][mt][2 * jp], af[PA[q]][mt], bf[PB[q]][jp][0], bf[PB[q]][jp][1]);
+            mma_bf16(acc[a][mt][2 * jp + 1], af[PA[q]][mt], bf[PB[q]][jp][2],
+                     bf[PB[q]][jp][3]);
+          }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cross[mt][nt][e] = (k == 0 ? 0.0 : cross[mt][nt][e]) +
+                             static_cast<double>(acc[1][mt][nt][e] + acc[0][mt][nt][e]);
+    if (k == chunks - 1) {  // the tile's last chunk: the exp and the sums over supports
+      const int jb = (t0 + s / chunks) * TILE + 32 * wn + c2;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = jb + 8 * nt + e;
+          const double nj = n2[j];  // rows padded: in bounds, 0 past n
+          const double vj = j < n ? static_cast<double>(__ldg(v + j)) : 0.0;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const double d2 = fmax(sx[mt][h] + nj - 2.0 * cross[mt][nt][2 * h + e], 0.0);
+              const float kv = expf(neg_gamma * static_cast<float>(d2));
+              tot[mt][h] = fma(vj, static_cast<double>(kv), tot[mt][h]);
+            }
         }
-      }
     }
+    slot = slot == STAGES - 1 ? 0 : slot + 1;
   }
 
+  // the quad's lanes in lane order, then the row's two warps in wn order
   cp_async_wait<0>();
-  write_partial(acc64, reinterpret_cast<double*>(buf0), partial, m, q0, blockIdx.x, tid, lane, grp);
+  __syncthreads();  // no thread reads the ring any more
+  double* red = reinterpret_cast<double*>(smem);  // [BQ][CWN]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int quad = lane & ~3;
+      double q4 = __shfl_sync(0xffffffffu, tot[mt][h], quad);
+      q4 += __shfl_sync(0xffffffffu, tot[mt][h], quad + 1);
+      q4 += __shfl_sync(0xffffffffu, tot[mt][h], quad + 2);
+      q4 += __shfl_sync(0xffffffffu, tot[mt][h], quad + 3);
+      if (lane % 4 == 0) red[(32 * wm + 16 * mt + 8 * h + g) * CWN + wn] = q4;
+    }
+  __syncthreads();
+  if (tid < BQ && q0 + tid < m) {
+    double sum = 0.0;
+    for (int w = 0; w < CWN; ++w) sum += red[tid * CWN + w];
+    partial[(int64_t)blockIdx.x * m + q0 + tid] = sum;
+  }
 }
 
 __global__ void sum_splits(const double* __restrict__ partial, float* __restrict__ out, int m,
@@ -458,15 +660,27 @@ int launch(const float* x1, const float* x2, const float* v, float gamma, double
   return launch_sum(partial, out, m, splits, stream);
 }
 
+// x's planes and norms (x2 = x1: once), the chunked kernel, the split sums
 int launch_chunked(const float* x1, const float* x2, const float* v, float gamma,
-                   double* partial, float* out, int m, int n, int d, int per_split, int splits,
-                   cudaStream_t stream) {
+                   double* partial, float* out, void* planes, double* norms, int m, int n,
+                   int d, int per_split, int splits, cudaStream_t stream) {
   constexpr int smem = chunked_smem_bytes();
   const cudaError_t err = cudaFuncSetAttribute(
       gram_matvec_chunked, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool same = x1 == x2 && m == n;
+  const int dp = padded_dim(d), r1 = padded_rows(m), r2 = same ? r1 : padded_rows(n);
+  const int64_t ps1 = (int64_t)r1 * dp, ps2 = (int64_t)r2 * dp;
+  __nv_bfloat16* pl1 = static_cast<__nv_bfloat16*>(planes);
+  __nv_bfloat16* pl2 = same ? pl1 : pl1 + PLANES * ps1;
+  double* nm2 = same ? norms : norms + r1;
+  split_planes<<<r1 / SPLIT_ROWS, THREADS, 0, stream>>>(x1, m, d, dp, ps1, pl1, norms);
+  if (!same)
+    split_planes<<<r2 / SPLIT_ROWS, THREADS, 0, stream>>>(x2, n, d, dp, ps2, pl2, nm2);
+  const cudaError_t split_err = cudaGetLastError();
+  if (split_err != cudaSuccess) return static_cast<int>(split_err);
   gram_matvec_chunked<<<dim3(splits, (m + BQ - 1) / BQ), THREADS, smem, stream>>>(
-      x1, x2, v, gamma, partial, m, n, d, per_split);
+      pl1, norms, ps1, pl2, nm2, ps2, v, gamma, partial, m, n, dp, per_split);
   return launch_sum(partial, out, m, splits, stream);
 }
 
@@ -474,18 +688,27 @@ int launch_chunked(const float* x1, const float* x2, const float* v, float gamma
 
 extern "C" int gram_matvec_smem_bytes(int d) { return smem_bytes(d); }
 extern "C" int gram_matvec_chunked_smem_bytes() { return chunked_smem_bytes(); }
+// the chunked route's scratch: PLANES x rows x padded_dim(d) bf16 planes and
+// rows fp64 norms, rows = gram_matvec_scratch_rows(m, n, x2 is x1)
+extern "C" int gram_matvec_scratch_rows(int m, int n, int same) {
+  return scratch_rows(m, n, same != 0);
+}
+extern "C" int gram_matvec_padded_dim(int d) { return padded_dim(d); }
 
 // ``per_split`` 64-support tiles per split, ``splits`` = ceil(tiles / per_split),
 // both from kernels/gram_matvec.py::split_plan; ``partial`` holds splits * m
-// doubles. The staged kernel up to one chunk's features (its tiles fit in
+// doubles; ``planes`` and ``norms`` the chunked route's scratch (unread up to
+// d 64). The staged kernel up to one chunk's features (its tiles fit in
 // shared memory to d 220, but its one fp32 chain is too long past d 64), the
-// chunked one past that.
+// chunked route past that.
 extern "C" int gram_matvec_launch(const float* x1, const float* x2, const float* v,
-                                  float gamma, double* partial, float* out, int m, int n,
-                                  int d, int per_split, int splits, void* stream) {
+                                  float gamma, double* partial, float* out, void* planes,
+                                  double* norms, int m, int n, int d, int per_split,
+                                  int splits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d > DC)
-    return launch_chunked(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st);
+    return launch_chunked(x1, x2, v, gamma, partial, out, planes, norms, m, n, d, per_split,
+                          splits, st);
   // 16-byte copies need 16-byte aligned rows: d = 32 and aligned bases
   const bool fast = d == FAST_D && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(x2) % 16 == 0;
@@ -493,12 +716,12 @@ extern "C" int gram_matvec_launch(const float* x1, const float* x2, const float*
               : launch<0>(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, st);
 }
 
-// the chunked kernel at any d, for the checks that hold it to the staged
+// the chunked route at any d, for the checks that hold it to the staged
 // kernel where both run
 extern "C" int gram_matvec_chunked_launch(const float* x1, const float* x2, const float* v,
-                                          float gamma, double* partial, float* out, int m,
-                                          int n, int d, int per_split, int splits,
-                                          void* stream) {
-  return launch_chunked(x1, x2, v, gamma, partial, out, m, n, d, per_split, splits,
-                        static_cast<cudaStream_t>(stream));
+                                          float gamma, double* partial, float* out,
+                                          void* planes, double* norms, int m, int n, int d,
+                                          int per_split, int splits, void* stream) {
+  return launch_chunked(x1, x2, v, gamma, partial, out, planes, norms, m, n, d, per_split,
+                        splits, static_cast<cudaStream_t>(stream));
 }

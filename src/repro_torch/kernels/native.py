@@ -79,12 +79,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sdca_smem_bytes": [_I],
     },
     "gram_matvec": {
-        # x1, x2, v, gamma, partial, out, m, n, d, per_split, splits, stream
-        "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
-        # the same arguments: the chunked kernel at any d
-        "gram_matvec_chunked_launch": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x1, x2, v, gamma, partial, out, planes, norms, m, n, d, per_split,
+        # splits, stream
+        "gram_matvec_launch": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # the same arguments: the chunked route at any d
+        "gram_matvec_chunked_launch": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P],
         "gram_matvec_smem_bytes": [_I],
         "gram_matvec_chunked_smem_bytes": [],
+        # m, n, x2 is x1; d
+        "gram_matvec_scratch_rows": [_I, _I, _I],
+        "gram_matvec_padded_dim": [_I],
     },
     "flash_attention": {
         # q, k, v, o, B, Sq, Skv, H, K, hd, causal, window, scale, stream (float32)

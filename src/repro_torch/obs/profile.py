@@ -24,9 +24,15 @@ The sheet a call is priced on (``hardware_for``): ``H100_SXM`` (16-bit
 tensor cores) when the kernel computes the call in bfloat16 or float16,
 ``H100_SXM_FP32`` otherwise; ``set_hardware(hw)`` puts one sheet in place for every call
 (``set_hardware(V5E)`` prices as the reference does) and
-``set_hardware(None)`` goes back to the per-dtype choice. ``chip_smoke.py``
-takes its kernels' bounds from these same functions, so a span's
-``roofline_bound_us`` and the timing table's bound are one number.
+``set_hardware(None)`` goes back to the per-dtype choice. On the per-dtype
+sheets ``gram_matvec``'s cross term (2 m n d of its operations) is priced at
+the rate of an fp32-accurate product from three bf16 planes, the tensor
+cores' bf16 rate over the six plane products its chunked kernel runs
+(``PLANE_RATE``, 989 / 6 TFLOP/s; 3xTF32 gives the same, 495 / 3), and its
+other operations at the fp32 rate: the bound is the largest of those two
+times and the bytes' (``priced``). ``chip_smoke.py`` takes its kernels'
+bounds from these same functions, so a span's ``roofline_bound_us`` and
+the timing table's bound are one number.
 
 ``timed_call`` is the shared benchmark timing helper (warmup + repeats,
 each ended by a synchronise when its result lies on the card) built on
@@ -45,6 +51,8 @@ from repro_torch.roofline.analysis import H100_SXM, H100_SXM_FP32, HardwareSpec,
 from repro_torch.utils.trees import tree_leaves
 
 _HW: Optional[HardwareSpec] = None   # None: priced by the call's first operand
+PLANE_PRODUCTS = 6   # bf16 products of an fp32-accurate product from three planes
+PLANE_RATE = H100_SXM.peak_flops / PLANE_PRODUCTS
 
 
 def set_hardware(hw: Optional[HardwareSpec]) -> None:
@@ -175,13 +183,30 @@ def kernel_cost(name: str, fn: Optional[Callable], args: tuple) -> Optional[Tupl
     return float(ops), float(nbytes)
 
 
-def kernel_bound(name: str, args: tuple) -> Tuple[float, str]:
-    """(least seconds, "operations" or "bytes"): ``roofline_report`` of
-    ``kernel_cost`` on ``hardware_for(args)``, the bound a kernel span
-    carries as ``roofline_bound_us``."""
-    flops, nbytes = kernel_cost(name, None, args)
+def priced(name: str, args: tuple, flops: float, nbytes: float) -> Tuple[float, str]:
+    """(least seconds, ``roofline_report``'s "compute" or "memory") of a
+    call of ``name`` that does ``flops`` operations on ``nbytes`` bytes:
+    ``roofline_report`` on ``hardware_for(args)``, but for ``gram_matvec``
+    on the per-dtype sheets its cross term at PLANE_RATE and the rest at
+    the fp32 rate (module docstring)."""
+    if name == "gram_matvec" and _HW is None:
+        (m, d), n = args[0].shape, args[1].shape[0]
+        cross = 2.0 * m * n * d
+        terms = {"compute": max(cross / PLANE_RATE, (flops - cross) / H100_SXM_FP32.peak_flops),
+                 "memory": nbytes / H100_SXM_FP32.hbm_bw}
+        dominant = max(terms, key=terms.get)
+        return terms[dominant], dominant
     rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args, name))
-    return rl["step_lower_bound_s"], "operations" if rl["dominant"] == "compute" else "bytes"
+    return rl["step_lower_bound_s"], rl["dominant"]
+
+
+def kernel_bound(name: str, args: tuple) -> Tuple[float, str]:
+    """(least seconds, "operations" or "bytes"): ``priced`` of
+    ``kernel_cost``, the bound a kernel span carries as
+    ``roofline_bound_us``."""
+    flops, nbytes = kernel_cost(name, None, args)
+    bound, dominant = priced(name, args, flops, nbytes)
+    return bound, "operations" if dominant == "compute" else "bytes"
 
 
 # ----------------------------------------------------------------------
@@ -227,15 +252,14 @@ def maybe_profile(name: str, fn: Callable, *args):
     attrs = {"backend": dev.type, "dur_s": dt}
     if cost is not None:
         flops, nbytes = cost
-        rl = roofline_report(flops, nbytes, 0.0, hw=hardware_for(args, name))
-        bound = rl["step_lower_bound_s"]
+        bound, dominant = priced(name, args, flops, nbytes)
         attrs.update(
             flops=flops,
             bytes_accessed=nbytes,
             achieved_gflops=flops / max(dt, 1e-12) / 1e9,
             roofline_bound_us=bound * 1e6,
             roofline_frac=bound / max(dt, 1e-12),
-            dominant=rl["dominant"],
+            dominant=dominant,
         )
     ts = tracer.clock() if hasattr(tracer, "clock") else 0.0
     tracer.complete(f"kernel.{name}", ts - dt * 1e6, dt * 1e6,

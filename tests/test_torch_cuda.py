@@ -1138,9 +1138,10 @@ def test_chunked_paths_against_the_staged_ones(cuda_device, name, d):
     """Through the private entries, where both run: the scorers' and
     rbf_gram_q8's chunked kernels give the staged kernels' bits (q8's
     staged kernel takes d <= 128, the scorers' d <= 220); gram_matvec's
-    chunked kernel sums each 64-feature chunk apart, in fp64 across
-    chunks, so it is held within the registry's tol of the staged kernel
-    (d <= 64) and of the plain version instead."""
+    chunked route runs the cross term on the tensor cores (three bf16
+    planes, fp32 a 64-feature step, fp64 across steps), so it is held
+    within the registry's tol of the staged kernel (d <= 64) and of the
+    plain version instead."""
     spec = ops.KERNEL_REGISTRY[name]
     args = wide_case(name, d, cuda_device, seed=1)
     staged, chunked = spec.kernel(*args), CHIP_SMOKE.wide_private(name)(*args)
@@ -1242,6 +1243,35 @@ def test_sdca_global_instantiation_is_the_shared_one(cuda_device, case):
     args = (_on(ops.make_ideal_sdca_problem(seed=0), cuda_device) if case == "emnist-ideal"
             else _sdca_group(256, 64, 33, 64, cuda_device))
     assert torch.equal(sdca_global_cuda(*args), ops.sdca(*args))
+
+
+@pytest.mark.parametrize("m,n,d", [(600, 600, 129), (1000, 777, 300), (130, 4097, 65)])
+def test_gram_matvec_chunked_scratch_and_operands(cuda_device, m, n, d):
+    """The chunked route's scratch as the launcher lays it out
+    (``gram_matvec_scratch_rows``, ``gram_matvec_padded_dim``), for x2 = x1
+    and apart; with x2 apart from x1 (two prologue launches, x2's planes
+    after x1's) within the registry's tol of the plain version, twice
+    bitwise, one launch counted a call."""
+    from repro_torch.kernels import gram_matvec as gmv
+    from repro_torch.kernels import native
+
+    lib = native.library("gram_matvec")
+    for same in ((0, 1) if m == n else (0,)):
+        elems, rows = gmv.chunked_scratch(m, n, d, bool(same))
+        assert rows == lib.gram_matvec_scratch_rows(m, n, same)
+        assert elems == gmv.PLANES * rows * lib.gram_matvec_padded_dim(d)
+    g = torch.Generator(device=cuda_device).manual_seed(m + n + d)
+    x1 = torch.randn(m, d, generator=g, device=cuda_device)
+    x2 = torch.randn(n, d, generator=g, device=cuda_device)
+    v = torch.randn(n, generator=g, device=cuda_device)
+    spec = ops.KERNEL_REGISTRY["gram_matvec"]
+    before = spec.counter.count
+    got = gmv.gram_matvec_cuda(x1, x2, v, 1.0 / d)
+    torch.cuda.synchronize()
+    assert spec.counter.count == before + 1
+    want = gmv.gram_matvec_plain(x1, x2, v, 1.0 / d)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=spec.tol, rtol=0)
+    assert torch.equal(got, gmv.gram_matvec_cuda(x1, x2, v, 1.0 / d))
 
 
 def test_smem_mirrors_match_the_libraries(cuda_device):

@@ -35,7 +35,13 @@ What can be held here is the plan and the arithmetic they follow:
   (fp32 FMA chains over ascending features, expf, fp64 sums thread by
   thread, then group by group, then split by split), stay within the registry's 1e-5
   of the plain version on the CG's l = 4096 inputs: random normals and the
-  round's own validation-pool proxy rows;
+  round's own validation-pool proxy rows; its chunked route past d 64: the
+  prologue's three bf16 planes give back each value to within 2^-24 of
+  itself and its norms are those of the chunked kernel it replaced, the
+  scratch and constants mirror the source, and the six plane products a
+  64-feature step (hi.hi in an accumulator of its own, adds rounded to
+  nearest or truncated), fp64 across steps, with the route's order of
+  sums over supports, stay within the tolerance (below);
 - the ``rbf_gram_q8`` kernel (``csrc/gram_q8.cu``): int8 values are exact
   in bf16, three bf16 planes carry x * scale to fp32 accuracy, its split
   plan covers every support tile once, its tile constants mirror the
@@ -63,10 +69,10 @@ What can be held here is the plan and the arithmetic they follow:
   quantum; every shape of today's paths) and fit the chunked and global-memory
   instantiations at every d to 4,096 and bucket to 65,536; the chunked
   orders at d 64, 220 and 784 on emnist rows: ``rbf_gram_q8``'s the
-  staged order's bits, ``gram_matvec``'s (64-feature fp32 chains summed
-  in fp64) within the registry's 1e-5 of the plain version and of the
-  staged order, where the staged kernel's one fp32 chain drifts past it
-  at d 784.
+  staged order's bits, ``gram_matvec``'s chunked route (tensor-core plane
+  products, fp64 across 64-feature steps) within the registry's 1e-5 of
+  the plain version and of the staged order, where the staged kernel's
+  one fp32 chain drifts past it at d 784.
 """
 import functools
 import importlib.util
@@ -718,12 +724,52 @@ def test_gram_matvec_constants_match_the_kernel():
     assert gmv.TILE == 16 * 4
     # one wave of two resident blocks an SM, as __launch_bounds__ promises
     assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src and gmv.TARGET_BLOCKS == 2 * 132
+    # the chunked route: one block an SM, warps of 32 x 32, three planes and
+    # their six products in the emulation's order, 64-feature steps
+    assert "__launch_bounds__(THREADS, 1)\ngram_matvec_chunked(" in src
+    assert gmv.CHUNKED_TARGET_BLOCKS == 132
+    for line in (f"constexpr int DC = {gmv.CHUNK};", f"constexpr int PLANES = {gmv.PLANES};",
+                 f"constexpr int PRODUCTS = {len(GRAM_PRODUCTS)};",
+                 f"constexpr int KSTEP = {Q8_KSTEP};",
+                 f"constexpr int CWM = {GMV_WARPS[0]}, CWN = {GMV_WARPS[1]};",
+                 "constexpr int STAGES = 3;"):
+        assert line in src, line
+    assert "constexpr int PA[PRODUCTS] = {" + ", ".join(str(i) for i, _ in GRAM_PRODUCTS) + "};" in src
+    assert "constexpr int PB[PRODUCTS] = {" + ", ".join(str(j) for _, j in GRAM_PRODUCTS) + "};" in src
+    assert "const int a = q == PRODUCTS - 1;  // hi.hi into its own accumulator" in src
+    assert "static_cast<double>(acc[1][mt][nt][e] + acc[0][mt][nt][e]);" in src
+    # the scratch the wrapper allocates is the launcher's layout
+    assert "constexpr int padded_dim(int d) { return (d + DC - 1) / DC * DC; }" in src
+    assert "constexpr int padded_rows(int rows) { return (rows + BQ - 1) / BQ * BQ; }" in src
+    assert ("int scratch_rows(int m, int n, bool same) "
+            "{ return padded_rows(m) + (same ? 0 : padded_rows(n)); }") in src
+    assert "__nv_bfloat16* pl2 = same ? pl1 : pl1 + PLANES * ps1;" in src
 
 
+@pytest.mark.parametrize("m,n,d", [(1, 1, 65), (4096, 4096, 784), (600, 600, 129),
+                                   (1000, 777, 300), (130, 4097, 1024)])
+def test_gram_matvec_chunked_scratch(m, n, d):
+    """``chunked_scratch``: three planes of every operand's rows (x2's
+    after x1's unless x2 is x1) rounded up to 128 rows and to 64
+    features, one norm a row; at the CG's l 4,096 d 784, 20.4 MB."""
+    for same in ((False, True) if m == n else (False,)):
+        elems, rows = gmv.chunked_scratch(m, n, d, same)
+        want_rows = -(-m // 128) * 128 + (0 if same else -(-n // 128) * 128)
+        assert rows == want_rows and rows % gmv.ROWS == 0
+        assert elems == 3 * want_rows * (-(-d // 64) * 64)
+        # every tile of the split plan reads rows of x2 that the scratch holds
+        per_split, splits = gmv.split_plan(m, n, gmv.CHUNKED_TARGET_BLOCKS)
+        assert splits * per_split * gmv.TILE >= n and -(-n // gmv.TILE) * gmv.TILE <= (
+            rows if same else rows - -(-m // 128) * 128)
+    if (m, n, d) == (4096, 4096, 784):
+        assert 2 * gmv.chunked_scratch(m, n, d, True)[0] == 20_447_232
+
+
+@pytest.mark.parametrize("target", [gmv.TARGET_BLOCKS, gmv.CHUNKED_TARGET_BLOCKS])
 @pytest.mark.parametrize("m,n", [(1, 1), (48, 40), (77, 131), (4096, 4096), (130, 4097),
                                  (5000, 64), (100, 10_000), (33_000, 200), (4096, 575)])
-def test_gram_matvec_split_plan_covers_every_support_once(m, n):
-    per_split, splits = gmv.split_plan(m, n)
+def test_gram_matvec_split_plan_covers_every_support_once(m, n, target):
+    per_split, splits = gmv.split_plan(m, n, target)
     assert splits >= 1 and per_split >= 1
     tiles = -(-n // gmv.TILE)
     # split s takes tiles s * per_split .. min((s + 1) * per_split, tiles) - 1
@@ -736,7 +782,7 @@ def test_gram_matvec_split_plan_covers_every_support_once(m, n):
     # within one wave where the supports allow more than one split, and one
     # tile fewer a split would take more splits than that
     row_blocks = -(-m // gmv.ROWS)
-    want = max(1, gmv.TARGET_BLOCKS // row_blocks)
+    want = max(1, target // row_blocks)
     assert splits <= want
     assert per_split == 1 or -(-tiles // (per_split - 1)) > want
 
@@ -749,50 +795,29 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 GMV_CHUNK = 64   # features a step of the chunked gram_matvec and scorer kernels stages
 
 
-def _chain_chunks(d, chunk):
-    """The feature ranges the fmaf chains run over, in order: all of them
-    at once (the staged kernels), or the chunked kernels' chunks of the
-    float4-padded dim, the pad [d, dp) included (it adds exactly 0)."""
-    if chunk is None:
-        return [range(d)]
-    dp = -(-d // 4) * 4
-    return [range(c0, min(c0 + chunk, dp)) for c0 in range(0, dp, chunk)]
-
-
-def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512, chunk=None):
-    """``csrc/gram_matvec.cu`` in plain PyTorch. Per pair: the cross product
-    an fmaf chain over ascending features from 0, each norm likewise,
-    d2 = max((sqx + sqs) - 2 cross, 0) in fp32, K = exp(-gamma d2) rounded
-    to fp32, then v K exactly in fp64. Sums: the thread of group g adds
-    supports 4 g .. 4 g + 3 of each 64-support tile in turn, tile after tile
-    of its split; a block adds its 16 groups in order; the second pass adds
-    the splits in order. With ``chunk`` (GMV_CHUNK), the chunked kernel's
-    arithmetic: one fp32 chain a chunk of the padded dim for the cross
-    products and the norms, the chunks' sums added in fp64, d2 in fp64,
-    K = exp(-gamma fp32(d2)) rounded to fp32."""
+def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512):
+    """``csrc/gram_matvec.cu``'s staged kernel in plain PyTorch. Per pair:
+    the cross product an fmaf chain over ascending features from 0, each
+    norm likewise, d2 = max((sqx + sqs) - 2 cross, 0) in fp32, K =
+    exp(-gamma d2) rounded to fp32, then v K exactly in fp64. Sums: the
+    thread of group g adds supports 4 g .. 4 g + 3 of each 64-support tile
+    in turn, tile after tile of its split; a block adds its 16 groups in
+    order; the second pass adds the splits in order."""
     x1, x2, v = (torch.as_tensor(a) for a in (x1, x2, v))
     m, d = x1.shape
-    ranges = _chain_chunks(d, chunk)
-    dp = max([r.stop for r in ranges] + [d])
-    wide = torch.float32 if chunk is None else torch.float64
     n = x2.shape[0]
     per_split, splits = gmv.split_plan(m, n)
     groups, ts = 16, gmv.TILE // 16
     width = splits * per_split * gmv.TILE
-    s = torch.zeros((width, dp), dtype=torch.float32)
-    s[:n, :d] = x2
-    x1 = torch.cat([x1, x1.new_zeros((m, dp - d))], 1)
+    s = torch.zeros((width, d), dtype=torch.float32)
+    s[:n] = x2
     vp = torch.zeros(width, dtype=torch.float64)
     vp[:n] = v.double()
 
     def norms(a):
-        sq = torch.zeros(a.shape[0], dtype=wide)
-        for cs in ranges:
-            part = torch.zeros(a.shape[0], dtype=torch.float32)
-            for c in cs:
-                if c < d:
-                    part = _fma32(a[:, c], a[:, c], part)
-            sq = sq + part.to(wide)
+        sq = torch.zeros(a.shape[0], dtype=torch.float32)
+        for c in range(d):
+            sq = _fma32(a[:, c], a[:, c], sq)
         return sq
 
     sqs = norms(s)
@@ -800,14 +825,11 @@ def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512, chunk=None):
     out = torch.empty(m, dtype=torch.float32)
     for lo in range(0, m, row_chunk):
         xr = x1[lo:lo + row_chunk]
-        cross = torch.zeros((xr.shape[0], width), dtype=wide)
-        for cs in ranges:
-            part = torch.zeros((xr.shape[0], width), dtype=torch.float32)
-            for c in cs:
-                part = _fma32(xr[:, c, None], s[None, :, c], part)
-            cross = cross + part.to(wide)
+        cross = torch.zeros((xr.shape[0], width), dtype=torch.float32)
+        for c in range(d):
+            cross = _fma32(xr[:, c, None], s[None, :, c], cross)
         d2 = torch.clamp((norms(xr)[:, None] + sqs[None, :]) - 2.0 * cross, min=0.0)
-        K = torch.exp((neg_gamma * d2.float()).double()).float()
+        K = torch.exp((neg_gamma * d2).double()).float()
         # support (split p, tile t, group g, k) at ((p * per_split + t) * 16 + g) * 4 + k
         prod = (vp[None, :] * K.double()).view(-1, splits, per_split, groups, ts)
         acc = torch.zeros(prod.shape[:2] + (groups,), dtype=torch.float64)
@@ -817,6 +839,119 @@ def gram_matvec_emulated(x1, x2, v, gamma, row_chunk=512, chunk=None):
         block = torch.zeros(prod.shape[:2], dtype=torch.float64)
         for g in range(groups):
             block = block + acc[:, :, g]
+        total = torch.zeros(prod.shape[0], dtype=torch.float64)
+        for p in range(splits):
+            total = total + block[:, p]
+        out[lo:lo + row_chunk] = total.float()
+    return out
+
+
+def gmv_planes(x: torch.Tensor) -> tuple:
+    """The chunked route's prologue (``split_planes``): rows of x padded
+    with zeros to a multiple of 64 features, split into three bf16 planes
+    (hi, mid, lo as fp32 values)."""
+    m, d = x.shape
+    a = torch.zeros((m, -(-d // GMV_CHUNK) * GMV_CHUNK), dtype=torch.float32)
+    a[:, :d] = x
+    return q8_planes(a)
+
+
+def gmv_prologue_norms(x: torch.Tensor) -> torch.Tensor:
+    """The prologue's norms, as ``split_planes`` takes them: lane k of a
+    row's warp runs the fmaf chain of chunk k0 + k (its real features,
+    ascending), and the chunks' sums are added in chunk order in fp64, 32
+    chunks a round."""
+    m, d = x.shape
+    chunks = -(-d // GMV_CHUNK)
+    s = torch.zeros(m, dtype=torch.float64)
+    for k0 in range(0, chunks, 32):
+        for k in range(k0, min(k0 + 32, chunks)):
+            part = torch.zeros(m, dtype=torch.float32)
+            for c in range(k * GMV_CHUNK, min(k * GMV_CHUNK + GMV_CHUNK, d)):
+                part = _fma32(x[:, c], x[:, c], part)
+            s = s + part.double()
+    return s
+
+
+def chunked_norms_before(x: torch.Tensor) -> torch.Tensor:
+    """The norms of the chunked kernel this route replaced: one fmaf chain
+    a 64-feature chunk of the float4-padded dim (the real features), the
+    chunks' sums added in fp64."""
+    m, d = x.shape
+    dp = -(-d // 4) * 4
+    s = torch.zeros(m, dtype=torch.float64)
+    for c0 in range(0, dp, GMV_CHUNK):
+        part = torch.zeros(m, dtype=torch.float32)
+        for c in range(c0, min(c0 + GMV_CHUNK, dp)):
+            if c < d:
+                part = _fma32(x[:, c], x[:, c], part)
+        s = s + part.double()
+    return s
+
+
+GMV_WARPS = (4, 2)   # csrc/gram_matvec.cu's CWM, CWN: warps of 32 rows x 32 supports
+
+
+def gmv_cross(x1, x2, rounding="nearest"):
+    """The chunked kernel's cross products, (m, n) fp64: per 64-feature
+    step, k step after k step, the six plane products (each 16 exact
+    products summed exactly) in GRAM_PRODUCTS' order, the five smaller
+    ones into one fp32 accumulator and hi.hi into another, each add
+    rounded (to nearest, or toward zero as a tensor core's fp32 adder
+    may); the pair added in fp32 (to nearest) and converted, the steps'
+    sums added in fp64."""
+    pa = [p.double() for p in gmv_planes(torch.as_tensor(x1))]
+    pb = [p.double() for p in gmv_planes(torch.as_tensor(x2))]
+    m, n, dp = pa[0].shape[0], pb[0].shape[0], pa[0].shape[1]
+    cross = torch.zeros((m, n), dtype=torch.float64)
+    for c0 in range(0, dp, GMV_CHUNK):
+        acc = [torch.zeros((m, n), dtype=torch.float32) for _ in range(2)]
+        for k in range(c0, c0 + GMV_CHUNK, Q8_KSTEP):
+            for q, (i, j) in enumerate(GRAM_PRODUCTS):
+                big = q == len(GRAM_PRODUCTS) - 1
+                part = pa[i][:, k:k + Q8_KSTEP] @ pb[j][:, k:k + Q8_KSTEP].T
+                acc[big] = _round_fp32(acc[big].double() + part, rounding)
+        cross = cross + (acc[1] + acc[0]).double()
+    return cross
+
+
+def gram_matvec_chunked_emulated(x1, x2, v, gamma, rounding="nearest", row_chunk=512):
+    """``csrc/gram_matvec.cu``'s chunked route in plain PyTorch: the
+    prologue's planes and norms, ``gmv_cross``, d2 = max((sx + sy) - 2
+    cross, 0) in fp64, K = exp(-gamma fp32(d2)) rounded to fp32, then v K
+    exactly in fp64. Sums (split_plan at CHUNKED_TARGET_BLOCKS): the thread
+    (wn, q) of a row adds, tile after tile of its split, its columns 32 wn
+    + 8 nt + 2 q + e (nt 0-3, e 0-1) in ascending order; the quad's lanes
+    are added ((q0 + q1) + q2) + q3, then the row's two warps in wn order,
+    then the splits in order."""
+    x1, x2, v = (torch.as_tensor(a) for a in (x1, x2, v))
+    m, n = x1.shape[0], x2.shape[0]
+    per_split, splits = gmv.split_plan(m, n, gmv.CHUNKED_TARGET_BLOCKS)
+    width = splits * per_split * gmv.TILE
+    x2p = torch.zeros((width, x2.shape[1]), dtype=torch.float32)
+    x2p[:n] = x2
+    vp = torch.zeros(width, dtype=torch.float64)
+    vp[:n] = v.double()
+    sy = gmv_prologue_norms(x2p)
+    neg_gamma = torch.tensor(-np.float32(gamma))
+    out = torch.empty(m, dtype=torch.float32)
+    for lo in range(0, m, row_chunk):
+        xr = x1[lo:lo + row_chunk]
+        d2 = torch.clamp((gmv_prologue_norms(xr)[:, None] + sy[None, :])
+                         - 2.0 * gmv_cross(xr, x2p, rounding), min=0.0)
+        K = torch.exp((neg_gamma * d2.float()).double()).float()
+        # support (split p, tile t, warp wn, nt, quad lane q, e)
+        wn, q = GMV_WARPS[1], 4
+        prod = (vp[None, :] * K.double()).view(-1, splits, per_split, wn, 4, q, 2)
+        acc = torch.zeros((prod.shape[0], splits, wn, q), dtype=torch.float64)
+        for t in range(per_split):
+            for nt in range(4):
+                for e in range(2):
+                    acc = acc + prod[:, :, t, :, nt, :, e]
+        quad = ((acc[..., 0] + acc[..., 1]) + acc[..., 2]) + acc[..., 3]
+        block = torch.zeros(prod.shape[:2], dtype=torch.float64)
+        for w in range(wn):
+            block = block + quad[..., w]
         total = torch.zeros(prod.shape[0], dtype=torch.float64)
         for p in range(splits):
             total = total + block[:, p]
@@ -1302,7 +1437,7 @@ def gmv_smem_bytes(d):
     return 4 * (bq * _row_stride(d) + support + 4 * tile) + 8 * 2 * tile
 
 
-GMV_CHUNKED_BYTES = 4 * 2 * (128 + 64) * (GMV_CHUNK + 4) + 8 * 2 * 64 + 8 * 128
+GMV_CHUNKED_BYTES = 2 * 3 * 3 * (128 + 64) * GMV_CHUNK   # a ring of 3 steps: 3 bf16 planes of 192 rows
 
 
 def q8_staged_bytes(ksteps):
@@ -1339,11 +1474,12 @@ def test_wide_smem_formulas_match_the_sources():
     assert "__launch_bounds__(THREADS, 2)\ngram_q8_chunked_kernel(" in src["gram_q8"]
     assert ("return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;"
             in src["gram_matvec"])
-    assert ("constexpr int chunked_smem_bytes() { return 4 * 2 * (BQ + TILE) * CLD + 8 * 2 * TILE + 8 * BQ; }"
-            in src["gram_matvec"])
+    assert "constexpr int chunked_smem_bytes() { return 2 * STAGES * STEP_ELEMS; }" in src["gram_matvec"]
+    assert "constexpr int STEP_ELEMS = PLANES * SROWS * DC;" in src["gram_matvec"]
+    assert "constexpr int SROWS = BQ + TILE;" in src["gram_matvec"]
     for name in ("ensemble_score", "gram_matvec"):
         assert f"constexpr int DC = {GMV_CHUNK};" in src[name]
-        assert "constexpr int CLD = DC + 4;" in src[name]
+    assert "constexpr int CLD = DC + 4;" in src["ensemble_score"]
     assert f"constexpr int MAX_SMEM = {MAX_SMEM};" in src["ensemble_score"]
     assert "chunked || smem_bytes(d) > MAX_SMEM" in src["ensemble_score"]
     # gram_matvec leaves its staged kernel past one chunk's features
@@ -1403,19 +1539,23 @@ def _wide_rows(d, rows=512):
 
 
 WIDE_DS = [64, 220, 784]
+ROUNDINGS = ["nearest", "truncate"]
 
 
+@pytest.mark.parametrize("rounding", ROUNDINGS)
 @pytest.mark.parametrize("d", WIDE_DS)
-def test_gram_matvec_chunked_order(d):
-    """The chunked kernel's arithmetic (fp32 chains of 64 features, their
-    sums and d2 in fp64) within the registry's 1e-5 of the plain version
-    on emnist rows at default_gamma, and within it of the staged kernel's
-    one fp32 chain (which runs to d 64, and could to 220)."""
+def test_gram_matvec_chunked_order(d, rounding):
+    """The chunked route's arithmetic (three bf16 planes, the six products
+    in fp32 a 64-feature step, hi.hi apart, the steps' sums and d2 in
+    fp64) within the registry's 1e-5 of the plain version on emnist rows
+    at default_gamma, with the tensor cores' adds rounded to nearest or
+    truncated, and within it of the staged kernel's one fp32 chain (which
+    runs to d 64, and could to 220)."""
     x1, x2 = _wide_rows(d)
     v = _rng("gmv-wide", d).normal(size=len(x2)).astype(np.float32)
     gamma = float(1.0 / (d * x1.var()))
     tol = ops.KERNEL_REGISTRY["gram_matvec"].tol
-    chunked = gram_matvec_emulated(x1, x2, v, gamma, chunk=GMV_CHUNK)
+    chunked = gram_matvec_chunked_emulated(x1, x2, v, gamma, rounding)
     want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (x1, x2, v)), gamma)
     assert bool(torch.isfinite(chunked).all())
     assert float((chunked - want).abs().max()) <= tol
@@ -1423,23 +1563,72 @@ def test_gram_matvec_chunked_order(d):
         assert float((chunked - gram_matvec_emulated(x1, x2, v, gamma)).abs().max()) <= tol
 
 
-def test_gram_matvec_one_chain_drifts_at_d784():
-    """Why the chunked kernel does not continue the staged kernel's one fp32
-    chain: at the CG's l = 4,096 on normals (chip_smoke.py's "cg" case at d
-    784), that chain drifts past the registry's 1e-5 from the plain version
-    where the chunked arithmetic stays well within it. Rows 0-255 of the
-    4,096, against all 4,096 supports."""
-    d, l, rows = 784, 4096, 256
+@functools.lru_cache(maxsize=None)
+def _cg_normals_wide(d=784, l=4096):
     rng = _rng("cg-normals-wide")
     xp = rng.normal(size=(l, d)).astype(np.float32)
     v = rng.normal(size=l).astype(np.float32)
-    gamma = float(1.0 / (d * xp.var()))
+    return xp, v, float(1.0 / (d * xp.var()))
+
+
+def test_gram_matvec_one_chain_drifts_at_d784():
+    """Why the chunked route does not continue the staged kernel's one fp32
+    chain: at the CG's l = 4,096 on normals (chip_smoke.py's "cg" case at d
+    784), that chain drifts past the registry's 1e-5 from the plain version
+    where the chunked arithmetic stays within half of it (its adds rounded
+    to nearest and truncated). Rows 0-255 of the 4,096, against all 4,096
+    supports."""
+    rows = 256
+    xp, v, gamma = _cg_normals_wide()
     want = gmv.gram_matvec_plain(*(torch.from_numpy(a) for a in (xp[:rows], xp, v)), gamma)
     one_chain = gram_matvec_emulated(xp[:rows], xp, v, gamma)
-    chunked = gram_matvec_emulated(xp[:rows], xp, v, gamma, chunk=GMV_CHUNK)
     tol = ops.KERNEL_REGISTRY["gram_matvec"].tol
     assert float((one_chain - want).abs().max()) > tol
-    assert float((chunked - want).abs().max()) <= tol / 2
+    for rounding in ROUNDINGS:
+        chunked = gram_matvec_chunked_emulated(xp[:rows], xp, v, gamma, rounding)
+        assert float((chunked - want).abs().max()) <= tol / 2, rounding
+
+
+def test_gram_matvec_hi_hi_apart_cuts_the_truncation_error():
+    """Why hi.hi has an accumulator of its own: with one accumulator for all
+    six products, 24 adds a step round at the size of the cross term; with
+    hi.hi apart, 4. Under truncating adds the cross terms' largest error
+    against the exact fp64 product is at least twice smaller (normals at d
+    784, 128 rows against 1,024 supports)."""
+    xp, _, _ = _cg_normals_wide()
+    a, b = torch.from_numpy(xp[:128]), torch.from_numpy(xp[:1024])
+    exact = a.double() @ b.double().T
+    pa, pb = [p.double() for p in gmv_planes(a)], [p.double() for p in gmv_planes(b)]
+    one = torch.zeros_like(exact)
+    for c0 in range(0, pa[0].shape[1], GMV_CHUNK):
+        acc = torch.zeros(exact.shape, dtype=torch.float32)
+        for k in range(c0, c0 + GMV_CHUNK, Q8_KSTEP):
+            for i, j in GRAM_PRODUCTS:
+                acc = _round_fp32(acc.double() + pa[i][:, k:k + Q8_KSTEP]
+                                  @ pb[j][:, k:k + Q8_KSTEP].T, "truncate")
+        one = one + acc.double()
+    apart = gmv_cross(a, b, "truncate")
+    assert 2 * float((apart - exact).abs().max()) <= float((one - exact).abs().max())
+
+
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 129, 784, 2100])
+def test_gram_matvec_prologue_planes_and_norms(d):
+    """The prologue's three planes give back each fp32 value to within
+    2^-24 of itself (zeros past d), and its fp64 norms (the fmaf chain of
+    each 64-feature chunk, the chunks added in fp64, 32 chunks a round)
+    equal those of the chunked kernel this route replaced; rows of the
+    emnist federation scaled over 2^-20 .. 2^20."""
+    x = _wide_rows(784)[0][:64]
+    x = np.tile(x, (1, -(-d // x.shape[1])))[:, :d]
+    x = torch.from_numpy(x * np.exp2(np.linspace(-20, 20, 64, dtype=np.float32))[:, None])
+    hi, mid, lo = gmv_planes(x)
+    assert hi.shape == (64, -(-d // GMV_CHUNK) * GMV_CHUNK)
+    for plane in (hi, mid, lo):
+        assert torch.equal(plane, plane.bfloat16().float())   # each plane exact in bf16
+        assert not plane[:, d:].any()
+    back = (hi.double() + mid.double() + lo.double())[:, :d]
+    assert bool(((back - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all())
+    assert torch.equal(gmv_prologue_norms(x), chunked_norms_before(x))
 
 
 @pytest.mark.parametrize("d", WIDE_DS)

@@ -123,6 +123,28 @@ def test_kernel_cost_pinned(name):
     assert kernel_cost("no_such_kernel", None, (np.zeros(3),)) is None
 
 
+@pytest.mark.parametrize("d,want_ms", [(784, 0.1596), (32, 0.00651), (16, 0.00326)])
+def test_gram_matvec_bound_prices_the_plane_products(d, want_ms):
+    """``gram_matvec`` at the CG's l 4,096: the cross term's 2 m n d
+    operations at 989 / 6 TFLOP/s (an fp32-accurate product from three bf16
+    planes), above the rest at the fp32 rate and the bytes: an operations
+    bound, the same for the span and the timing table, whichever
+    instantiation runs; ``set_hardware`` still prices on its one sheet."""
+    x = torch.empty((4096, d), device="meta")
+    args = (x, x, torch.empty((4096,), device="meta"), 1.0)
+    bound_s, by = kernel_bound("gram_matvec", args)
+    assert by == "operations" and round(1e3 * bound_s, 6) == pytest.approx(want_ms, abs=5e-6)
+    assert bound_s == 2 * 4096 * 4096 * d / (989e12 / 6)
+    flops, nbytes = kernel_cost("gram_matvec", None, args)
+    fp32 = roofline_report(flops, nbytes, 0.0, hw=H100_SXM_FP32)["step_lower_bound_s"]
+    assert bound_s < fp32 / 2
+    set_hardware(H100_SXM_FP32)
+    try:
+        assert kernel_bound("gram_matvec", args)[0] == fp32
+    finally:
+        set_hardware(None)
+
+
 def test_kernel_cost_reads_shapes_only():
     """Meta tensors (no data) price a Gram launch as real ones do, and a
     fit (x2 is x1) reads its operand once."""
