@@ -11,12 +11,13 @@ It imports the port and nothing of JAX or of the reference package
   build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            for sm_90a, one ``nvcc`` per source, all started together (the
            kernel cases are drawn in a thread meanwhile); count the
-           tensor-core (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-           instructions in the compiled code (``cuobjdump -sass``, one per
-           library, all at once): the bf16 and fp16 flash kernels,
-           ``rbf_gram_q8``'s ``gram_q8``, the fp32 Grams' ``gram`` and
-           ``gram_matvec`` (its chunked route past d 64) must have all
-           three, the scorers LDGSTS;
+           tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS) and
+           TMA tensor load (UTMALDG) instructions in the compiled code
+           (``cuobjdump -sass``, one per library, all at once): the bf16
+           and fp16 flash kernels, ``rbf_gram_q8``'s ``gram_q8``, the fp32
+           Grams' ``gram`` and ``gram_matvec`` (its chunked route past d
+           64) must have the first three, the scorers LDGSTS, SDCA (its
+           cluster kernel's ring) UTMALDG;
   kernels  every kernel against its plain PyTorch version on the card, at
            the main path's shapes and the registry's two shapes, at the
            registry's tolerance; flash attention in fp32 (``flash_attention.cu``)
@@ -146,10 +147,12 @@ It imports the port and nothing of JAX or of the reference package
            and each chunked kernel's private entry against the staged
            kernel where both run (bitwise; ``gram_matvec``, whose chunked
            route runs the cross term on the tensor cores, within the tol);
-           SDCA on the pooled
+           SDCA's cluster kernel on the pooled
            emnist ideal at buckets 12,416 and 16,384 against its plain
-           version at 2 epochs, and its global instantiation bitwise the
-           shared one at bucket 2,048; then, launches counted from 0: (b)
+           version at 2 epochs (ms and ns a step; the cluster's CTAs), alone
+           and in a group of 2 bitwise at 12,416, and through its private
+           entry within the tol of the one-block kernel and the plain
+           version at g256 b64 and the ideal's 2,048; then, launches counted from 0: (b)
            the scale-0.02 emnist rounds at d 784 (fp32) and d 256 (int8,
            CG distillation on 1,024 proxy rows) on cuda against the cpu
            (ledgers, ids and best k equal, AUCs within 1e-4); (c) the emnist
@@ -157,7 +160,7 @@ It imports the port and nothing of JAX or of the reference package
            (865 devices; the full 3,462 pushed the script past its time on
            a slow host; ``tools/wide_round.py`` runs them): seconds, spans,
            AUCs, launches, each kernel's summed launch times; (d) ``train_svm`` on the ideal's 16,384
-           rows (bucket 16,384, the global SDCA) on cuda and on cpu, AUCs
+           rows (bucket 16,384, the SDCA cluster) on cuda and on cpu, AUCs
            on the pooled test rows within 1e-4; every lifted kernel
            launched in (b)-(d);
   lm_parity  llama3.2-1b at full width cut to 2 layers, fp32, with the
@@ -629,7 +632,7 @@ def kernel_cases(rng, ops):
     }
     # the wide phase's shapes at d 784 (``wide_inputs``, drawn on the card;
     # the scorers at a tenth of the members, 38-47 ms a call) and SDCA at
-    # bucket 16,384 (the global instantiation, built on the
+    # bucket 16,384 (the cluster kernel, built on the
     # card; 1 epoch, as the plain version takes ~4 s an epoch there), timed
     # and profiled; the wide phase checks them, the kernels phase skips them
     # (WIDE_PREFIX)
@@ -721,9 +724,10 @@ def agreement(spec, got, want):
 # phases
 # ----------------------------------------------------------------------
 
-# SASS opcodes counted in each library: tensor-core products, ldmatrix, cp.async
-SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
-SASS_REQUIRED = {"flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"),
+# SASS opcodes counted in each library: tensor-core products, ldmatrix,
+# cp.async, TMA tensor loads
+SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "UTMALDG")
+SASS_REQUIRED = {"sdca": ("UTMALDG",), "flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"),
                  "flash_attention_tc_f16": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
                  "gram_matvec": ("HMMA", "LDSM", "LDGSTS"),
                  "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
@@ -1797,40 +1801,76 @@ def ideal_problem_on(device, scale, cap, epochs):
     return K, yp, torch.tensor([n], dtype=torch.int32, device=device), 0.01, epochs
 
 
+WIDE_SDCA_CHECK_EPOCHS = 4   # the emnist ideal at b 2048 against the plain version
+WIDE_SDCA_GROUP_CUT = 12_000  # the second member of the b 12,416 group: the Gram cut to 12,000 rows
+
+
 def wide_sdca(ops, device):
-    """SDCA past the shared-memory bucket: the pooled emnist ideal at
-    WIDE_SDCA's rows and buckets within the registry's 1e-5 of the plain
-    version at WIDE_SDCA_EPOCHS epochs (padding 0); and the global-memory
-    instantiation (its private entry) bitwise the shared one at the
-    emnist ideal's bucket 2,048 (20 epochs)."""
+    """SDCA past the shared-memory bucket, where the cluster kernel runs:
+    the pooled emnist ideal at WIDE_SDCA's rows and buckets within the
+    registry's 1e-5 of the plain version at WIDE_SDCA_EPOCHS epochs (padding
+    0, twice bitwise), each bucket's ms a call (CUDA events, one warm
+    launch) and ns a step; at bucket 12,416 a device's alphas the same bits
+    alone and as either member of a group of 2 (the ideal and its Gram cut
+    to WIDE_SDCA_GROUP_CUT rows); and the cluster kernel through its
+    private entry within the tol of the one-block kernel and of the plain
+    version where both run: the g256 b64 group (20 epochs) and the emnist
+    ideal at bucket 2,048 (WIDE_SDCA_CHECK_EPOCHS epochs)."""
+    import numpy as np
     import torch
 
-    from repro_torch.kernels.sdca import sdca_global_cuda
+    from repro_torch.kernels.sdca import CLUSTER, sdca_global_cuda
 
     spec = ops.KERNEL_REGISTRY["sdca"]
-    rows = []
+    rows, group = [], None
     for cap, bucket in WIDE_SDCA:
         t0 = time.perf_counter()
         args = ideal_problem_on(device, WIDE_IDEAL_SCALE, cap, WIDE_SDCA_EPOCHS)
         if tuple(args[0].shape) != (1, bucket, bucket):
             raise AssertionError(f"wide sdca: bucket {tuple(args[0].shape)} != {bucket}")
         got = spec.kernel(*args)
+        again = spec.kernel(*args)
+        ms = _time_ms(lambda: spec.kernel(*args), 1)
         want = spec.plain(*args)
         err, ok, tol = agreement(spec, got, want)
         pad = float(got[0, cap:].abs().max()) if cap < bucket else 0.0
         interior = int(((want > 0) & (want < 1)).sum())
+        steps = WIDE_SDCA_EPOCHS * cap
         rows.append({"rows": cap, "bucket": bucket, "epochs": WIDE_SDCA_EPOCHS,
+                     "cluster_ctas": CLUSTER, "ms": ms, "ns_per_step": 1e6 * ms / steps,
                      "max_abs_err": err, "tol": tol, "pad_max": pad,
+                     "bitwise_twice": bool(torch.equal(got, again)),
                      "interior_alphas": interior, "seconds": time.perf_counter() - t0})
-        if not ok or pad != 0.0:
+        if not ok or pad != 0.0 or not rows[-1]["bitwise_twice"]:
             raise AssertionError(f"wide sdca b{bucket}: {rows[-1]}")
-        del args, got, want
+        if group is None:   # the first bucket: alone and in a group of 2, one epoch
+            K, y, n_real, lam, _ = args
+            cut = torch.tensor([WIDE_SDCA_GROUP_CUT], dtype=torch.int32, device=device)
+            alone = [spec.kernel(K, y, n, lam, 1)[0] for n in (n_real, cut)]
+            pair = spec.kernel(K.expand(2, -1, -1).contiguous(), y.expand(2, -1).contiguous(),
+                               torch.cat((n_real, cut)), lam, 1)
+            group = {"bucket": bucket, "rows": [cap, WIDE_SDCA_GROUP_CUT],
+                     "alone_equals_group": [bool(torch.equal(a, pair[i]))
+                                            for i, a in enumerate(alone)]}
+            del pair, alone
+            if not all(group["alone_equals_group"]):
+                raise AssertionError(f"wide sdca: alone != in a group of 2: {group}")
+        del args, got, again, want
         torch.cuda.empty_cache()
-    args = to_device(ops.make_ideal_sdca_problem(seed=0), device)
-    same = bool(torch.equal(sdca_global_cuda(*args), spec.kernel(*args)))
-    if not same:
-        raise AssertionError("wide sdca: the global instantiation != the shared one at b 2048")
-    return {"buckets": rows, "global_equals_shared_b2048": same}
+    both = []
+    rng = np.random.default_rng(0)
+    for label, args in (("group g256 b64", ops.make_sdca_problem(
+            rng, g=256, b=64, d=32, n_real=rng.integers(33, 65, size=256))),
+            (f"ideal emnist g1 b2048 e{WIDE_SDCA_CHECK_EPOCHS}",
+             ops.make_ideal_sdca_problem(seed=0, epochs=WIDE_SDCA_CHECK_EPOCHS))):
+        targs = to_device(args, device)
+        cluster = sdca_global_cuda(*targs)
+        errs = {side: agreement(spec, cluster, ref)[:2] for side, ref in
+                (("one_block", spec.kernel(*targs)), ("plain", spec.plain(*targs)))}
+        both.append({"case": label, **{f"max_abs_err_vs_{k}": e for k, (e, _) in errs.items()}})
+        if not all(ok for _, ok in errs.values()):
+            raise AssertionError(f"wide sdca: the cluster kernel at [{label}]: {both[-1]}")
+    return {"buckets": rows, "group_of_2": group, "cluster_where_both_run": both}
 
 
 @functools.lru_cache(maxsize=1)
@@ -1971,7 +2011,7 @@ def phase_wide(ops, trace, device):
     against the cpu's (ledgers, ids and best k equal, AUCs within 1e-4);
     (c) ``wide_full_round`` on the emnist federation at d 784 and
     WIDE_FULL_SCALE; (d) ``train_svm`` on the ideal's
-    16,384 rows on cuda (bucket 16,384: the global SDCA), its AUC on the
+    16,384 rows on cuda (bucket 16,384: the SDCA cluster), its AUC on the
     pooled test rows within 1e-4 of the cpu solve's. Every lifted kernel
     must launch in (b)-(d)."""
     import concurrent.futures

@@ -72,11 +72,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ensemble_score_q8_chunked_smem_bytes": [],
     },
     "sdca": {
-        # K, y, n_real, alpha, v (fp64 scratch or null), g, b, lam, epochs, stream
-        "sdca_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-        # the same arguments: the global-memory instantiation at any bucket
-        "sdca_global_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # K, y, n_real, alpha, g, b, lam, epochs, stream
+        "sdca_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # the same arguments: the cluster kernel at any bucket
+        "sdca_cluster_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         "sdca_smem_bytes": [_I],
+        "sdca_cluster_smem_bytes": [_I],
     },
     "gram_matvec": {
         # x1, x2, v, gamma, partial, out, planes, norms, m, n, d, per_split,

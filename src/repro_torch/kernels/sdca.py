@@ -20,11 +20,15 @@ barrier a tile and none a step, and streams each tile's K rows from L2
 under the steps of the tile before.
 
 v (fp64), alpha and y live in shared memory up to a bucket of 12,384
-(``sdca_smem_bytes``); past it the launcher takes the same kernel with
-the three in global memory (v in a (g, b) fp64 scratch the wrapper
-allocates), where they stay in L2: the same order of every sum and
-step, so the same alphas bit for bit where both run
-(``sdca_global_cuda`` launches it at any bucket, for that check).
+(``sdca_smem_bytes``). Past it K outgrows the L2 too, and the launcher
+takes a second kernel: one thread-block cluster of ``CLUSTER`` CTAs per
+device, each owning a slice of the columns (``slice_cols``), streaming its
+slice of every tile's K rows through a ring of bulk asynchronous copies
+and summing the next tile's matvec over it; rank 0 steps, adding the
+ranks' sums in rank order, with one cluster barrier a tile. The sums'
+order differs from the one-block kernel's, so the two agree within the
+tolerance, not bit for bit (``sdca_global_cuda`` launches the cluster
+kernel at any bucket, for that check).
 """
 from __future__ import annotations
 
@@ -39,6 +43,19 @@ LAUNCHES = native.LaunchCounter("sdca")
 # l, l + 32, ... in turn, then over the lanes pairwise, bit 4 of the lane first.
 TILE = 32
 GROUP = 4
+# The cluster kernel's (past bucket 12,384): rank r of CLUSTER sums the
+# columns [r W, min(r W + W, n)), W = slice_cols(n); lane l of a rank over
+# the slice's GROUP-column groups l, l + 32, ..., the lanes pairwise, then
+# rank 0 adds the ranks' sums in rank order.
+CLUSTER = 16
+SLICE_UNIT = 32 * GROUP
+
+
+def slice_cols(n: int) -> int:
+    """Columns each rank of the cluster kernel owns for a device of ``n``
+    real coordinates: ceil(n / CLUSTER) rounded up to whole passes of the
+    32 lanes (``SLICE_UNIT``); ranks past n own none."""
+    return -(-n // (CLUSTER * SLICE_UNIT)) * SLICE_UNIT
 
 
 def sdca_plain(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
@@ -90,7 +107,7 @@ def pad_bucket(K: torch.Tensor, y: torch.Tensor) -> tuple:
 
 
 def _launch(fn_name: str, K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
-            lam: float, epochs: int, always_global: bool) -> torch.Tensor:
+            lam: float, epochs: int) -> torch.Tensor:
     K, y, n_real = native.prepare("sdca", K.device, dtypes={"n_real": torch.int32},
                                   K=K, y=y, n_real=n_real)
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
@@ -104,27 +121,23 @@ def _launch(fn_name: str, K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor
     K, y = pad_bucket(K, y)
     bp = K.shape[1]
     alpha = torch.empty((g, bp), dtype=torch.float32, device=K.device)
-    lib = native.library("sdca")
-    v = None   # y o alpha in fp64, where it does not fit in shared memory
-    if always_global or lib.sdca_smem_bytes(bp) > native.MAX_SMEM_BYTES:
-        v = torch.empty((g, bp), dtype=torch.float64, device=K.device)
-    native.launch(LAUNCHES, K.device, getattr(lib, fn_name),
+    native.launch(LAUNCHES, K.device, getattr(native.library("sdca"), fn_name),
                   K.data_ptr(), y.data_ptr(), n_real.data_ptr(), alpha.data_ptr(),
-                  None if v is None else v.data_ptr(), g, bp, float(lam), int(epochs))
+                  g, bp, float(lam), int(epochs))
     return alpha if bp == b else alpha[:, :b].contiguous()
 
 
 def sdca_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
               lam: float, epochs: int = 20) -> torch.Tensor:
-    """Launch ``csrc/sdca.cu`` (one block per device) on K's CUDA device:
-    v, alpha and y in shared memory where they fit, in global memory past
+    """Launch ``csrc/sdca.cu`` on K's CUDA device: one block per device
+    where v, alpha and y fit in shared memory, one cluster per device past
     that."""
-    return _launch("sdca_launch", K, y, n_real, lam, epochs, always_global=False)
+    return _launch("sdca_launch", K, y, n_real, lam, epochs)
 
 
 def sdca_global_cuda(K: torch.Tensor, y: torch.Tensor, n_real: torch.Tensor,
                      lam: float, epochs: int = 20) -> torch.Tensor:
-    """The global-memory instantiation at any bucket, for holding it bit
-    for bit to the shared one where both run; no path of the port calls
-    it."""
-    return _launch("sdca_global_launch", K, y, n_real, lam, epochs, always_global=True)
+    """The cluster kernel, which ``sdca_cuda`` takes past bucket 12,384,
+    at any bucket: for holding it to the one-block kernel where both run;
+    no path of the port calls it."""
+    return _launch("sdca_cluster_launch", K, y, n_real, lam, epochs)

@@ -1219,8 +1219,8 @@ def _ideal_bucket(cap, device, epochs):
 
 @pytest.mark.parametrize("cap,bucket", [(12_400, 12_416), (16_384, 16_384)])
 def test_sdca_past_the_shared_memory_bucket(cuda_device, cap, bucket):
-    """Buckets past 12,384 launch the global-memory instantiation: within
-    the registry's 1e-5 of the plain version at 2 epochs, padding 0."""
+    """Buckets past 12,384 launch the cluster kernel: within the registry's
+    1e-5 of the plain version at 2 epochs, padding 0, twice bitwise."""
     spec = ops.KERNEL_REGISTRY["sdca"]
     args = _ideal_bucket(cap, cuda_device, epochs=2)
     assert args[0].shape == (1, bucket, bucket)
@@ -1236,13 +1236,50 @@ def test_sdca_past_the_shared_memory_bucket(cuda_device, cap, bucket):
 @pytest.mark.parametrize("case", ["emnist-ideal", "g256-b64"])
 def test_sdca_global_instantiation_is_the_shared_one(cuda_device, case):
     """At buckets both take (the emnist ideal's 2,048, the g256 b64 group),
-    the global-memory instantiation gives the shared one's alphas bit for
-    bit."""
+    the cluster kernel (its private entry) sums in another order than the
+    one-block kernel: within the registry's tol of it and of the plain
+    version."""
     from repro_torch.kernels.sdca import sdca_global_cuda
 
+    spec = ops.KERNEL_REGISTRY["sdca"]
     args = (_on(ops.make_ideal_sdca_problem(seed=0), cuda_device) if case == "emnist-ideal"
             else _sdca_group(256, 64, 33, 64, cuda_device))
-    assert torch.equal(sdca_global_cuda(*args), ops.sdca(*args))
+    got = sdca_global_cuda(*args).cpu().numpy()
+    for want in (ops.sdca(*args), spec.plain(*args)):
+        np.testing.assert_allclose(got, want.cpu().numpy(), atol=spec.tol, rtol=0)
+
+
+def test_sdca_cluster_member_alone_equals_in_a_group_of_2(cuda_device):
+    """At bucket 12,416 a device's alphas are the same bits solved alone and
+    as either member of a group of 2 (the ideal at 12,400 rows and the same
+    Gram cut to 12,000)."""
+    K, y, n_real, lam, _ = _ideal_bucket(12_400, cuda_device, epochs=1)
+    cut = torch.tensor([12_000], dtype=torch.int32, device=cuda_device)
+    alone = ops.sdca(K, y, n_real, lam, 1)
+    alone_cut = ops.sdca(K, y, cut, lam, 1)
+    for order in ((n_real, cut), (cut, n_real)):
+        group = ops.sdca(K.expand(2, -1, -1).contiguous(), y.expand(2, -1).contiguous(),
+                         torch.cat(order), lam, 1)
+        first, second = (alone, alone_cut) if order[0] is n_real else (alone_cut, alone)
+        assert torch.equal(group[0], first[0]) and torch.equal(group[1], second[0])
+    assert float(alone_cut[0, 12_000:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("g,b,lo,hi,epochs", [(4, 256, 193, 256, 3), (3, 320, 130, 301, 3),
+                                              (1, 2048, 2000, 2000, 2)],
+                         ids=["g4-b256", "g3-b320", "g1-b2048"])
+def test_sdca_cluster_kernel_is_its_emulated_order(cuda_device, g, b, lo, hi, epochs):
+    """The cluster kernel's alphas are, bit for bit, its order emulated on
+    the CPU (``tests/test_torch_sdca_order.py``: the slices, the lanes, the ranks in
+    order, then the carry; the reference's fp32 step)."""
+    from test_torch_sdca_order import sdca_cluster_emulated
+    from repro_torch.kernels.sdca import sdca_global_cuda
+
+    rng = _rng(f"sdca-cluster-g{g}-b{b}")
+    args = ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=rng.integers(lo, hi + 1, size=g),
+                                 epochs=epochs)
+    got = sdca_global_cuda(*_on(args, cuda_device)).cpu()
+    assert torch.equal(got, sdca_cluster_emulated(*args))
 
 
 @pytest.mark.parametrize("m,n,d", [(600, 600, 129), (1000, 777, 300), (130, 4097, 65)])
@@ -1278,8 +1315,8 @@ def test_smem_mirrors_match_the_libraries(cuda_device):
     """The libraries' shared-memory sizes: the staged scorers' and
     gram_matvec's tiles fit up to d 220 (the scorers' launcher leaves its
     staged kernel there, gram_matvec's already past d 64), the shared SDCA
-    arrays up to bucket 12,384; the chunked kernels' one size for every
-    d."""
+    arrays up to bucket 12,384, the SDCA cluster's past it; the chunked
+    kernels' one size for every d."""
     from repro_torch.kernels import native
 
     ens, gmv, sd = (native.library(n) for n in ("ensemble_score", "gram_matvec", "sdca"))
@@ -1291,3 +1328,11 @@ def test_smem_mirrors_match_the_libraries(cuda_device):
     assert gmv.gram_matvec_chunked_smem_bytes() <= native.MAX_SMEM_BYTES
     shared = [b for b in range(4, 65_537, 4) if sd.sdca_smem_bytes(b) <= native.MAX_SMEM_BYTES]
     assert shared == list(range(4, 12_385, 4))
+    # the SDCA cluster's: its fixed part, a slice's v and alpha and a ring of
+    # at least one 32 KB stage at every bucket whose K fits the card
+    from repro_torch.kernels.sdca import slice_cols
+
+    for b in range(12_416, 141_313, 64):
+        fixed = 42_496 + 12 * slice_cols(b)
+        assert fixed + 32_784 <= sd.sdca_cluster_smem_bytes(b) <= native.MAX_SMEM_BYTES, b
+    assert sd.sdca_cluster_smem_bytes(16_384) == 218_704

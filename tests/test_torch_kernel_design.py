@@ -24,11 +24,16 @@ What can be held here is the plan and the arithmetic they follow:
   320, 333 and 512, and both kernels' shared-memory formulas mirror the
   sources;
 - the tiled, delayed-update SDCA kernel's order (``csrc/sdca.cu``), emulated in
-  plain PyTorch: fp64 tile matvecs summed lane by lane over 4-column groups,
-  then by a butterfly across the lanes, one tile ahead of the steps; fp64
-  in-tile updates. The emulation stays within the registry's 1e-5 of the plain version
-  on the pooled-data ideal of the emnist federation, whose alphas are not all
-  0 or 1, and on the engine's group shapes;
+  plain PyTorch (``tests/test_torch_sdca_order.py``): fp64 tile matvecs summed lane by
+  lane over 4-column groups, then by a butterfly across the lanes, one tile
+  ahead of the steps; fp64 in-tile updates; past bucket 12,384 the cluster
+  kernel's, each of 16 ranks summing its slice of columns that way and the
+  ranks' sums added in rank order. Both emulations stay within the
+  registry's 1e-5 of the plain version on the pooled-data ideal of the emnist
+  federation, whose alphas are not all 0 or 1, and on the engine's group
+  shapes; the slices cover every column once, the copy ring's schedule waits
+  on no later phase, and the cluster's constants and shared memory mirror
+  the source;
 - the ``gram_matvec`` kernel (``csrc/gram_matvec.cu``): its split plan
   covers every support tile once, its tile constants mirror the source, and
   its per-pair arithmetic and order of summation, emulated in plain PyTorch
@@ -93,6 +98,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rbf_gram_q8 as q8
 from repro_torch.kernels import sdca as sdca_mod
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
+
+from test_torch_sdca_order import (SDCA_CH, sdca_cluster_emulated, sdca_cluster_smem_bytes,
+                                   sdca_ring_stages, sdca_tiled_emulated)
 
 # one intra-op thread: pytest-xdist workers run whole files side by side,
 # and torch's default of a thread a core would oversubscribe the host
@@ -591,76 +599,6 @@ def test_chunked_smem_formulas_match_the_sources():
 # the tiled, delayed-update SDCA kernel's order
 # ----------------------------------------------------------------------
 
-def sdca_tiled_emulated(K, y, n_real, lam, epochs):
-    """``csrc/sdca.cu`` in plain PyTorch, device by device. Tile u (of
-    ``epochs`` x ceil(n / TILE)) starts from w = (its rows' matvec over every
-    column outside tile u-1) + (tile u-1's columns, added step by step during
-    tile u-1 from the new alphas). The matvec of a row: lane l of 32 adds the
-    GROUP-column groups l, l + 32, ... in turn (products exact in fp64), then
-    the lanes' sums are added pairwise over bit 4, then 3, ... 0. A step: the
-    reference's fp32 arithmetic on (float)w_r, then w += (K y)[:, r]
-    (alpha_new - alpha_old) in fp64."""
-    K, y, n_real = (torch.as_tensor(a) for a in (K, y, n_real))
-    g, b, _ = K.shape
-    T, G = sdca_mod.TILE, sdca_mod.GROUP
-    lam32 = np.float32(lam)
-    out = torch.zeros((g, b), dtype=torch.float32)
-    for t in range(g):
-        nr = int(n_real[t])
-        n = max(0, min(nr, b))
-        nf = np.float32(nr)
-        lam_n = lam32 * nf
-        yv = y[t, :n]
-        alpha = torch.zeros(n, dtype=torch.float32)
-        tiles = -(-n // T)
-        passes = -(-n // (32 * G))
-        Kp = torch.zeros((n, passes * 32 * G), dtype=torch.float64)
-        Kp[:, :n] = K[t, :n, :n].double()
-
-        def start(u):
-            return (u % tiles) * T
-
-        def block(r0, c0):   # K[r0 + r, c0 + c] y[c0 + c], zero past n
-            blk = torch.zeros((T, T), dtype=torch.float32)
-            rr, cc = min(T, n - r0), min(T, n - c0)
-            blk[:rr, :cc] = K[t, r0:r0 + rr, c0:c0 + cc] * yv[c0:c0 + cc]
-            return blk.double()
-
-        def matvec(s, ex):
-            v = torch.zeros(Kp.shape[1], dtype=torch.float64)
-            v[:n] = (yv * alpha).double()
-            v[ex:ex + T] = 0.0
-            rows = Kp[torch.clamp(torch.arange(s, s + T), max=n - 1)]
-            prod = (rows * v).view(T, passes, 32, G)   # column (32 j + lane) G + q
-            lanes = torch.zeros((T, 32), dtype=torch.float64)
-            for j in range(passes):
-                for q in range(G):
-                    lanes = lanes + prod[:, j, :, q]
-            while lanes.shape[-1] > 1:
-                halves = lanes.view(T, 2, -1)
-                lanes = halves[:, 0] + halves[:, 1]
-            return lanes[:, 0]
-
-        carry = torch.zeros(T, dtype=torch.float64)
-        for u in range(epochs * tiles):
-            s = start(u)
-            w = matvec(s, start(u - 1) if u > 0 else n) + carry
-            D, B = block(s, s), block(start(u + 1), s)
-            carry = torch.zeros(T, dtype=torch.float64)
-            for r in range(min(T, n - s)):
-                i = s + r
-                old = alpha[i].numpy()[()]
-                f = np.float32(float(w[r])) / lam_n
-                grad = np.float32(1.0) - yv[i].numpy()[()] * f
-                step = grad * lam32 * nf / np.maximum(K[t, i, i].numpy()[()], np.float32(1e-8))
-                new = np.minimum(np.maximum(old + step, np.float32(0.0)), np.float32(1.0))
-                alpha[i] = float(new)
-                w = w + D[:, r] * (float(new) - float(old))
-                carry = carry + B[:, r] * float(new)
-        out[t, :n] = alpha
-    return out
-
-
 def _sdca_plain(args):
     K, y, n_real, lam, epochs = args
     return sdca_mod.sdca_plain(torch.from_numpy(K), torch.from_numpy(y),
@@ -706,6 +644,32 @@ def test_sdca_tiled_order_holds_the_tolerance_on_group_shapes(g, b, lo, hi):
     rng = _rng("sdca-group", b)
     args = ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=rng.integers(lo, hi + 1, size=g))
     got, want = sdca_tiled_emulated(*args), _sdca_plain(args)
+    assert int(((want > 0) & (want < 1)).sum()) > 0
+    assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["sdca"].tol
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sdca_cluster_order_holds_the_tolerance_on_the_emnist_ideal(seed):
+    """The cluster kernel's sums (16 slices of 128 columns at n 2,000) on the
+    emnist ideal: within the registry's tol of the plain version and of the
+    one-block kernel's order."""
+    args, want = _ideal(seed)
+    got = sdca_cluster_emulated(*args)
+    tol = ops.KERNEL_REGISTRY["sdca"].tol
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - sdca_tiled_emulated(*args)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("g,b,lo,hi", [(16, 64, 33, 64), (4, 256, 193, 256), (3, 320, 130, 301)],
+                         ids=["g16-b64", "g4-b256", "g3-b320"])
+def test_sdca_cluster_order_holds_the_tolerance_on_group_shapes(g, b, lo, hi):
+    """The engine's group shapes, where the ranks past 1 or 2 own no
+    column (n <= 256: slices of 128), and a bucket whose last owning rank holds a
+    slice of 4 to 45 columns (n 130 to 301)."""
+    rng = _rng("sdca-cluster-group", b)
+    args = ops.make_sdca_problem(rng, g=g, b=b, d=32, n_real=rng.integers(lo, hi + 1, size=g))
+    assert max(-(-int(n) // sdca_mod.slice_cols(int(n))) for n in args[2]) < sdca_mod.CLUSTER
+    got, want = sdca_cluster_emulated(*args), _sdca_plain(args)
     assert int(((want > 0) & (want < 1)).sum()) > 0
     assert float((got - want).abs().max()) <= ops.KERNEL_REGISTRY["sdca"].tol
 
@@ -1456,9 +1420,7 @@ def sdca_smem_bytes(b):
     return SDCA_BLOCK_BYTES + 8 * b + 4 * 2 * b
 
 
-SDCA_BLOCK_BYTES = 8 * (2 * 32 + 4 * 32 * 33)   # what the global instantiation keeps
-
-
+SDCA_BLOCK_BYTES = 8 * (2 * 32 + 4 * 32 * 33)   # the one-block kernel's blocks and sums
 def test_wide_smem_formulas_match_the_sources():
     """The mirrors above are the sources' formulas, term for term."""
     src = {name: (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").read_text()
@@ -1490,6 +1452,15 @@ def test_wide_smem_formulas_match_the_sources():
     assert "return static_cast<int>(sizeof(double)) * (2 * TILE + 4 * TILE * LD);" in src["sdca"]
     assert f"constexpr int MAX_SMEM = {MAX_SMEM};" in src["sdca"]
     assert "if (smem_bytes(b) <= MAX_SMEM)" in src["sdca"]
+    assert ("  return static_cast<int>(sizeof(double)) * (2 * CLUSTER * TILE + 4 * TILE * LD) +\n"
+            "         static_cast<int>(sizeof(float2)) * 2 * TILE;" in src["sdca"])
+    assert ("return (static_cast<int>(sizeof(double)) + static_cast<int>(sizeof(float))) * "
+            "slice_cols(b);" in src["sdca"])
+    assert "  const int left = MAX_SMEM - cluster_fixed_bytes() - slice_bytes(b);" in src["sdca"]
+    assert "  return left > 0 ? left / (STAGE_BYTES + MBAR_BYTES) : 0;" in src["sdca"]
+    assert ("return cluster_fixed_bytes() + slice_bytes(b) + ring_stages(b) * "
+            "(STAGE_BYTES + MBAR_BYTES);" in src["sdca"])
+    assert "constexpr int STAGE_BYTES = static_cast<int>(sizeof(float)) * TILE * CH;" in src["sdca"]
 
 
 def test_staged_paths_are_chosen_exactly_where_they_fit_today():
@@ -1511,9 +1482,9 @@ def test_staged_paths_are_chosen_exactly_where_they_fit_today():
 
 
 def test_chunked_and_global_instantiations_fit_every_shape():
-    """The chunked kernels' shared memory does not depend on d, nor the
-    global SDCA's on b: one size for every d up to 4,096 and every bucket
-    up to 65,536, within a block's 227 KB, and two blocks an SM for
+    """The chunked kernels' shared memory does not depend on d: one size
+    for every d up to 4,096, within a block's 227 KB; the SDCA cluster's
+    fits every bucket whose K fits the card, and two blocks an SM for
     gram_q8's chunked kernel, which promises two
     (__launch_bounds__(THREADS, 2); 1 KB an SM is the runtime's). The
     scorers' chunked kernels take one block an SM (its ring of three
@@ -1521,7 +1492,15 @@ def test_chunked_and_global_instantiations_fit_every_shape():
     assert 2 * (Q8_CHUNKED_BYTES + 1024) <= 233_472
     for bytes_ in (ENS_CHUNKED_BYTES, ENS_Q8_CHUNKED_BYTES, GMV_CHUNKED_BYTES):
         assert bytes_ <= MAX_SMEM
-    assert SDCA_BLOCK_BYTES <= MAX_SMEM
+    # the SDCA cluster's ring holds a whole tile's stages up to bucket
+    # 16,384 and at least one stage at every bucket whose K fits an 80 GB
+    # card (b 141,312)
+    for b in range(12_416, 141_313, 64):
+        stages = sdca_ring_stages(b)
+        assert stages >= 1 and sdca_cluster_smem_bytes(b) <= MAX_SMEM, b
+        if b <= 16_384:
+            assert stages >= -(-sdca_mod.slice_cols(b) // SDCA_CH), b
+    assert (sdca_ring_stages(16_384), sdca_cluster_smem_bytes(16_384)) == (5, 218_704)
     # every shape past the staged limits goes to these
     assert all(ens_smem_bytes(d) > MAX_SMEM for d in range(221, 4097))
     assert all(sdca_smem_bytes(b) > MAX_SMEM for b in range(12_416, 65_537, 64))

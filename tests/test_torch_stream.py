@@ -452,13 +452,11 @@ def _streamed_peak_bytes(n_devices, chunk=2048):
 
 
 def test_streamed_pass_memory_is_flat_in_the_population():
-    """10,000 -> 40,000 fallback-dominated dirichlet devices (the
-    reference's test at 25,000 -> 100,000 takes ~100 s on a CPU;
-    ``chip_smoke.py`` runs those sizes on the card): the traced peak
-    stays under a chunk-sized 64 MiB and does not grow with the
-    population."""
-    small = _streamed_peak_bytes(10_000)
-    large = _streamed_peak_bytes(40_000)
+    """25,000 -> 100,000 fallback-dominated dirichlet devices, the
+    reference's sizes (``tests/test_stream.py``): the traced peak stays
+    under a chunk-sized 64 MiB and does not grow with the population."""
+    small = _streamed_peak_bytes(25_000)
+    large = _streamed_peak_bytes(100_000)
     assert large < 64 * 2**20, f"peak {large / 2**20:.1f} MiB"
     assert large < max(1.5 * small, small + 8 * 2**20), (
         f"peak grew with the population: {small / 2**20:.1f} -> {large / 2**20:.1f} MiB")
