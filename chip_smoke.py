@@ -344,7 +344,11 @@ It imports the port and nothing of JAX or of the reference package
            (``roofline.H100_SXM_FP32``, 67 TFLOP/s fp32 outside the tensor
            cores; ``H100_SXM``, 989 TFLOP/s bf16 dense) and bytes (each
            input read once, each output written once) over 3.35 TB/s, the
-           H100 SXM's published peaks; flash attention (also at Phi-3-mini's
+           H100 SXM's published peaks (``gram_matvec``'s and
+           ``rbf_gram_q8``'s cross term at 989 TFLOP/s over their six and
+           three bf16 plane products); a call of several kernels (a
+           prologue, the split sums) also gives each one's device ms;
+           flash attention (also at Phi-3-mini's
            prefill in bf16 and fp16, at Gemma-2B's in bf16 and through the
            chunked kernels at hd 512 in bf16, fp16 and fp32) also beside
            ``library_ms``, one call of
@@ -724,13 +728,13 @@ def agreement(spec, got, want):
 # phases
 # ----------------------------------------------------------------------
 
-# SASS opcodes counted in each library: tensor-core products, ldmatrix,
-# cp.async, TMA tensor loads
-SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "UTMALDG")
+# SASS opcodes counted in each library: tensor-core products (mma.sync,
+# wgmma), ldmatrix, cp.async, TMA tensor loads
+SASS_OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG")
 SASS_REQUIRED = {"sdca": ("UTMALDG",), "flash_attention_tc": ("HMMA", "LDSM", "LDGSTS"),
                  "flash_attention_tc_f16": ("HMMA", "LDSM", "LDGSTS"), "ensemble_score": ("LDGSTS",),
                  "gram_matvec": ("HMMA", "LDSM", "LDGSTS"),
-                 "gram_q8": ("HMMA", "LDSM", "LDGSTS"),
+                 "gram_q8": ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG"),
                  "gram": ("HMMA", "LDSM", "LDGSTS")}
 
 
@@ -4899,7 +4903,12 @@ def main(argv=None) -> int:
         if phase == "timing":   # the turns and counts go to --out only
             keep = ("kernel", "case", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "fill_ms", "ns_per_step", "chain_ms")
-            out = {**out, "rows": [{k: r[k] for k in keep if k in r} for r in out["rows"]]}
+            # a call of several kernels (a prologue, the split sums) keeps
+            # each one's device ms
+            out = {**out, "rows": [{**{k: r[k] for k in keep if k in r},
+                                    **({"device_kernels": r["device_kernels"]}
+                                       if len(r["device_kernels"]) > 1 else {})}
+                                   for r in out["rows"]]}
         if phase == "head_dims":   # the sweep's rows go to --out only
             out = {**out, "sweep": {k: v for k, v in out["sweep"].items() if k != "rows"}}
         emit(out)

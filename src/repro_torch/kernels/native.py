@@ -49,10 +49,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "rbf_gram_launch": [_P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
     },
     "gram_q8": {
-        # x, q, scale, zero, gamma, out, m, n, d, per_split, splits, stream
-        "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
-        # the same arguments: the chunked kernel at any d
-        "rbf_gram_q8_chunked_launch": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _P],
+        # x, q, scale, zero, gamma, out, planes, norms, m, n, d, per_split,
+        # splits, stream
+        "rbf_gram_q8_launch": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # the same arguments: the chunked route at any d
+        "rbf_gram_q8_chunked_launch": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "rbf_gram_q8_chunked_smem_bytes": [],
+        # m; n; d
+        "rbf_gram_q8_padded_rows": [_I],
+        "rbf_gram_q8_padded_supports": [_I],
+        "rbf_gram_q8_slab_dim": [_I],
     },
     "ensemble_score": {
         # x, sup, coef, gammas, norms, partial, out, b, k, n_max, d, per_split,

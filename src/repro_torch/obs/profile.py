@@ -25,12 +25,14 @@ tensor cores) when the kernel computes the call in bfloat16 or float16,
 ``H100_SXM_FP32`` otherwise; ``set_hardware(hw)`` puts one sheet in place for every call
 (``set_hardware(V5E)`` prices as the reference does) and
 ``set_hardware(None)`` goes back to the per-dtype choice. On the per-dtype
-sheets ``gram_matvec``'s cross term (2 m n d of its operations) is priced at
-the rate of an fp32-accurate product from three bf16 planes, the tensor
-cores' bf16 rate over the six plane products its chunked kernel runs
-(``PLANE_RATE``, 989 / 6 TFLOP/s; 3xTF32 gives the same, 495 / 3), and its
-other operations at the fp32 rate: the bound is the largest of those two
-times and the bytes' (``priced``). ``chip_smoke.py`` takes its kernels'
+sheets the cross term (2 m n d of the operations) of a kernel that runs it
+as bf16 plane products on the tensor cores is priced at the tensor cores'
+bf16 rate over the number of those products (``PLANE_PRODUCTS``):
+``gram_matvec``'s six, both operands in three planes (989 / 6 TFLOP/s;
+3xTF32 gives the same, 495 / 3), ``rbf_gram_q8``'s three, x * scale in
+three planes against int8 values exact in bf16 (989 / 3); their other
+operations at the fp32 rate: the bound is the largest of those two times
+and the bytes' (``priced``). ``chip_smoke.py`` takes its kernels'
 bounds from these same functions, so a span's ``roofline_bound_us`` and
 the timing table's bound are one number.
 
@@ -51,8 +53,8 @@ from repro_torch.roofline.analysis import H100_SXM, H100_SXM_FP32, HardwareSpec,
 from repro_torch.utils.trees import tree_leaves
 
 _HW: Optional[HardwareSpec] = None   # None: priced by the call's first operand
-PLANE_PRODUCTS = 6   # bf16 products of an fp32-accurate product from three planes
-PLANE_RATE = H100_SXM.peak_flops / PLANE_PRODUCTS
+# bf16 products a kernel's fp32-accurate cross term runs on the tensor cores
+PLANE_PRODUCTS = {"gram_matvec": 6, "rbf_gram_q8": 3}
 
 
 def set_hardware(hw: Optional[HardwareSpec]) -> None:
@@ -186,13 +188,15 @@ def kernel_cost(name: str, fn: Optional[Callable], args: tuple) -> Optional[Tupl
 def priced(name: str, args: tuple, flops: float, nbytes: float) -> Tuple[float, str]:
     """(least seconds, ``roofline_report``'s "compute" or "memory") of a
     call of ``name`` that does ``flops`` operations on ``nbytes`` bytes:
-    ``roofline_report`` on ``hardware_for(args)``, but for ``gram_matvec``
-    on the per-dtype sheets its cross term at PLANE_RATE and the rest at
-    the fp32 rate (module docstring)."""
-    if name == "gram_matvec" and _HW is None:
+    ``roofline_report`` on ``hardware_for(args)``, but for a kernel of
+    ``PLANE_PRODUCTS`` on the per-dtype sheets its cross term at the bf16
+    rate over its products and the rest at the fp32 rate (module
+    docstring)."""
+    if name in PLANE_PRODUCTS and _HW is None:
         (m, d), n = args[0].shape, args[1].shape[0]
         cross = 2.0 * m * n * d
-        terms = {"compute": max(cross / PLANE_RATE, (flops - cross) / H100_SXM_FP32.peak_flops),
+        rate = H100_SXM.peak_flops / PLANE_PRODUCTS[name]
+        terms = {"compute": max(cross / rate, (flops - cross) / H100_SXM_FP32.peak_flops),
                  "memory": nbytes / H100_SXM_FP32.hbm_bw}
         dominant = max(terms, key=terms.get)
         return terms[dominant], dominant

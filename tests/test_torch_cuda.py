@@ -1311,6 +1311,88 @@ def test_gram_matvec_chunked_scratch_and_operands(cuda_device, m, n, d):
     assert torch.equal(got, gmv.gram_matvec_cuda(x1, x2, v, 1.0 / d))
 
 
+@pytest.mark.parametrize("d", [129, 784, 1024])
+def test_rbf_gram_q8_chunked_at_the_students_shape(cuda_device, d):
+    """The chunked route at the student's b 8,192 against 4,096 int8
+    supports (``chip_smoke.py``'s ``wide_inputs``): one launch counted (the
+    C launcher runs the prologue and the kernel in one call), within the
+    registry's tol of the plain version, twice bitwise; at d 784 a call
+    of the first 1,000 rows is the 8,192-row call's head bit for bit."""
+    from repro_torch.kernels import rbf_gram_q8 as q8
+
+    spec = ops.KERNEL_REGISTRY["rbf_gram_q8"]
+    args = CHIP_SMOKE.wide_inputs("rbf_gram_q8", d, cuda_device)
+    before = spec.counter.count
+    got = q8.rbf_gram_q8_cuda(*args)
+    torch.cuda.synchronize()
+    assert spec.counter.count == before + 1
+    assert got.shape == (8192, 4096) and bool(torch.isfinite(got).all())
+    assert float((got - spec.plain(*args)).abs().max()) <= spec.tol
+    assert torch.equal(got, q8.rbf_gram_q8_cuda(*args))
+    if d == 784:
+        head = q8.rbf_gram_q8_cuda(args[0][:1000].contiguous(), *args[1:])
+        assert torch.equal(head, got[:1000])
+
+
+def test_rbf_gram_q8_chunked_scratch(cuda_device):
+    """``chunked_scratch``'s sizes are the library's layout
+    (``rbf_gram_q8_padded_rows``, ``_padded_supports``, ``_slab_dim``); a
+    caller's scratch of those sizes gives the bits of the wrapper's own;
+    the chunked kernel's ring fits a block."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels import rbf_gram_q8 as q8
+
+    lib = native.library("gram_q8")
+    for m, n, d in [(1, 1, 129), (8192, 4096, 784), (300, 260, 1024), (1000, 4097, 200)]:
+        elems, floats = q8.chunked_scratch(m, n, d)
+        rows, supports = lib.rbf_gram_q8_padded_rows(m), lib.rbf_gram_q8_padded_supports(n)
+        assert elems == (q8.PLANES * rows + supports) * lib.rbf_gram_q8_slab_dim(d)
+        assert floats == 2 * rows + supports
+    assert lib.rbf_gram_q8_chunked_smem_bytes() == 204_880 <= native.MAX_SMEM_BYTES
+    args = wide_case("rbf_gram_q8", 300, cuda_device)
+    elems, floats = q8.chunked_scratch(300, 260, 300)
+    scratch = (torch.empty(elems, dtype=torch.bfloat16, device=cuda_device),
+               torch.empty(floats, device=cuda_device))
+    assert torch.equal(q8.rbf_gram_q8_cuda(*args, scratch=scratch), q8.rbf_gram_q8_cuda(*args))
+
+
+def test_rbf_gram_q8_chunked_refuses_bad_input(cuda_device):
+    """Bad input raises, and nothing falls back to the plain version or the
+    staged kernel: the chunked launcher returns an error for d < 1 and for
+    a missing scratch (through the public launcher past d 128); the wrapper
+    raises for a scratch smaller than ``chunked_scratch`` or of another
+    type, and for d 0; no launch is counted."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels import rbf_gram_q8 as q8
+
+    spec = ops.KERNEL_REGISTRY["rbf_gram_q8"]
+    lib = native.library("gram_q8")
+    x, q, scale, zero, gamma = wide_case("rbf_gram_q8", 200, cuda_device)
+    elems, floats = q8.chunked_scratch(300, 260, 200)
+    planes = torch.empty(elems, dtype=torch.bfloat16, device=cuda_device)
+    norms = torch.empty(floats, device=cuda_device)
+    out = torch.empty((300, 260), device=cuda_device)
+    per_split, splits = q8.plan(300, 260, True)
+    stream = native.stream_handle(cuda_device)
+    head = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), zero.data_ptr(), gamma, out.data_ptr())
+    for d in (0, -1):
+        assert lib.rbf_gram_q8_chunked_launch(*head, planes.data_ptr(), norms.data_ptr(), 300, 260,
+                                              d, per_split, splits, stream) != 0
+    assert lib.rbf_gram_q8_launch(*head, None, None, 300, 260, 200, per_split, splits,
+                                  stream) != 0
+    before = spec.counter.count
+    with pytest.raises(ValueError, match="chunked_scratch"):
+        q8.rbf_gram_q8_cuda(x, q, scale, zero, gamma, scratch=(planes[:-1], norms))
+    with pytest.raises(ValueError, match="chunked_scratch"):
+        q8.rbf_gram_q8_chunked_cuda(x, q, scale, zero, gamma, scratch=(planes, norms[:-1]))
+    with pytest.raises(ValueError, match="bfloat16"):
+        q8.rbf_gram_q8_cuda(x, q, scale, zero, gamma, scratch=(planes.float(), norms))
+    with pytest.raises(ValueError, match="d >= 1"):
+        q8.rbf_gram_q8_chunked_cuda(x[:, :0], q[:, :0], scale[:0], zero[:0], gamma)
+    assert spec.counter.count == before
+    torch.cuda.synchronize()
+
+
 def test_smem_mirrors_match_the_libraries(cuda_device):
     """The libraries' shared-memory sizes: the staged scorers' and
     gram_matvec's tiles fit up to d 220 (the scorers' launcher leaves its

@@ -56,7 +56,11 @@ What can be held here is the plan and the arithmetic they follow:
   within the registry's 1e-5 of the plain version on the registry's two
   cases, normal data and the round's own int8 student
   (``ops.make_q8_student_problem``), with the accumulator rounded to
-  nearest or truncated toward zero;
+  nearest or truncated toward zero; its chunked route past d 128: the
+  prologue's planes, q image and norms are bitwise what that emulation
+  multiplies and adds, its split plan covers every support tile once in
+  one wave, its mbarrier ring frees every slot once and only after the
+  products that read it, and its constants and scratch mirror the source;
 - the fp32 RBF Gram kernel (``csrc/gram.cu``, ``batched_rbf_gram`` and
   ``rbf_gram``): its host plan (``kernels/batched_gram.py::tile_plan``)
   takes (m, n, d) alone, covers every output once and computes at most a
@@ -966,6 +970,8 @@ def test_gram_matvec_order_holds_the_tolerance(label):
 # ----------------------------------------------------------------------
 
 Q8_KSTEP, Q8_PLANES = 16, 3   # features per mma, bf16 planes of x * scale
+Q8_STAGES = 5                 # the chunked kernel's ring of slabs
+Q8_PRO_ROWS, Q8_PRO_CH = 16, 128   # rows a prologue block, features it stages at a time
 
 
 def q8_planes(xs: torch.Tensor) -> tuple:
@@ -986,7 +992,36 @@ def _round_fp32(v: torch.Tensor, rounding: str) -> torch.Tensor:
     return f
 
 
-Q8_CHUNK = 128   # features a chunk of the chunked gram_q8 kernel stages (8 k steps)
+Q8_CHUNK = 128   # features a chunk of the chunked gram_q8 kernel staged before (8 k steps)
+
+
+def q8_terms(x, q, scale, zero, chunks):
+    """What ``rbf_gram_q8_split_emulated`` multiplies and adds: the three
+    planes of x * scale and q, each (rows, kp) with the feature dim padded
+    with zeros to a multiple of 16 (fp32 values), and |x|^2, x . zero (fmaf
+    chains over ascending features) and |s|^2 (an fmaf chain over each half
+    of the padded range of s = q * scale + zero, walked in ``chunks``, then
+    the halves added)."""
+    m, d = x.shape
+    n = q.shape[0]
+    kp = -(-d // Q8_KSTEP) * Q8_KSTEP
+    xs = torch.zeros((m, kp), dtype=torch.float32)
+    xs[:, :d] = x * scale
+    qf = torch.zeros((n, kp), dtype=torch.float32)
+    qf[:, :d] = q.float()
+    s = q8.dequantize(q, scale, zero)
+    halves = [torch.zeros(n, dtype=torch.float32) for _ in range(2)]
+    for cs in chunks:
+        for c in cs:
+            if c < d:
+                h = int(c >= kp // 2)
+                halves[h] = _fma32(s[:, c], s[:, c], halves[h])
+    sqx = torch.zeros(m, dtype=torch.float32)
+    xz = torch.zeros(m, dtype=torch.float32)
+    for c in range(d):
+        sqx = _fma32(x[:, c], x[:, c], sqx)
+        xz = _fma32(x[:, c], zero[c].expand(m), xz)
+    return list(q8_planes(xs)), qf, sqx, xz, halves[0] + halves[1]
 
 
 def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row_chunk=512,
@@ -1008,30 +1043,14 @@ def rbf_gram_q8_split_emulated(x, q, scale, zero, gamma, rounding="nearest", row
     kp = -(-d // Q8_KSTEP) * Q8_KSTEP
     chunks = [range(0, kp)] if chunk is None else [
         range(c0, min(c0 + chunk, kp)) for c0 in range(0, kp, chunk)]
-    xs = torch.zeros((m, kp), dtype=torch.float32)
-    xs[:, :d] = x * scale
-    planes = [p.double() for p in q8_planes(xs)]
-    qd = torch.zeros((n, kp), dtype=torch.float64)
-    qd[:, :d] = q.double()
-
-    s = q8.dequantize(q, scale, zero)
-    halves = [torch.zeros(n, dtype=torch.float32) for _ in range(2)]
-    for cs in chunks:
-        for c in cs:
-            if c < d:
-                h = int(c >= kp // 2)
-                halves[h] = _fma32(s[:, c], s[:, c], halves[h])
-    sqs = halves[0] + halves[1]
-    sqx = torch.zeros(m, dtype=torch.float32)
-    xz = torch.zeros(m, dtype=torch.float32)
-    for c in range(d):
-        sqx = _fma32(x[:, c], x[:, c], sqx)
-        xz = _fma32(x[:, c], zero[c].expand(m), xz)
+    planes, qd, sqx, xz, sqs = q8_terms(x, q, scale, zero, chunks)
+    planes = [p.double() for p in planes]
+    qd = qd.double()
 
     out = torch.empty((m, n), dtype=torch.float32)
     for lo in range(0, m, row_chunk):
         rows = slice(lo, lo + row_chunk)
-        acc = torch.zeros((len(xs[rows]), n), dtype=torch.float32)
+        acc = torch.zeros((len(planes[0][rows]), n), dtype=torch.float32)
         for cs in chunks:
             for k in range(cs.start, cs.stop, Q8_KSTEP):
                 qk = qd[:, k:k + Q8_KSTEP].T
@@ -1124,19 +1143,98 @@ def test_gram_q8_constants_match_the_kernel():
                  "constexpr int WN = 32;", "constexpr int BLOCKS_PER_SM = 3;",
                  f"constexpr int PLANES = {Q8_PLANES};",
                  f"constexpr int KSTEP = {Q8_KSTEP};",
-                 f"constexpr int MAX_KSTEPS = {q8.STAGED_D // Q8_KSTEP};",
-                 "constexpr int CK = MAX_KSTEPS * KSTEP;"):
+                 f"constexpr int MAX_KSTEPS = {q8.STAGED_D // Q8_KSTEP};"):
         assert line in src, line
     # hi, mid, lo into one accumulator, k step after k step: one k step
-    # (mma_kstep) runs the three planes, and both kernels call it k step by
-    # k step, the chunked one chunk after chunk
+    # (mma_kstep) runs the three planes, and the staged kernel calls it k
+    # step by k step
     step = src[src.index("void mma_kstep("):src.index("void store_tile(")]
     assert "for (int p = 0; p < PLANES; ++p)" in step
     assert "for (int ks = 0; ks < KSTEPS; ++ks) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);" in src
-    assert "for (int ch = 0; ch < chunks; ++ch)" in src
-    assert "if (ks < ksteps) mma_kstep(acc, Xp, Bt, LD, ks, wm, wn, lane);" in src
     # one wave of three resident blocks an SM, as __launch_bounds__ promises
     assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src and q8.TARGET_BLOCKS == 3 * 132
+
+
+def test_gram_q8_chunked_constants_match_the_kernel():
+    """The chunked route: 128 x 256 tiles of two warpgroups of m64n256k16
+    and a copy warp, slabs of 32 features in a ring of Q8_STAGES TMA slots,
+    one block an SM; each slab's k steps ascending, each k step's three
+    planes hi, mid, lo into the same accumulators (the staged kernel's
+    order), none past the padded feature dim; the boxes' 64-byte swizzle is
+    the one the wgmma descriptors name."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram_q8.cu").read_text()
+    for line in (f"constexpr int CBM = {q8.CHUNKED_ROWS};", f"constexpr int CBN = {q8.CHUNKED_TILE};",
+                 "constexpr int WG_ROWS = 64;", f"constexpr int SLAB = {q8.SLAB};",
+                 f"constexpr int STAGES = {Q8_STAGES};",
+                 "constexpr int CTHREADS = THREADS + 32;",
+                 "constexpr int SROWS = PLANES * CBM + CBN;",
+                 "constexpr int SROW_BYTES = 2 * SLAB;",
+                 f"constexpr int PRO_ROWS = {Q8_PRO_ROWS};",
+                 f"constexpr int PRO_CH = {Q8_PRO_CH};"):
+        assert line in src, line
+    assert q8.PLANES == Q8_PLANES
+    assert "__launch_bounds__(CTHREADS, 1)\ngram_q8_chunked_kernel(" in src
+    assert q8.CHUNKED_TARGET_BLOCKS == 132
+    kernel = src[src.index("gram_q8_chunked_kernel(const"):src.index("template <int KSTEPS>\nint launch(")]
+    assert ("    for (int ks = 0; ks < SLAB / KSTEP; ++ks)\n      if (ks < ksteps) {" in kernel)
+    assert "for (int p = 0; p < PLANES; ++p)\n          wgmma_m64n256k16(" in kernel
+    assert "const int ksteps = min(SLAB / KSTEP, (kp - k * SLAB) / KSTEP);" in kernel
+    # the slab's boxes: the three planes' rows of the stripe, then the tile's q
+    assert "tensor_load(dst + p * CBM * SROW_BYTES, &xmap, k0, p * mp + row0, bar);" in kernel
+    assert "tensor_load(dst + PLANES * CBM * SROW_BYTES, &qmap, k0, (t0 + t) * CBN, bar);" in kernel
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in src and "((uint64_t)(8 * 64 >> 4) << 32) | ((uint64_t)2 << 62);" in src
+    # the prologue's chains: |x|^2 and x.zero over ascending features, |s|^2
+    # over the halves of padded_k(d), added
+    pro = src[src.index("q8_prologue(const"):src.index("gram_q8_chunked_kernel(const")]
+    assert "for (int f = c0; f < end; ++f) chain = fmaf(sr[f], h ? __ldg(zero + f) : sr[f], chain);" in pro
+    assert "const int half = padded_k(d) / 2, lo = h * half, hi = min(d, lo + half);" in pro
+    assert "const float sv = __fadd_rn(__fmul_rn(sr[f], __ldg(scale + f)), __ldg(zero + f));" in pro
+    assert "if (h == 0) sqs[row0 + cr] = __fadd_rn(chain, other);" in pro
+    assert "split3_values(c + j < d ? __fmul_rn(v[j], __ldg(scale + c + j)) : 0.f, hs[j]);" in pro
+
+
+def test_gram_q8_ring_schedule():
+    """The chunked kernel's mbarrier ring, step by step as the source runs
+    it: the copy warp fills step s into slot s % STAGES once that slot's
+    empty mbarrier has completed its use s / STAGES - 1 (two arrives, one a
+    warpgroup); a warpgroup waits for the slot's full mbarrier, issues the
+    step's products, and after wgmma.wait_group 1 frees the slot of the step
+    before (or, at a tile's last slab, wait_group 0 and its own slot). So
+    every use of a slot is freed exactly once, only after the products that
+    read it are done, and the copy warp is never more than STAGES steps
+    ahead, nor waits on a step the warpgroups have not reached."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram_q8.cu").read_text()
+    kernel = src[src.index("gram_q8_chunked_kernel(const"):src.index("template <int KSTEPS>\nint launch(")]
+    for line in ("mbar_init(empty + 8 * i, 2);  // one arrive a wgmma warpgroup",
+                 "if (use > 0) mbar_wait(empty + 8 * slot, (use - 1) & 1);",
+                 "mbar_wait(full + 8 * slot, (s / STAGES) & 1);",
+                 "wgmma_wait<1>();",
+                 "if (pending >= 0 && releaser) mbar_arrive(empty + 8 * (pending % STAGES));",
+                 "wgmma_wait<0>();",
+                 "if (releaser) mbar_arrive(empty + 8 * slot);"):
+        assert line in kernel, line
+    for slabs, tiles in ((1, 1), (1, 5), (2, 3), (7, 2), (25, 8), (4, 1)):
+        steps = slabs * tiles
+        freed, done = [], -1   # (step freed, consumer step at which) ; products done up to
+        pending, k = -1, 0
+        for s in range(steps):
+            # the copy warp issued step s only after step s - STAGES was freed
+            if s >= Q8_STAGES:
+                assert s - Q8_STAGES in [f for f, _ in freed]
+            done = s - 1   # wait_group 1 after step s's products are issued
+            if pending >= 0:
+                assert pending <= done
+                freed.append((pending, s))
+            pending = s
+            k += 1
+            if k == slabs:
+                done = s   # wait_group 0
+                freed.append((s, s))
+                pending, k = -1, 0
+        assert sorted(f for f, _ in freed) == list(range(steps))   # each step's slot once
+        # step s - STAGES is freed by consumer step s - STAGES + 1 <= s - 1:
+        # the copy warp can fill step s before the warpgroups wait for it
+        assert all(at <= f + 1 for f, at in freed)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (48, 40), (130, 67), (8192, 4096), (1000, 4096),
@@ -1151,6 +1249,110 @@ def test_gram_q8_split_plan_covers_every_support_once(m, n):
     assert splits <= want
     assert per_split == 1 or -(-tiles // (per_split - 1)) > want
 
+
+
+@pytest.mark.parametrize("n", [1, 4096, 12_352])
+@pytest.mark.parametrize("m", [1, 600, 8192])
+def test_gram_q8_chunked_plan_covers_every_support_once_in_one_wave(m, n):
+    per_split, splits = q8.plan(m, n, chunked=True)
+    tiles = -(-n // q8.CHUNKED_TILE)
+    owned = [list(range(s * per_split, min((s + 1) * per_split, tiles))) for s in range(splits)]
+    assert all(owned) and [t for ts in owned for t in ts] == list(range(tiles))
+    supports = [j for ts in owned for t in ts
+                for j in range(t * q8.CHUNKED_TILE, min((t + 1) * q8.CHUNKED_TILE, n))]
+    assert supports == list(range(n))
+    stripes = -(-m // q8.CHUNKED_ROWS)
+    assert stripes * splits <= q8.CHUNKED_TARGET_BLOCKS   # one wave of one block an SM
+    assert per_split == 1 or -(-tiles // (per_split - 1)) > q8.CHUNKED_TARGET_BLOCKS // stripes
+    assert q8.plan(m, n, chunked=False) == q8.split_plan(m, n)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 129), (8192, 4096, 784), (300, 260, 1024),
+                                   (1000, 4097, 200), (130, 257, 1)])
+def test_gram_q8_chunked_scratch(m, n, d):
+    """``chunked_scratch`` is the launcher's layout: the planes of m rows
+    rounded up to 128 and q's image of n rounded up to 256, d rounded up to
+    32 features, then 2 floats a row and 1 a support; 45.9 MB of bf16 at
+    the student's 8,192 x 4,096 x 784."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/gram_q8.cu").read_text()
+    for line in ("constexpr int slab_dim(int d) { return (d + SLAB - 1) / SLAB * SLAB; }",
+                 "constexpr int padded_rows(int m) { return (m + CBM - 1) / CBM * CBM; }",
+                 "constexpr int padded_supports(int n) { return (n + CBN - 1) / CBN * CBN; }",
+                 "  __nv_bfloat16* qb = xp + PLANES * plane;",
+                 "  float* xz = sqx + mp;", "  float* sqs = xz + mp;"):
+        assert line in src, line
+    rows, supports, ldk = -(-m // 128) * 128, -(-n // 256) * 256, -(-d // 32) * 32
+    assert q8.chunked_scratch(m, n, d) == ((3 * rows + supports) * ldk, 2 * rows + supports)
+    if (m, n, d) == (8192, 4096, 784):
+        assert 2 * q8.chunked_scratch(m, n, d)[0] == 45_875_200
+
+
+def q8_prologue_emulated(x, q, scale, zero):
+    """``q8_prologue`` in plain PyTorch, in its scratch layout: the planes
+    of fl(x * scale) split as split3 does and q's bf16 image, rows padded
+    to CHUNKED_ROWS / CHUNKED_TILE with zeros and features to SLAB; |x|^2
+    and x . zero a chain thread each, |s|^2 two chain threads over the
+    halves of padded_k(d), their sums added; the chains walk the features
+    PRO_CH at a time from the staged rows, which keeps each chain's order."""
+    x, q, scale, zero = (torch.as_tensor(a) for a in (x, q, scale, zero))
+    m, d = x.shape
+    n = q.shape[0]
+    (elems, floats), ldk = q8.chunked_scratch(m, n, d), -(-d // q8.SLAB) * q8.SLAB
+    mp, np_ = -(-m // q8.CHUNKED_ROWS) * q8.CHUNKED_ROWS, -(-n // q8.CHUNKED_TILE) * q8.CHUNKED_TILE
+    xs = torch.zeros((mp, ldk), dtype=torch.float32)
+    xs[:m, :d] = x * scale
+    qf = torch.zeros((np_, ldk), dtype=torch.float32)
+    qf[:n, :d] = q.float()
+    planes = torch.cat([p.bfloat16().reshape(-1) for p in q8_planes(xs)] + [qf.bfloat16().reshape(-1)])
+    assert planes.numel() == elems
+    half, kp = -(-d // Q8_KSTEP) * Q8_KSTEP // 2, -(-d // Q8_KSTEP) * Q8_KSTEP
+    sqx, xz, chains = (torch.zeros(mp), torch.zeros(mp), [torch.zeros(np_), torch.zeros(np_)])
+    s = torch.zeros((np_, d))
+    s[:n] = q8.dequantize(q, scale, zero)
+    for c0 in range(0, ldk, Q8_PRO_CH):
+        for f in range(c0, min(c0 + Q8_PRO_CH, d)):
+            sqx[:m] = _fma32(x[:, f], x[:, f], sqx[:m])
+            xz[:m] = _fma32(x[:, f], zero[f].expand(m), xz[:m])
+        for h, (lo, hi) in enumerate(((0, min(d, half)), (half, min(d, kp)))):
+            for f in range(max(c0, lo), min(c0 + Q8_PRO_CH, hi)):
+                chains[h][:n] = _fma32(s[:n, f], s[:n, f], chains[h][:n])
+    norms = torch.cat([sqx, xz, chains[0] + chains[1]])
+    assert norms.numel() == floats
+    return planes, norms
+
+
+@pytest.mark.parametrize("label", ["student 2048", "wide 129", "wide 784", "ragged"])
+def test_gram_q8_prologue_is_the_emulated_order(label):
+    """The prologue's planes, q's image and norms are bitwise what
+    ``rbf_gram_q8_split_emulated(..., chunk=Q8_CHUNK)`` multiplies and adds
+    (its ``q8_terms``), zeros in the padding; so the chunked route's
+    products and epilogue see the staged kernel's operands."""
+    from repro_torch.comm.wire import _quantize_columns
+
+    if label.startswith("wide"):
+        d = int(label.split()[1])
+        x, sup = _wide_rows(d, rows=300)
+        q, scale, zero = _quantize_columns(sup[:260])
+    else:
+        x, q, scale, zero, _ = _q8_case(label)
+    x, q, scale, zero = (torch.from_numpy(np.ascontiguousarray(a)) for a in (x, q, scale, zero))
+    m, d = x.shape
+    n = q.shape[0]
+    kp = -(-d // Q8_KSTEP) * Q8_KSTEP
+    planes, norms = q8_prologue_emulated(x, q, scale, zero)
+    want_planes, want_q, sqx, xz, sqs = q8_terms(
+        x, q, scale, zero, [range(c0, min(c0 + Q8_CHUNK, kp)) for c0 in range(0, kp, Q8_CHUNK)])
+    ldk, mp = -(-d // q8.SLAB) * q8.SLAB, -(-m // q8.CHUNKED_ROWS) * q8.CHUNKED_ROWS
+    np_ = -(-n // q8.CHUNKED_TILE) * q8.CHUNKED_TILE
+    got = planes.float().split([mp * ldk] * 3 + [np_ * ldk])
+    for plane, want in zip(got[:3], want_planes):
+        plane = plane.view(mp, ldk)
+        assert torch.equal(plane[:m, :kp], want) and not plane[m:].any() and not plane[:, kp:].any()
+    qimg = got[3].view(np_, ldk)
+    assert torch.equal(qimg[:n, :kp], want_q) and not qimg[n:].any() and not qimg[:, kp:].any()
+    got_sqx, got_xz, got_sqs = norms.split([mp, mp, np_])
+    for g, w, rows in ((got_sqx, sqx, m), (got_xz, xz, m), (got_sqs, sqs, n)):
+        assert torch.equal(g[:rows], w) and not g[rows:].any()
 
 
 # ----------------------------------------------------------------------
@@ -1412,7 +1614,8 @@ def q8_staged_bytes(ksteps):
             + 4 * (2 * q8.TILE + 2 * q8.ROWS + 2 * kp))
 
 
-Q8_CHUNKED_BYTES = 2 * (3 * 64 + 128) * (Q8_CHUNK + 8) + 4 * (128 + 2 * 64 + 2 * Q8_CHUNK)
+# a ring of slabs (3 planes and q, 32 features) and its full and empty mbarriers
+Q8_CHUNKED_BYTES = Q8_STAGES * (3 * 128 + 256) * 2 * 32 + 2 * Q8_STAGES * 8
 
 
 def sdca_smem_bytes(b):
@@ -1431,9 +1634,9 @@ def test_wide_smem_formulas_match_the_sources():
     assert f"constexpr int STAGES = {ENS_STAGES};" in src["ensemble_score"]
     assert "constexpr int PAIR = 2 * EN;" in src["ensemble_score"]
     assert "constexpr int RAW_STEP = PAIR * DC + 2 * 2 * DC * 4;" in src["ensemble_score"]
-    # one block of the scorers' chunked kernel an SM, two of gram_q8's
+    # one block an SM of the scorers' chunked kernel and of gram_q8's
     assert "__launch_bounds__(THREADS, 1)\npartials_chunked_kernel(" in src["ensemble_score"]
-    assert "__launch_bounds__(THREADS, 2)\ngram_q8_chunked_kernel(" in src["gram_q8"]
+    assert "__launch_bounds__(CTHREADS, 1)\ngram_q8_chunked_kernel(" in src["gram_q8"]
     assert ("return 4 * (BQ * row_stride(d) + support_floats(d) + 2 * TILE + 2 * TILE) + 8 * 2 * TILE;"
             in src["gram_matvec"])
     assert "constexpr int chunked_smem_bytes() { return 2 * STAGES * STEP_ELEMS; }" in src["gram_matvec"]
@@ -1447,7 +1650,9 @@ def test_wide_smem_formulas_match_the_sources():
     # gram_matvec leaves its staged kernel past one chunk's features
     assert "  if (d > DC)\n    return launch_chunked(" in src["gram_matvec"]
     assert "2 * (XP + BQ) + RAW + 4 * (2 * BN + 2 * BM + 2 * KP);" in src["gram_q8"]
-    assert "static constexpr int BYTES = 2 * (XP + BT) + 4 * (BN + 2 * BM + 2 * CK);" in src["gram_q8"]
+    assert ("constexpr int chunked_smem_bytes() { return STAGES * STAGE_BYTES + 2 * STAGES * 8; }"
+            in src["gram_q8"])
+    assert "constexpr int STAGE_BYTES = SROWS * SROW_BYTES;" in src["gram_q8"]
     assert "return block_bytes() + static_cast<int>(sizeof(double)) * b +" in src["sdca"]
     assert "return static_cast<int>(sizeof(double)) * (2 * TILE + 4 * TILE * LD);" in src["sdca"]
     assert f"constexpr int MAX_SMEM = {MAX_SMEM};" in src["sdca"]
@@ -1484,13 +1689,12 @@ def test_staged_paths_are_chosen_exactly_where_they_fit_today():
 def test_chunked_and_global_instantiations_fit_every_shape():
     """The chunked kernels' shared memory does not depend on d: one size
     for every d up to 4,096, within a block's 227 KB; the SDCA cluster's
-    fits every bucket whose K fits the card, and two blocks an SM for
-    gram_q8's chunked kernel, which promises two
-    (__launch_bounds__(THREADS, 2); 1 KB an SM is the runtime's). The
-    scorers' chunked kernels take one block an SM (its ring of three
-    steps of 128 queries and 128 supports)."""
-    assert 2 * (Q8_CHUNKED_BYTES + 1024) <= 233_472
-    for bytes_ in (ENS_CHUNKED_BYTES, ENS_Q8_CHUNKED_BYTES, GMV_CHUNKED_BYTES):
+    fits every bucket whose K fits the card. The scorers' and gram_q8's
+    chunked kernels take one block an SM (rings of three steps of 128
+    queries and 128 supports, and of five 32-feature slabs of a 128 x 256
+    tile and their mbarriers: 204,880 bytes)."""
+    assert Q8_CHUNKED_BYTES == 204_880
+    for bytes_ in (ENS_CHUNKED_BYTES, ENS_Q8_CHUNKED_BYTES, GMV_CHUNKED_BYTES, Q8_CHUNKED_BYTES):
         assert bytes_ <= MAX_SMEM
     # the SDCA cluster's ring holds a whole tile's stages up to bucket
     # 16,384 and at least one stage at every bucket whose K fits an 80 GB

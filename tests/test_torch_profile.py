@@ -145,6 +145,31 @@ def test_gram_matvec_bound_prices_the_plane_products(d, want_ms):
         set_hardware(None)
 
 
+@pytest.mark.parametrize("d,want_ms,want_by", [(784, 0.1596, "operations"), (32, 0.0404, "bytes")])
+def test_rbf_gram_q8_bound_prices_the_plane_products(d, want_ms, want_by):
+    """``rbf_gram_q8`` at the student's 8,192 x 4,096: the cross term's
+    2 m n d operations at 989 / 3 TFLOP/s (x * scale in three bf16 planes
+    against int8 values exact in bf16), the rest at the fp32 rate, beside
+    the bytes (the 134 MB output): an operations bound at d 784, the same
+    bytes bound as before at d 32; ``set_hardware`` still prices on its
+    one sheet."""
+    x = torch.empty((8192, d), device="meta")
+    q = torch.empty((4096, d), dtype=torch.int8, device="meta")
+    s = torch.empty((d,), device="meta")
+    args = (x, q, s, s, 0.5)
+    bound_s, by = kernel_bound("rbf_gram_q8", args)
+    assert by == want_by and round(1e3 * bound_s, 4) == pytest.approx(want_ms, abs=5e-5)
+    flops, nbytes = kernel_cost("rbf_gram_q8", None, args)
+    cross = 2 * 8192 * 4096 * d
+    assert bound_s == max(cross / (989e12 / 3), (flops - cross) / 67e12, nbytes / 3.35e12)
+    set_hardware(H100_SXM_FP32)
+    try:
+        fp32 = roofline_report(flops, nbytes, 0.0, hw=H100_SXM_FP32)["step_lower_bound_s"]
+        assert kernel_bound("rbf_gram_q8", args)[0] == fp32
+    finally:
+        set_hardware(None)
+
+
 def test_kernel_cost_reads_shapes_only():
     """Meta tensors (no data) price a Gram launch as real ones do, and a
     fit (x2 is x1) reads its operand once."""

@@ -71,12 +71,12 @@ def chip_smoke():
     return mod
 
 
-def build(native, src_dir: Path, out_dir: Path):
-    """One nvcc of ``src_dir``'s source: (library path, process)."""
+def build(native, src_dir: Path, out_dir: Path, lib: str = LIB):
+    """One nvcc of ``src_dir``'s ``lib`` source: (library path, process)."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{LIB}.so"
+    so = out_dir / f"lib{lib}.so"
     return so, subprocess.Popen(
-        [native._nvcc(), *native.NVCC_FLAGS, "-o", str(so), str(src_dir / f"{LIB}.cu")],
+        [native._nvcc(), *native.NVCC_FLAGS, "-o", str(so), str(src_dir / f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
